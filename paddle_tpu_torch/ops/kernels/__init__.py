@@ -1,0 +1,164 @@
+"""paddle_tpu_torch.ops.kernels — the port's hand-written Hopper kernels.
+
+Counterpart of ``paddle_tpu/ops/pallas``. Each kernel is CUDA C++ for
+``sm_90a`` under ``paddle_tpu_torch/csrc/``, compiled by ``nvcc`` at first
+use into a shared library with a plain C interface and called through
+``ctypes`` (pointers from ``Tensor.data_ptr()``, the stream from
+``torch.cuda.current_stream()``). Nothing is compiled or loaded when this
+module is imported: the CPU has no ``nvcc``, and on a CPU tensor every
+wrapper computes its kernel's plain PyTorch version instead. On a CUDA
+tensor the wrapper launches the kernel or raises; it never falls back.
+
+This module holds what the kernels share:
+
+* :func:`build` — the ``nvcc`` build, one process per source, all started
+  together, into :data:`BUILD_DIR` (listed in ``.gitignore``). A library
+  is named after a hash of its source and flags, so an edited source is
+  rebuilt and a stale library is never loaded.
+* :data:`launches` — one plain int per kernel, incremented by the wrapper
+  where it launches the kernel and nowhere else, so a run can show that
+  its main path went through the kernels.
+* a build lock, so that the serving batcher's thread and the main thread
+  never build or load at the same time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: kernel name -> its CUDA source under ``csrc/``
+SOURCES = {
+    "layer_norm_fwd": "layer_norm.cu",
+    "flash_attention_fwd": "flash_attention.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: launches per kernel since the last :func:`reset_launches`
+launches = {name: 0 for name in SOURCES}
+
+_lock = threading.Lock()        # build and load
+_count_lock = threading.Lock()
+_libs = {}
+
+
+def reset_launches():
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count_launch(name):
+    with _count_lock:
+        launches[name] += 1
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name):
+    src = CSRC / SOURCES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [src]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _build_locked(names):
+    pending = []
+    for name in names:
+        so = _library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in pending:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def build(*names):
+    """Compile every named kernel (default: all) whose library is not
+    built yet, one ``nvcc`` per source, all at once. Returns
+    ``{name: nvcc output}``, which includes ``-Xptxas -v``'s registers,
+    shared memory and spills for each kernel."""
+    names = names or tuple(SOURCES)
+    with _lock:
+        _build_locked(names)
+    logs = {}
+    for name in names:
+        log = _library_path(name).with_suffix(".log")
+        logs[name] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def function(name, argtypes):
+    """The C entry point ``name`` of its kernel's library, built and
+    loaded on first use, with ``argtypes`` set and an int return."""
+    fn = _libs.get(name)
+    if fn is None:
+        with _lock:
+            fn = _libs.get(name)
+            if fn is None:
+                _build_locked((name,))
+                lib = ctypes.CDLL(str(_library_path(name)))
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                lib.ptk_error_string.argtypes = [ctypes.c_int]
+                lib.ptk_error_string.restype = ctypes.c_char_p
+                fn.error_string = lib.ptk_error_string
+                _libs[name] = fn
+    return fn
+
+
+def check(name, fn, code):
+    """Raise if a launch returned a CUDA error: a refused launch never
+    runs, and a later synchronize would not report it."""
+    if code != 0:
+        msg = fn.error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_of(t):
+    """PyTorch's current stream on the tensor's card, as a C pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def device_index(t):
+    return t.device.index if t.device.index is not None else 0
+
+
+from . import layer_norm, flash_attention  # noqa: E402
+
+__all__ = ["build", "function", "launches", "reset_launches", "layer_norm",
+           "flash_attention", "SOURCES", "BUILD_DIR"]

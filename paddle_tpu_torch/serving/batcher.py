@@ -1,0 +1,243 @@
+"""paddle_tpu_torch.serving.batcher — dynamic request coalescing.
+
+Counterpart of ``paddle_tpu/serving/batcher.py`` without its monitor,
+metrics and request-trace calls, and without the hooks the multi-replica
+fleet uses for supervision and failover (``inflight_age``,
+``steal_pending``, ``disown_inflight``, ``requeue``), which come back
+with ``serving/multi.py``. Callers submit ragged requests (1, 3,
+7, 13 rows ...) into a bounded queue; a background thread drains it,
+coalesces same-signature requests along the batch axis, and flushes when
+either ``max_batch`` rows accumulate or the oldest request has waited
+``timeout_ms`` — whichever comes first. The engine pads the coalesced
+rows up to the next ``io.bucketing`` bucket, so every flush runs a
+warmed-up shape, and slices per-request outputs back out.
+
+Queueing discipline:
+
+* FIFO by arrival. A flush takes the oldest request's signature and
+  collects its same-signature successors in order (no reordering
+  within a signature; a different signature never blocks behind a
+  full flush of another).
+* Admission runs at enqueue (fast-reject on a full queue) and expiry
+  at dequeue (an expired request is resolved with ``DeadlineExpired``
+  and never counted toward a flush) — see ``admission.py``.
+* Futures are resolved OUTSIDE the queue lock: a done-callback that
+  immediately re-submits must not deadlock the drain thread.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import threading
+import time
+
+
+class Request:
+    """One in-flight unit of work: ``n`` example rows across one or
+    more input arrays, a future the caller holds, and an optional
+    deadline. Created by ``ServingEngine.submit``."""
+
+    __slots__ = ("inputs", "n", "signature", "future", "deadline",
+                 "t_enqueue", "priority")
+
+    def __init__(self, inputs, n, signature, deadline=None, priority=1):
+        self.inputs = inputs              # tuple of host arrays
+        self.n = int(n)                   # rows along the batch axis
+        self.signature = signature        # per-example (shape, dtype) tuple
+        self.future = concurrent.futures.Future()
+        self.deadline = deadline
+        self.priority = int(priority)     # admission.PRIORITIES rank
+        self.t_enqueue = time.monotonic()
+
+    def age(self, now=None):
+        return (now if now is not None else time.monotonic()) \
+            - self.t_enqueue
+
+    # concurrent.futures raises InvalidStateError on a cancelled (or
+    # already resolved) future; a caller cancelling mid-flight must not
+    # crash the drain thread, and the first resolution wins.
+    def resolve_result(self, value):
+        try:
+            self.future.set_result(value)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+    def resolve_exception(self, exc):
+        try:
+            self.future.set_exception(exc)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+
+class DynamicBatcher:
+    """Bounded queue + drain thread. ``process(requests)`` — supplied by
+    the engine — executes one coalesced, same-signature group; the
+    batcher owns *when* and *what* to flush, the engine owns *how*."""
+
+    def __init__(self, process, admission, max_batch=32, timeout_ms=5.0,
+                 name="paddle_tpu_torch-serving"):
+        self._process = process
+        self._admission = admission
+        self.max_batch = int(max_batch)
+        self.timeout_s = float(timeout_ms) / 1e3
+        self._name = name
+        self._queue = collections.deque()
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._running = False     # drain thread active
+        self._closed = False      # no further submits
+        self._draining = False
+        self._thread = None
+        # the group currently inside _process (the close(drain=False)
+        # no-stranded-future guarantee)
+        self._inflight = []
+
+    # -- producer side ----------------------------------------------------
+
+    def submit(self, request):
+        """Admit + enqueue; returns the request's future. Raises
+        ``QueueFullError`` synchronously when the queue is at depth.
+        Valid before :meth:`start` — requests queue up for the first
+        flush."""
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("serving engine is closed")
+            self._admission.admit(request, len(self._queue))
+            self._queue.append(request)
+            self._cond.notify()
+        return request.future
+
+    def depth(self):
+        with self._lock:
+            return len(self._queue)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def start(self):
+        with self._lock:
+            if self._running or self._closed:
+                return
+            self._running = True
+            self._draining = False
+            self._thread = threading.Thread(
+                target=self._worker, name=self._name, daemon=True)
+            self._thread.start()
+
+    def close(self, drain=True, timeout=None):
+        """Stop accepting work and stop the drain thread. With
+        ``drain=True`` (default) queued requests are flushed first;
+        anything still queued afterwards (``drain=False``, or no thread
+        ever started) fails with RuntimeError. If the drain thread is
+        wedged inside ``process`` (a hung card) the join times out and
+        the *dispatched* group's unresolved futures fail too — a future
+        is never silently lost, even when its executor never comes
+        back."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._running = False
+            self._draining = bool(drain)
+            self._cond.notify_all()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            # a hung process() would otherwise hold close() forever;
+            # drain=False is the "replica is dead, get out" path, so it
+            # always gets a bounded join
+            if timeout is None and not drain:
+                timeout = 5.0
+            t.join(timeout)
+        with self._lock:
+            leftovers = list(self._queue)
+            self._queue.clear()
+            stranded = [r for r in self._inflight if not r.future.done()]
+        for r in leftovers:
+            r.resolve_exception(RuntimeError("serving engine closed"))
+        for r in stranded:
+            r.resolve_exception(RuntimeError(
+                "serving engine closed with the request still dispatched "
+                "(replica hung or died mid-batch)"))
+
+    # -- drain thread -----------------------------------------------------
+
+    def _worker(self):
+        while True:
+            expired, group, wait_s = self._pick_locked()
+            for r in expired:
+                self._admission.expire(r)
+            if group:
+                with self._lock:
+                    self._inflight = group
+                try:
+                    self._process(group)
+                except BaseException as e:  # noqa: BLE001 - to futures
+                    # process() resolves its own failures; this is the
+                    # belt-and-braces path for an unexpected escape, so
+                    # the group can never strand
+                    for r in group:
+                        r.resolve_exception(e)
+                finally:
+                    with self._lock:
+                        self._inflight = []
+                continue
+            with self._cond:
+                if not self._running:
+                    if self._queue and self._draining:
+                        continue        # re-pick: drain flushes the rest
+                    return
+                # re-checks hold the lock, so a submit that landed after
+                # _pick_locked released it is visible here — only the
+                # flush-threshold race can delay, bounded by timeout_s
+                if not self._queue:
+                    self._cond.wait(0.1)
+                elif wait_s > 0:
+                    self._cond.wait(wait_s)
+
+    def _pick_locked(self):
+        """Under the lock: sweep expired requests out of the whole
+        queue, then decide whether the head signature's group should
+        flush now. Returns (expired, group, seconds_to_wait)."""
+        with self._lock:
+            now = time.monotonic()
+            expired, kept = [], collections.deque()
+            while self._queue:
+                r = self._queue.popleft()
+                if self._admission.is_expired(r, now):
+                    expired.append(r)
+                else:
+                    kept.append(r)
+            self._queue = kept
+            if not self._queue:
+                return expired, [], 0.0
+
+            head = self._queue[0]
+            sig = head.signature
+            # overload shrinks the largest batch the picker may build
+            # (admission ladder rung 2+) so service latency stays
+            # bounded while the queue is deep
+            cap = self._admission.effective_max_batch(
+                self.max_batch, len(self._queue))
+            cand, rows, overflow = [], 0, False
+            for r in self._queue:
+                if r.signature != sig:
+                    continue
+                # the head is always taken even if it alone exceeds a
+                # shrunken cap — progress must not depend on the cap
+                if cand and rows + r.n > cap:
+                    # keep FIFO within a signature: stop rather than
+                    # skip-fill with later, smaller requests
+                    overflow = True
+                    break
+                cand.append(r)
+                rows += r.n
+
+            flush_now = (overflow or rows >= cap
+                         or head.age(now) >= self.timeout_s
+                         or self._draining or not self._running)
+            if not flush_now:
+                return expired, [], max(self.timeout_s - head.age(now),
+                                        1e-4)
+            taken = set(map(id, cand))
+            self._queue = collections.deque(
+                r for r in self._queue if id(r) not in taken)
+            return expired, cand, 0.0

@@ -1,0 +1,324 @@
+"""paddle_tpu_torch.serving.engine — a Predictor as an online endpoint.
+
+Counterpart of ``paddle_tpu/serving/engine.py`` without the monitor,
+``serving/metrics.py``, ``serving/reqtrace.py`` and fault-injection
+wiring, and without the fleet's supervision surface (heartbeat, probe,
+failover hand-offs), which come back with ``serving/multi.py``.
+
+``ServingEngine`` composes the pieces: the batcher decides *when* a
+coalesced group flushes (``max_batch`` rows or ``timeout_ms``,
+whichever first); the engine decides *how* — concatenate the group's
+inputs along the batch axis, pad to the next ``io.bucketing`` bucket
+(repeat mode, so pad rows stay in-distribution), run the wrapped
+``Predictor`` on a warmed-up bucket shape, slice every request's rows
+back out, and resolve its future with host numpy outputs. Under cuBLAS a
+row's result may depend on the batch it rode in, so a request's output
+equals ``Predictor.run`` on the lone request within float tolerance, not
+bit for bit as under XLA.
+
+:meth:`warmup` runs every (bucket, signature) pair once up front via
+``Predictor.warmup`` — kernel builds, CUDA and cuBLAS set-up — so
+steady-state traffic meets no first-call cost (``stats()["compiles"]``
+counts signatures first seen, and stays flat after warmup).
+
+Failure semantics ride ``admission.py``: transient batch failures are
+retried under the ``RetryPolicy``; terminal ones re-run the group
+request-by-request so a poisoned request fails only its own future.
+"""
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..inference import to_host
+from ..io.bucketing import next_bucket, pad_to_bucket, split_rows
+from ..resilience.deadline import Deadline
+from .admission import AdmissionController, resolve_priority
+from .batcher import DynamicBatcher, Request
+
+# host-side feed canonicalization (64-bit → 32-bit), so a float64 submit
+# and the float32 warmup signature share one batch signature
+_CANON = {np.dtype("float64"): np.dtype("float32"),
+          np.dtype("int64"): np.dtype("int32"),
+          np.dtype("uint64"): np.dtype("uint32"),
+          np.dtype("complex128"): np.dtype("complex64")}
+
+
+def _as_host_array(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    a = np.asarray(x)
+    tgt = _CANON.get(a.dtype)
+    return a.astype(tgt) if tgt is not None else a
+
+
+class ServingEngine:
+    """Dynamic-batching online inference over one ``Predictor``.
+
+    Parameters
+    ----------
+    predictor : inference.Predictor (already precision-converted)
+    buckets : batch-size bucket set; default powers of two up to
+        ``max_batch``. Always normalized to include ``max_batch`` and
+        exclude anything above it, so every flush lands on a warmable
+        shape.
+    max_batch : row cap per coalesced batch (also the largest single
+        request accepted).
+    timeout_ms : max time the oldest queued request waits before a
+        partial batch flushes.
+    queue_depth : admission bound — submits past it fast-reject with
+        ``QueueFullError``.
+    deadline_ms : default per-request SLA (None = no deadline unless
+        the submit carries one).
+    retry_policy : ``resilience.retry.RetryPolicy`` classifying batch
+        failures.
+    start : launch the drain thread now (False = tests drive it
+        manually via ``.start()``).
+    shed : walk the priority shed ladder before the hard queue cap.
+
+    The reference's ``seq_buckets`` (sequence-axis padding for token
+    prompts) is not ported: it comes with generative serving, and it is
+    wrong for BERT, whose repeated last ``attention_mask`` column would
+    make a padded key visible whenever the last real token is.
+    """
+
+    def __init__(self, predictor, buckets=None, max_batch=32,
+                 timeout_ms=5.0, queue_depth=256, deadline_ms=None,
+                 retry_policy=None, start=True, shed=True):
+        self.predictor = predictor
+        self.max_batch = int(max_batch)
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if buckets:
+            bs = {int(b) for b in buckets if int(b) <= self.max_batch}
+        else:
+            bs, b = set(), 1
+            while b < self.max_batch:
+                bs.add(b)
+                b <<= 1
+        bs.add(self.max_batch)
+        self.buckets = sorted(bs)
+        self.admission = AdmissionController(
+            max_queue_depth=queue_depth,
+            default_deadline_ms=deadline_ms,
+            retry_policy=retry_policy, shed=shed)
+        self.admission.on_event = self._admission_event
+        self._batcher = DynamicBatcher(
+            self._process, self.admission,
+            max_batch=self.max_batch, timeout_ms=timeout_ms)
+        self._stats_lock = threading.Lock()
+        self._stats = {"submitted": 0, "completed": 0, "failed": 0,
+                       "rejected": 0, "expired": 0, "shed": 0,
+                       "batches": 0, "coalesced_rows": 0,
+                       "padded_rows": 0, "compiles": 0, "retries": 0,
+                       "isolated": 0}
+        if start:
+            self.start()
+
+    # -- client surface ---------------------------------------------------
+
+    def make_request(self, inputs, deadline_ms=None, priority=None):
+        """Validate + canonicalize one submit's inputs into a ``Request``
+        (not yet enqueued). Raises ``ValueError`` on malformed inputs."""
+        if not inputs:
+            raise ValueError("submit() needs at least one input array")
+        arrays = tuple(_as_host_array(x) for x in inputs)
+        if any(a.ndim < 1 for a in arrays):
+            raise ValueError(
+                "serving inputs need a leading batch dimension")
+        n = arrays[0].shape[0]
+        if any(a.shape[0] != n for a in arrays):
+            raise ValueError(
+                f"inconsistent leading dims: "
+                f"{[a.shape[0] for a in arrays]}")
+        if n < 1:
+            raise ValueError("empty request (0 rows)")
+        if n > self.max_batch:
+            raise ValueError(
+                f"request of {n} rows exceeds max_batch={self.max_batch}"
+                f" — split it client-side")
+        deadline = (Deadline.after_ms(deadline_ms)
+                    if deadline_ms is not None else None)
+        sig = tuple((a.shape[1:], str(a.dtype)) for a in arrays)
+        return Request(arrays, n, sig, deadline=deadline,
+                       priority=resolve_priority(priority))
+
+    def submit_request(self, req):
+        """Enqueue an already-built ``Request``; returns its future.
+        Raises ``ShedError`` / ``QueueFullError`` from admission."""
+        fut = self._batcher.submit(req)
+        with self._stats_lock:
+            self._stats["submitted"] += 1
+        return fut
+
+    def submit(self, *inputs, deadline_ms=None, priority=None):
+        """Enqueue one request (each input shaped ``(n, ...)``, all with
+        the same leading ``n <= max_batch``); returns a
+        ``concurrent.futures.Future`` resolving to what
+        ``Predictor.run`` on the same inputs returns. ``priority`` is
+        'high'/'normal'/'low' (default 'normal') — under overload the
+        admission ladder sheds low classes first. Raises ``ShedError``
+        / ``QueueFullError`` under overload, ``ValueError`` on
+        malformed inputs."""
+        return self.submit_request(self.make_request(
+            inputs, deadline_ms=deadline_ms, priority=priority))
+
+    def run(self, *inputs, deadline_ms=None, timeout=None, priority=None):
+        """Blocking submit: enqueue, wait, return the outputs (or raise
+        what the request's future raised)."""
+        return self.submit(*inputs, deadline_ms=deadline_ms,
+                           priority=priority).result(timeout)
+
+    def warmup(self, *signatures):
+        """Run every (bucket, signature) pair once. Each signature is a
+        list of per-input ``(example_shape, dtype)`` pairs — the shape
+        WITHOUT the batch dim, e.g. ``[((16,), "float32")]`` for a
+        single ``(n, 16)`` float input. Returns the number of signatures
+        warmed for the first time."""
+        before = len(self.predictor._compiled)
+        for sig in signatures:
+            norm = []
+            for item in sig:
+                if hasattr(item, "shape") and hasattr(item, "dtype"):
+                    norm.append((tuple(item.shape), item.dtype))
+                else:
+                    shape, dtype = item
+                    norm.append((tuple(shape), dtype))
+            for b in self.buckets:
+                self.predictor.warmup(
+                    [((b,) + shape, dtype) for shape, dtype in norm])
+        fresh = len(self.predictor._compiled) - before
+        if fresh:
+            with self._stats_lock:
+                self._stats["compiles"] += fresh
+        return fresh
+
+    def start(self):
+        self._batcher.start()
+
+    def close(self, drain=True, timeout=None):
+        self._batcher.close(drain=drain, timeout=timeout)
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _admission_event(self, event):
+        key = {"rejected": "rejected", "expired": "expired",
+               "poisoned": "failed", "shed": "shed"}.get(event)
+        if key is not None:
+            with self._stats_lock:
+                self._stats[key] += 1
+
+    def stats(self):
+        """Engine-local accounting: every submitted request is completed,
+        failed, expired or still queued."""
+        with self._stats_lock:
+            s = dict(self._stats)
+        s["queue_depth"] = self._batcher.depth()
+        s["buckets"] = list(self.buckets)
+        return s
+
+    # -- batch execution (drain thread) -----------------------------------
+
+    def _process(self, requests):
+        """One coalesced same-signature group: assemble → execute (with
+        retry/isolation) → scatter."""
+        with self._stats_lock:
+            self._stats["batches"] += 1
+        arrays, real_n, bucket = self._assemble(requests)
+        with self._stats_lock:
+            self._stats["coalesced_rows"] += real_n
+            self._stats["padded_rows"] += bucket - real_n
+        outs = self._execute_with_recovery(requests, arrays)
+        if outs is None:
+            return      # isolation path resolved every future already
+        self._scatter(requests, outs)
+
+    def _assemble(self, requests):
+        """Concatenate the group's inputs along the batch axis and pad
+        to the next bucket (repeat mode; pad rows' outputs are dropped at
+        scatter)."""
+        real_n = sum(r.n for r in requests)
+        bucket = next_bucket(real_n, self.buckets)
+        arrays = []
+        for i in range(len(requests[0].inputs)):
+            parts = [r.inputs[i] for r in requests]
+            a = parts[0] if len(parts) == 1 else np.concatenate(parts,
+                                                                axis=0)
+            arrays.append(pad_to_bucket(a, bucket))
+        return arrays, real_n, bucket
+
+    def _run_batch(self, arrays):
+        """Execute one bucket-shaped batch; returns a tuple of device
+        outputs plus whether the model is multi-output. Counts signatures
+        met for the first time into ``compiles`` (zero after warmup)."""
+        before = len(self.predictor._compiled)
+        out = self.predictor.run_device(*arrays)
+        fresh = len(self.predictor._compiled) - before
+        if fresh:
+            with self._stats_lock:
+                self._stats["compiles"] += fresh
+        multi = isinstance(out, (tuple, list))
+        return (tuple(out) if multi else (out,)), multi
+
+    def _execute_with_recovery(self, requests, arrays):
+        """Transient failures retry the whole batch under the admission
+        policy; terminal (or exhausted) ones fall to per-request
+        isolation — one poisoned request fails its own future only."""
+        policy = self.admission.retry_policy
+        attempt = 0
+        while True:
+            try:
+                return self._run_batch(arrays)
+            except Exception as e:  # noqa: BLE001 - triaged below
+                if policy.is_transient(e) \
+                        and attempt + 1 < policy.max_attempts:
+                    with self._stats_lock:
+                        self._stats["retries"] += 1
+                    time.sleep(policy.delay(attempt))
+                    attempt += 1
+                    continue
+                with self._stats_lock:
+                    self._stats["isolated"] += len(requests)
+                self.admission.isolate(requests, self._run_one, e)
+                return None
+
+    def _run_one(self, request):
+        """Isolation path: execute ONE request alone (still bucket-
+        padded, so no fresh shapes are minted) and resolve its future.
+        Raises to the caller (admission.isolate) if this request is the
+        poison."""
+        arrays, _real, _bucket = self._assemble([request])
+        self._scatter([request], self._run_batch(arrays))
+
+    def _scatter(self, requests, outs_multi):
+        """Slice each request's rows back out (device→host once for the
+        whole batch) and resolve the futures."""
+        outs, multi = outs_multi
+        host = [to_host(o) for o in outs]
+        bucket = None
+        for a in host:
+            if getattr(a, "ndim", 0) >= 1:
+                bucket = a.shape[0]
+                break
+        sizes = [r.n for r in requests]
+        per_out_chunks = []
+        for a in host:
+            if getattr(a, "ndim", 0) >= 1 and a.shape[0] == bucket:
+                per_out_chunks.append(split_rows(a, sizes))
+            else:
+                # no batch dim (a scalar reduction): every request gets
+                # the whole thing
+                per_out_chunks.append([a] * len(requests))
+        for j, r in enumerate(requests):
+            vals = [chunks[j] for chunks in per_out_chunks]
+            r.resolve_result(list(vals) if multi else vals[0])
+        with self._stats_lock:
+            self._stats["completed"] += len(requests)
