@@ -10,7 +10,7 @@ first use (:mod:`paddle_tpu_torch.ops.kernels`). The package imports
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, or :func:`set_device`); with no card they raise.
 
-This slice serves BERT::
+The port serves BERT::
 
     from paddle_tpu_torch import inference, serving
     from paddle_tpu_torch.models import Bert, BertConfig
@@ -19,12 +19,25 @@ This slice serves BERT::
     eng = serving.ServingEngine(pred, buckets=[8, 32], max_batch=32)
     eng.warmup([((128,), "int32"), ((128,), "int32"), ((128,), "int32")])
     seq, pooled = eng.submit(ids, type_ids, mask).result()
+
+and pretrains it (``tools/bench_bert.py`` is the measured loop)::
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    model = BertForPretraining(BertConfig.base()).cuda()
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    with amp.auto_cast(dtype="bfloat16"):
+        logits, nsp_logits = model(ids)
+    loss = model.loss(logits.float(), nsp_logits.float(), mlm, nsp)
+    loss.backward(); opt.step(); opt.clear_grad()
 """
-from . import device, random, initializer, nn, ops, models, inference, io
-from . import resilience, serving, convert
+from . import device, random, amp, initializer, nn, ops, models, inference
+from . import io, resilience, serving, convert, regularizer, optimizer, jit
 from .device import get_device, set_device
 from .random import seed
 
-__all__ = ["device", "random", "initializer", "nn", "ops", "models",
+__all__ = ["device", "random", "amp", "initializer", "nn", "ops", "models",
            "inference", "io", "resilience", "serving", "convert",
-           "get_device", "set_device", "seed"]
+           "regularizer", "optimizer", "jit", "get_device", "set_device",
+           "seed"]

@@ -2,7 +2,9 @@
 
 The port keeps the JAX package's parameter names and layouts, so a JAX
 ``Layer.state_dict()`` taken as numpy (``state_dict(keep_vars=False)``)
-loads into the port's model of the same configuration key for key.
+loads into the port's model of the same configuration key for key, and
+:func:`export_state` takes the port's back out the same way, so that two
+models can be compared key for key after training steps.
 """
 from __future__ import annotations
 
@@ -31,3 +33,17 @@ def load_jax_state(model, arrays):
             src = torch.from_numpy(np.array(arrays[name], copy=True))
             t.copy_(src.to(dtype=t.dtype))
     return model
+
+
+def export_state(model):
+    """``model``'s parameters and buffers as ``{name: np.ndarray}`` on the
+    host, keyed as :func:`load_jax_state` takes them: copies, never views
+    of a CPU model's storage (bf16, which numpy lacks, comes back as
+    float32)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = np.array(t.cpu().numpy(), copy=True)
+    return out

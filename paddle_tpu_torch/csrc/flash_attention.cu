@@ -1,7 +1,7 @@
 // Forward flash attention for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
-// (launched by `_flash_fwd_res`), without its in-kernel dropout. For one
+// (launched by `_flash_fwd_res`), in-kernel dropout included. For one
 // (batch*head, query tile) per block it walks the key/value tiles with the
 // online-softmax recurrence of the Pallas kernel:
 //   s      = (q * scale) k^T + bias          bias: none, a key row
@@ -10,7 +10,10 @@
 //   m_new  = max(m, rowmax(s));  m_safe = m_new <= -1e30 ? 0 : m_new
 //   p      = s <= -1e30 ? 0 : exp(s - m_safe)
 //   corr   = m <= -1e30 ? 0 : exp(m - m_safe)
-//   l      = l * corr + rowsum(p);  acc = acc * corr + p v
+//   l      = l * corr + rowsum(p);  acc = acc * corr + pd v
+// where pd = p, or with dropout pd = keep ? p / (1 - rate) : 0 and keep
+// the counter hash of common.cuh at (bh, row, col): l stays the undropped
+// normalizer, as in the Pallas kernel (`_fwd_kernel` drops p after l).
 // and writes O = acc / max(l, 1e-20) in q's dtype, plus the per-row max m
 // (0 for a row with every key masked) and normalizer l as f32, kept apart
 // and not folded into one log-sum-exp: with the -1e9 additive padding mask
@@ -75,6 +78,10 @@ struct Params {
   int mb, mh;         // mask's batch and head extents (1 = broadcast)
   float scale;
   int causal;
+  int dropout;         // 0 or 1
+  uint32_t threshold;  // keep where the hash >= threshold
+  uint32_t seed0, seed1;
+  float keep_div;      // 1 - rate
 };
 
 template <int D>
@@ -188,11 +195,17 @@ __global__ void __launch_bounds__(NT) flash_fwd(const Params p) {
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
       const float m_new = fmaxf(m[i], mx);
       const float m_safe = m_new <= NEG_INF ? 0.f : m_new;
+      const uint32_t hrow = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
       float rs = 0.f;
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
         const float pv = s[i][t] <= NEG_INF ? 0.f : expf(s[i][t] - m_safe);
-        Ps[r * PS + cg + CG * t] = pv;
+        float pd = pv;
+        if (p.dropout)
+          pd = ptk::dropout_keep(hrow, p.seed0, k0 + cg + CG * t, p.threshold)
+                   ? pv / p.keep_div
+                   : 0.f;
+        Ps[r * PS + cg + CG * t] = pd;
         rs += pv;
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -263,7 +276,10 @@ cudaError_t launch(const Params& p, int bh, int device, cudaStream_t stream) {
 // batch, head and sequence dims, the head dim contiguous (strides in
 // elements). mask: contiguous f32 (mb*mh, 1 or Sq, Sk) for mask_mode 1 or
 // 2, else null. m, l: contiguous f32 (B*H, Sq). D must be 64 or 128.
-// Launches on `stream` and returns a CUDA error code; allocates nothing.
+// dropout 1 drops attention probabilities where the counter hash of
+// (seed0, seed1, bh, row, col) is below threshold, scaling the kept ones
+// by 1 / keep_div. Launches on `stream` and returns a CUDA error code;
+// allocates nothing.
 extern "C" int flash_attention_fwd(
     int device, const void* q, const void* k, const void* v,
     const void* mask, void* o, void* m, void* l, int B, int H, int Sq,
@@ -271,7 +287,8 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int mask_mode, int mb, int mh, float scale, int causal,
-    int bf16, void* stream) {
+    int bf16, int dropout, unsigned threshold, unsigned seed0, unsigned seed1,
+    float keep_div, void* stream) {
   cudaError_t err = ptk::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
@@ -297,6 +314,11 @@ extern "C" int flash_attention_fwd(
   p.mh = mh;
   p.scale = scale;
   p.causal = causal;
+  p.dropout = dropout;
+  p.threshold = threshold;
+  p.seed0 = seed0;
+  p.seed1 = seed1;
+  p.keep_div = keep_div;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
   if (bf16)

@@ -1,18 +1,24 @@
 """BERT — counterpart of ``paddle_tpu/models/bert.py``.
 
 Same configuration knobs, module names and parameter layouts as the JAX
-model, so ``state_dict()`` keys match and weights carry across with
+model, so ``state_dict()`` keys match (and ``parameters()`` come in the
+same order), and weights carry across with
 :func:`paddle_tpu_torch.convert.load_jax_state`. Self-attention runs the
-port's flash-attention kernel and every LayerNorm the port's layer-norm
-kernel; the dense projections are ``torch.matmul``. This slice serves:
-the pretraining loss, recompute and mixture-of-experts layers come with
-later slices and raise here.
+port's flash-attention kernels (forward, in-kernel attention dropout,
+dQ and dK/dV backward) and every LayerNorm the port's layer-norm kernels
+(forward and backward); the dense projections are ``torch.matmul``, cast
+to bf16 under :func:`paddle_tpu_torch.amp.auto_cast`. The model serves
+(``Bert``) and trains (``BertForPretraining.loss``, then ``backward()``
+and an optimizer step); recompute and mixture-of-experts layers are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import nn
+from ..ops import loss as L
+from ..ops import math as M
 from ..ops import nn_ops as F
 from ..ops.kernels.flash_attention import flash_attention
 
@@ -72,8 +78,8 @@ class MultiHeadAttention(nn.Layer):
         b, s, d = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
         # 3, B, H, S, D: views with strides; the kernel reads them in place
-        qkv = qkv.permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
+        # (unbind rather than three selects: its backward is one stack)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         if self.use_flash:
             ctx = flash_attention(q, k, v, attn_mask=attn_mask,
                                   dropout_p=self.dropout_p,
@@ -142,7 +148,7 @@ class Bert(nn.Layer):
         if config.use_recompute:
             raise NotImplementedError(
                 "BertConfig.use_recompute rematerializes activations for "
-                "the backward pass; it comes with the training slice")
+                "the backward pass; it is not ported yet (ROADMAP.md)")
         self.config = config
         self.embeddings = BertEmbeddings(config)
         self.encoder = nn.LayerList(
@@ -165,8 +171,7 @@ class Bert(nn.Layer):
 
 
 class BertForPretraining(nn.Layer):
-    """MLM + NSP heads; forward only (the loss waits for the training
-    slice)."""
+    """MLM + NSP heads and their pretraining loss."""
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -181,8 +186,17 @@ class BertForPretraining(nn.Layer):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
-        # tied output embedding: the word embedding table, transposed
-        logits = torch.matmul(
-            h, self.bert.embeddings.word_embeddings.weight.t()) + \
-            self.mlm_bias
+        # tied output embedding: the word embedding table, transposed; an
+        # AMP-listed matmul, so bf16 under auto_cast (the f32 bias then
+        # makes the logits f32, as in the reference)
+        logits = M.matmul(h, self.bert.embeddings.word_embeddings.weight,
+                          transpose_y=True) + self.mlm_bias
         return logits, self.nsp(pooled)
+
+    def loss(self, logits, nsp_logits, mlm_labels, nsp_labels,
+             ignore_index=-1):
+        """Masked-LM cross entropy over the positions whose label is not
+        ``ignore_index``, plus next-sentence cross entropy."""
+        mlm = L.cross_entropy(logits, mlm_labels, ignore_index=ignore_index)
+        nsp = L.cross_entropy(nsp_logits, nsp_labels)
+        return mlm + nsp

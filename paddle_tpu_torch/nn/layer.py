@@ -1,10 +1,13 @@
 """paddle_tpu_torch.nn.layer — the Layer base class.
 
 Counterpart of ``paddle_tpu/nn/layer.py``: a ``torch.nn.Module`` with
-paddle's ``create_parameter``. Parameter names and
+paddle's ``create_parameter`` and ``clear_gradients``. Parameter names and
 layouts are the JAX package's (Linear weights ``[in, out]``), so
 ``state_dict()`` keys and shapes match the JAX ``Layer.state_dict()`` one
-to one. ``eval()``/``train()`` and traversal are torch's own.
+to one. ``eval()``/``train()`` and traversal are torch's own; torch's
+``parameters()`` order (a layer's own parameters, then each sublayer's in
+the order they were set, tied ones once) is the JAX ``Layer``'s, so an
+optimizer sees the parameters in the reference's order.
 """
 from __future__ import annotations
 
@@ -37,3 +40,8 @@ class Layer(nn.Module):
             I.Constant(0.0) if is_bias else I.XavierUniform())
         data = init(shape, dtype or self._dtype, generator=generator)
         return nn.Parameter(data)
+
+    def clear_gradients(self):
+        """Drop every parameter's gradient (``Layer.clear_gradients``)."""
+        for p in self.parameters():
+            p.grad = None

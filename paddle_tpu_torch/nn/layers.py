@@ -38,9 +38,9 @@ class Linear(Layer):
 class LayerNorm(Layer):
     """Layer norm over the trailing ``normalized_shape`` axes. With one
     normalized axis and an affine weight and bias it goes through the
-    port's kernel wrapper (the kernel on a CUDA tensor, its plain version
-    on a CPU one), mirroring the JAX layer's Pallas branch; otherwise the
-    plain ``F.layer_norm``."""
+    port's kernels (forward and backward under one autograd ``Function``
+    on a CUDA tensor, their plain versions on a CPU one), mirroring the
+    JAX layer's Pallas branch; otherwise the plain ``F.layer_norm``."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None):
@@ -77,6 +77,8 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
+    """Dropout in training mode, its mask drawn on the input's device."""
+
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
         super().__init__()
         self._a = dict(p=p, axis=axis, mode=mode)

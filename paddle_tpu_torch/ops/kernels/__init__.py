@@ -14,7 +14,8 @@ This module holds what the kernels share:
 * :func:`build` — the ``nvcc`` build, one process per source, all started
   together, into :data:`BUILD_DIR` (listed in ``.gitignore``). A library
   is named after a hash of its source and flags, so an edited source is
-  rebuilt and a stale library is never loaded.
+  rebuilt and a stale library is never loaded. Kernels that share a
+  source share its library.
 * :data:`launches` — one plain int per kernel, incremented by the wrapper
   where it launches the kernel and nowhere else, so a run can show that
   its main path went through the kernels.
@@ -35,10 +36,14 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-#: kernel name -> its CUDA source under ``csrc/``
+#: kernel name -> its CUDA source under ``csrc/`` (the name is also the
+#: source's C entry point)
 SOURCES = {
     "layer_norm_fwd": "layer_norm.cu",
+    "layer_norm_bwd": "layer_norm_bwd.cu",
     "flash_attention_fwd": "flash_attention.cu",
+    "flash_attention_bwd_dq": "flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -72,8 +77,8 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(name):
-    src = CSRC / SOURCES[name]
+def _library_path(source):
+    src = CSRC / source
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(f.read_bytes())
@@ -82,22 +87,21 @@ def _library_path(name):
 
 def _build_locked(names):
     pending = []
-    for name in names:
-        so = _library_path(name)
+    for source in dict.fromkeys(SOURCES[name] for name in names):
+        so = _library_path(source)
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        pending.append((name, so, tmp, proc))
+        pending.append((source, so, tmp, proc))
     failed = []
-    for name, so, tmp, proc in pending:
+    for source, so, tmp, proc in pending:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
+            failed.append(f"{source}:\n{out}")
             continue
         so.with_suffix(".log").write_text(out)
         os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
@@ -108,15 +112,15 @@ def _build_locked(names):
 def build(*names):
     """Compile every named kernel (default: all) whose library is not
     built yet, one ``nvcc`` per source, all at once. Returns
-    ``{name: nvcc output}``, which includes ``-Xptxas -v``'s registers,
-    shared memory and spills for each kernel."""
+    ``{source: nvcc output}``, which includes ``-Xptxas -v``'s registers,
+    shared memory and spills for each kernel of the source."""
     names = names or tuple(SOURCES)
     with _lock:
         _build_locked(names)
     logs = {}
-    for name in names:
-        log = _library_path(name).with_suffix(".log")
-        logs[name] = log.read_text() if log.exists() else ""
+    for source in dict.fromkeys(SOURCES[name] for name in names):
+        log = _library_path(source).with_suffix(".log")
+        logs[source] = log.read_text() if log.exists() else ""
     return logs
 
 
@@ -129,7 +133,7 @@ def function(name, argtypes):
             fn = _libs.get(name)
             if fn is None:
                 _build_locked((name,))
-                lib = ctypes.CDLL(str(_library_path(name)))
+                lib = ctypes.CDLL(str(_library_path(SOURCES[name])))
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -1,9 +1,16 @@
-"""Forward layer norm: the CUDA kernel ``csrc/layer_norm.cu`` and its plain
-PyTorch version.
+"""Layer norm: the forward kernel ``csrc/layer_norm.cu``, the backward
+kernel ``csrc/layer_norm_bwd.cu``, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
-Counterpart of ``paddle_tpu/ops/pallas/layer_norm.py`` (``_run_fwd`` and
-its ``_fwd_kernel``). The backward kernel (``_ln_bwd``) belongs to the
-training slice; these functions run without autograd.
+Counterpart of ``paddle_tpu/ops/pallas/layer_norm.py``: ``_run_fwd`` (its
+``_fwd_kernel``), ``_ln_bwd`` (its ``_bwd_kernel``) and the custom-vjp
+``_layer_norm2``. :func:`layer_norm` is differentiable: where a gradient
+is wanted it runs :class:`LayerNormFunction`, whose forward saves the
+rows' ``mu`` and ``rstd`` and whose backward launches the backward kernel
+(or, on a CPU tensor, computes :func:`layer_norm_bwd_plain`: the CPU takes
+the same path, with an explicit plain backward rather than autograd of the
+plain forward). Under ``torch.inference_mode`` or ``no_grad`` it calls the
+forward wrapper alone and builds no graph.
 """
 from __future__ import annotations
 
@@ -14,10 +21,17 @@ import torch
 from . import check, count_launch, device_index, function, stream_of
 
 NAME = "layer_norm_fwd"
+BWD_NAME = "layer_norm_bwd"
+#: the backward kernel's limits: rows per block (one partial row of dw
+#: and db each) and the widest row it takes
+BWD_ROWS_PER_BLOCK = 16
+BWD_MAX_D = 8192
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -82,10 +96,105 @@ def layer_norm_fwd(x2, w, b, eps):
     return y, mu, rstd
 
 
+def layer_norm_bwd_plain(x2, w, mu, rstd, g):
+    """Plain PyTorch version of the backward kernel, on any device: the
+    Pallas ``_bwd_kernel``'s arithmetic in f32. Returns ``(dx, dw, db)``
+    with ``dx`` in ``x2``'s dtype and ``dw``, ``db`` in ``w``'s."""
+    x, g, wf = x2.float(), g.float(), w.float()
+    xhat = (x - mu) * rstd
+    dxhat = g * wf
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    dw = (g * xhat).sum(dim=0)
+    db = g.sum(dim=0)
+    return dx.to(x2.dtype), dw.to(w.dtype), db.to(w.dtype)
+
+
+def layer_norm_bwd(x2, w, mu, rstd, g):
+    """Layer norm's gradients for ``x2`` (N, D), weight ``w`` (D,), the
+    forward's ``mu`` and ``rstd`` (N, 1) f32, and the output gradient
+    ``g`` (N, D). On a CUDA tensor it launches the backward kernel (f32 or
+    bf16, D up to 8192): ``dx`` per row, then ``dw`` and ``db`` summed
+    over per-block partials in a fixed order (deterministic). On a CPU
+    tensor it computes :func:`layer_norm_bwd_plain`. Returns ``(dx, dw,
+    db)`` as the plain version does."""
+    if x2.dim() != 2 or g.shape != x2.shape:
+        raise ValueError(f"layer_norm_bwd: x {tuple(x2.shape)} and g "
+                         f"{tuple(g.shape)} must be one (N, D) shape")
+    n, d = x2.shape
+    if w.shape != (d,) or mu.shape != (n, 1) or rstd.shape != (n, 1):
+        raise ValueError(f"layer_norm_bwd: weight {tuple(w.shape)}, mu "
+                         f"{tuple(mu.shape)}, rstd {tuple(rstd.shape)} do "
+                         f"not fit x {(n, d)}")
+    if x2.device.type == "cpu":
+        return layer_norm_bwd_plain(x2, w, mu, rstd, g)
+    if x2.device.type != "cuda" or any(t.device != x2.device
+                                       for t in (w, mu, rstd, g)):
+        raise ValueError("layer_norm_bwd: x, weight, mu, rstd and g must "
+                         "share one CUDA device")
+    for name, t in (("x", x2), ("weight", w)):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"layer_norm_bwd: {name} must be float32 or "
+                            f"bfloat16, got {t.dtype}")
+    if g.dtype != x2.dtype or mu.dtype != torch.float32 \
+            or rstd.dtype != torch.float32:
+        raise TypeError("layer_norm_bwd: g must have x's dtype, mu and rstd "
+                        "float32")
+    if d > BWD_MAX_D:
+        raise ValueError(f"layer_norm_bwd: the kernel takes rows of up to "
+                         f"{BWD_MAX_D}, got {d}")
+    x2, w, g = x2.contiguous(), w.contiguous(), g.contiguous()
+    mu, rstd = mu.contiguous(), rstd.contiguous()
+    dx = torch.empty_like(x2)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(w)
+    if n == 0 or d == 0:
+        return dx, dw.zero_(), db.zero_()
+    nparts = -(-n // BWD_ROWS_PER_BLOCK)
+    part = torch.empty((nparts, 2, d), dtype=torch.float32, device=x2.device)
+    fn = function(BWD_NAME, _BWD_ARGTYPES)
+    code = fn(device_index(x2), x2.data_ptr(), w.data_ptr(), mu.data_ptr(),
+              rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+              db.data_ptr(), part.data_ptr(), n, d,
+              int(x2.dtype == torch.bfloat16),
+              int(w.dtype == torch.bfloat16), stream_of(x2))
+    check(BWD_NAME, fn, code)
+    count_launch(BWD_NAME)
+    return dx, dw, db
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """Layer norm over the last axis of ``x`` (any leading shape) with
+    autograd: the counterpart of the Pallas module's ``_layer_norm2``
+    custom vjp. The forward saves the rows of ``x``, the weight and the
+    rows' ``mu`` and ``rstd``; the backward runs :func:`layer_norm_bwd`.
+    ``db`` takes the bias's dtype, which the forward requires to be the
+    weight's."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        x2 = x.reshape(-1, x.shape[-1])
+        y, mu, rstd = layer_norm_fwd(x2, w, b, eps)
+        ctx.save_for_backward(x2, w, mu, rstd)
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, mu, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x2, w, mu, rstd,
+                                    g.reshape(x2.shape).contiguous())
+        return dx.reshape(g.shape), dw, db, None
+
+
 def layer_norm(x, weight, bias, epsilon=1e-5):
-    """Layer norm over the LAST axis of ``x`` (any leading shape) through
-    :func:`layer_norm_fwd`: the port's counterpart of
-    ``paddle_tpu.ops.pallas.layer_norm``."""
-    d = x.shape[-1]
-    y, _, _ = layer_norm_fwd(x.reshape(-1, d), weight, bias, epsilon)
+    """Layer norm over the LAST axis of ``x`` (any leading shape): the
+    port's counterpart of ``paddle_tpu.ops.pallas.layer_norm``. Where
+    autograd records (grad mode on and an input requires grad) it runs
+    :class:`LayerNormFunction`; otherwise :func:`layer_norm_fwd` alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFunction.apply(x, weight, bias, epsilon)
+    y, _, _ = layer_norm_fwd(x.reshape(-1, x.shape[-1]), weight, bias,
+                             epsilon)
     return y.reshape(x.shape)

@@ -11,11 +11,16 @@ import math
 
 import torch
 
+from .. import amp
 from .. import random as prandom
 
 
 def linear(x, weight, bias=None):
-    """``x @ W + b`` with W laid out ``[in, out]`` as in the JAX package."""
+    """``x @ W + b`` with W laid out ``[in, out]`` as in the JAX package.
+    AMP white-listed: under :func:`paddle_tpu_torch.amp.auto_cast` x, W
+    and b are cast to the compute dtype, as the reference casts all
+    three."""
+    x, weight, bias = amp.maybe_cast(x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -53,10 +58,10 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None,
             generator=None):
-    """Dropout with the keep-mask drawn from ``generator`` (default: the
-    port's global generator, :func:`paddle_tpu_torch.random.generator`).
-    The mask is drawn on the CPU, where that generator lives, and moved
-    to x's device; serving runs in eval mode and never draws."""
+    """Dropout with the keep-mask drawn on x's device from ``generator``
+    (default: the port's generator of that device,
+    :func:`paddle_tpu_torch.random.generator`): no host draw and no copy.
+    Serving runs in eval mode and never draws."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1 - p)
@@ -65,8 +70,8 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None,
     if axis is not None:
         axes = (axis,) if isinstance(axis, int) else tuple(axis)
         shape = tuple(s if i in axes else 1 for i, s in enumerate(x.shape))
-    g = generator if generator is not None else prandom.generator()
-    keep = (torch.rand(shape, generator=g) >= p).to(x.device)
+    g = generator if generator is not None else prandom.generator(x.device)
+    keep = torch.rand(shape, device=x.device, generator=g) >= p
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0)
     return torch.where(keep, x, 0.0)

@@ -38,7 +38,9 @@ from ..models import Bert, BertConfig
 
 # kernel-name fragment -> group, first match wins
 GROUPS = (("ln_fwd", "layer_norm_fwd (port)"),
+          ("ln_bwd", "layer_norm_bwd (port)"),
           ("flash_fwd", "flash_attention_fwd (port)"),
+          ("flash_bwd", "flash_attention_bwd (port)"),
           ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
           ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),
           ("memcpy", "copies"),

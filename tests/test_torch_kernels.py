@@ -153,11 +153,17 @@ def test_flash_attention_strided_views_match_contiguous():
 
 
 def test_flash_attention_training_dropout_raises():
-    q = torch.zeros(1, 1, 8, 64)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        FA.flash_attention(q, q, q, dropout_p=0.1, training=True)
+    """Attention dropout in training now runs (in the kernels, or their
+    plain versions on the CPU); only a rate outside [0, 1) raises."""
+    rng = np.random.RandomState(3)
+    q = _t(rng.randn(1, 2, 8, 64).astype("f4"))
+    with pytest.raises(ValueError, match="dropout_p"):
+        FA.flash_attention(q, q, q, dropout_p=1.0, training=True)
     # eval (or p == 0) is the inference path
-    assert FA.flash_attention(q, q, q, dropout_p=0.1).shape == q.shape
+    ref = FA.flash_attention(q, q, q, dropout_p=0.1)
+    assert ref.shape == q.shape
+    out = FA.flash_attention(q, q, q, dropout_p=0.1, training=True)
+    assert out.shape == q.shape and not torch.allclose(out, ref)
 
 
 def test_flash_attention_rejects_unbroadcastable_mask():
