@@ -38,17 +38,45 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    cases), timed as in phase 2; the library yardsticks are
    ``aten.native_layer_norm_backward`` and the backward of
    ``scaled_dot_product_attention``.
-6. training: ``tools/bench_bert``'s step at full width and depth
+6. loss and optimizer kernels: ``softmax_xent`` forward and backward at
+   the masked-LM logits (8192, 30522) in f32 with ``bench_bert``'s labels
+   and in bf16, with smoothing 0.1 at (4096, 30522), at the NSP logits
+   (64, 2), and at V = 2500 with out-of-range labels; ``fused_adam`` at
+   (30522, 768) f32 and a bf16 (1000, 77); ``fused_adam_multi`` over
+   ``BertForPretraining``'s 157 trained shapes; ``fused_adam_flat`` at
+   their arena length, which must give the many-tensor kernel's bits. Each
+   against its plain version, timed as in phase 2; the library yardsticks
+   are ``F.cross_entropy(ignore_index=-1, reduction="none")`` (forward,
+   and forward+backward minus forward), ``torch._fused_adam_`` and
+   ``torch._fused_adamw_`` over the same tensors (the same function up to
+   rounding: torch divides ``sqrt(v)`` by ``sqrt(1 - b2^t)`` and decays
+   first).
+7. training: ``tools/bench_bert``'s step at full width and depth
    (BERT-base pretraining, batch 64, seq 128, amp bf16, AdamW 1e-4,
-   dropouts 0.1): 8 warm-up steps, then 16 steps with the launch counters
-   zeroed just before and read just after (26 layer-norm forward and
-   backward, 12 flash forward, dQ and dK/dV launches a step), every loss
-   finite, step time and tokens/s; then 11 steps on one batch, whose loss
-   must fall.
-7. f32 step check: one BERT-base pretraining step in float32 (TF32 off,
+   dropouts 0.1), first on its default route, then on the fused route
+   (``kernels.configure(softmax_xent=True, fused_adam_multi=True)``),
+   each from a fresh ``Trainer``: 8 warm-up steps, then 16 steps with the
+   launch counters zeroed just before and read just after (26 layer-norm
+   forward and backward, 12 flash forward, dQ and dK/dV launches a step;
+   on the fused route also 2 ``softmax_xent`` forward and backward, for
+   the masked-LM and NSP losses, and 1 ``fused_adam_multi`` for the 157
+   tensors with a gradient; on the default route none of these), every
+   loss finite, step time and tokens/s; then 11 steps on one batch, whose
+   loss must fall.
+8. optimizer routes: one BERT-base f32 backward with token types (so that
+   all 158 parameters get a gradient) steps four copies of the same
+   weights 3 times, by the plain per-parameter AdamW, ``use_fused=True``
+   (158 ``fused_adam`` launches a step), ``use_multi_tensor=True`` (1
+   ``fused_adam_multi``) and ``flat_arena=True`` under
+   ``configure(fused_adam_multi=True)`` (1 ``fused_adam_flat``). The
+   multi-tensor and arena copies must agree to the bit, each fused route
+   with the plain one within 2 lr a step per element and 1e-2 relative L2
+   over the update; then one arena step on ``bench_bert``'s data, without
+   token types, must launch ``fused_adam_flat`` no time (its mask route).
+9. f32 step check: one BERT-base pretraining step in float32 (TF32 off,
    dropout 0, batch 4, seq 128) on the card and on the CPU from the same
    weights: the loss, every gradient and every parameter after AdamW.
-8. the ``kernels`` line, the card's name and power limit, and the last
+10. the ``kernels`` line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -111,7 +139,16 @@ DROPOUT_P, KEEP_TOL = 0.1, 0.005
 F32_LOSS_TOL = 1e-4
 F32_GRAD_TOL = 1e-3
 F32_UPDATE_TOL = 1e-2
+# the fused route's launches a step: the default route's, plus the
+# masked-LM and NSP losses' softmax_xent forward and backward, and one
+# fused_adam_multi for the 157 tensors with a gradient (256 a launch)
+FUSED_LAUNCHES_PER_STEP = dict(TRAIN_LAUNCHES_PER_STEP, softmax_xent_fwd=2,
+                               softmax_xent_bwd=2, fused_adam_multi=1)
+# the optimizer-route check: AdamW steps on one f32 backward's gradients
+OPT_LR, OPT_STEPS = 1e-4, 3
 TIMED_ITERS = 50             # launches per timed run (median of 5 runs)
+XENT_ITERS = 20              # the same for the (8192, 30522) loss kernels
+ADAM_ITERS = 10              # the same for the whole-model Adam cases
 ROTATE_BYTES = 128 << 20     # inputs rotate over > 2x the 50 MB L2 cache
 RECORDS = []
 
@@ -527,6 +564,244 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     return rec
 
 
+# -- phase 6: the loss and optimizer kernels -----------------------------------
+
+def max_rel_err(a, b):
+    """|a - b| over the largest |b|: for outputs whose scale is set by a
+    factor (dx by g = 1 / count) rather than near 1."""
+    return abs_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def xent_case(torch, SX, label, dtype, n, v, eps, labels, iters, gen):
+    """The softmax_xent forward and backward kernels at (n, v) against
+    their plain versions. ``labels``: ``bench`` (bench_bert's masked-LM
+    labels: a class at 15% of positions, -1, no column, elsewhere), ``oor``
+    (a third -1, a fifth beyond the vocabulary) or ``all``. The loss
+    gradient is the masked mean's: 1 / count on labelled rows, else 0."""
+    from paddle_tpu_torch.tools.bench_bert import make_data
+    dt = getattr(torch, dtype)
+    es = torch.empty((), dtype=dt).element_size()
+    if labels == "bench":
+        mlm = make_data(v, TRAIN_BATCH, TRAIN_SEQ, 1)[1][0].reshape(-1)
+        lab = torch.from_numpy(mlm[:n].copy()).cuda().reshape(n, 1)
+    else:
+        lab = torch.randint(0, v, (n, 1), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        if labels == "oor":
+            lab[::3] = -1
+            lab[1::5] = v + 7
+    valid = lab != -1
+    g = valid.float() / valid.sum().clamp_min(1)
+    sets = [((torch.randn(n, v, device="cuda", generator=gen) * 3).to(dt),
+             lab, g) for _ in range(n_sets(n * v * es))]
+    x = sets[0][0]
+    loss, lse = SX.softmax_xent_fwd(x, lab, eps)
+    dx = SX.softmax_xent_bwd(x, lab, lse, g, eps)
+    torch.cuda.synchronize()
+    loss0, lse0 = SX.softmax_xent_fwd_plain(x, lab, eps)
+    dx0 = SX.softmax_xent_bwd_plain(x, lab, lse, g, eps)
+    err_f = max(scaled_err(loss, loss0), scaled_err(lse, lse0))
+    err_b = max_rel_err(dx, dx0)
+    common = dict(phase="loss_kernel", case=label, dtype=dtype, shape=[n, v],
+                  eps=eps, labels=labels,
+                  labelled_rows=int(valid.sum().item()))
+    fwd = dict(common, name="softmax_xent_fwd",
+               max_abs_err=max(abs_err(loss, loss0), abs_err(lse, lse0)),
+               max_scaled_err=err_f, tol=KERNEL_TOL["float32"])
+    bwd = dict(common, name="softmax_xent_bwd", max_abs_err=abs_err(dx, dx0),
+               max_err_rel_to_max=err_b, tol=KERNEL_TOL[dtype])
+    check(err_f <= KERNEL_TOL["float32"],
+          f"softmax_xent_fwd {label}: error {err_f} > tolerance")
+    check(err_b <= KERNEL_TOL[dtype],
+          f"softmax_xent_bwd {label}: error {err_b} > tolerance")
+    F = torch.nn.functional
+    # the library takes no label beyond the vocabulary: those rows ignored
+    lib_lab = torch.where((lab >= 0) & (lab < v), lab, -1).long().reshape(-1)
+
+    def library(x, lab, g):
+        return F.cross_entropy(x, lib_lab, ignore_index=-1, reduction="none",
+                               label_smoothing=eps)
+
+    fwd.update(timings(torch, lambda *a: SX.softmax_xent_fwd(*a[:2], eps),
+                       lambda *a: SX.softmax_xent_fwd_plain(*a[:2], eps),
+                       library, sets, iters))
+    # the logits read once; labels read, loss and lse written; a compare,
+    # a subtraction, an exp and an add an element (and the eps sum)
+    nbytes = n * v * es + 3 * n * 4
+    fwd["bound_ms"], fwd["bound_by"] = bound(nbytes, (5 if eps else 4) * n
+                                             * v, "float32")
+    fwd["bytes"] = nbytes
+    emit(fwd)
+    bsets = [(x, lab, SX.softmax_xent_fwd(x, lab, eps)[1], g)
+             for x, lab, g in sets]
+    bwd.update(timings(torch, lambda *a: SX.softmax_xent_bwd(*a, eps),
+                       lambda *a: SX.softmax_xent_bwd_plain(*a, eps), None,
+                       bsets, iters))
+    # the library's backward is timed as forward+backward minus forward,
+    # both captured (autograd runs it on its forward's stream)
+    lib_sets = [(x.detach().requires_grad_(), lab, g) for x, lab, g in sets]
+
+    def library_fwd_bwd(x, lab, g):
+        return torch.autograd.grad(library(x, lab, g), x,
+                                   g.reshape(-1).to(x.dtype))
+
+    with torch.no_grad():
+        bwd["library_fwd_ms"] = graph_ms(torch, library, lib_sets, iters)
+    bwd["library_fwd_bwd_ms"] = graph_ms(torch, library_fwd_bwd, lib_sets,
+                                         iters)
+    bwd["library_ms"] = bwd["library_fwd_bwd_ms"] - bwd["library_fwd_ms"]
+    # the logits read and dx written once; labels, lse and g read; an exp,
+    # a compare, a subtraction and a product an element
+    nbytes = 2 * n * v * es + 3 * n * 4
+    bwd["bound_ms"], bwd["bound_by"] = bound(nbytes, 5 * n * v, "float32")
+    bwd["bytes"] = nbytes
+    emit(bwd)
+    return fwd, bwd
+
+
+def adam_state(torch, shapes, dtype, gen):
+    dt = getattr(torch, dtype)
+    ps, gs, ms, vs = [], [], [], []
+    for shape in shapes:
+        ps.append(torch.randn(shape, device="cuda", generator=gen).to(dt))
+        gs.append(torch.randn(shape, device="cuda", generator=gen))
+        ms.append(torch.randn(shape, device="cuda", generator=gen) * 0.1)
+        vs.append(torch.rand(shape, device="cuda", generator=gen) * 0.01)
+    return ps, gs, ms, vs
+
+
+def adam_bound(n, p_bytes):
+    """p read and written in its dtype; g read, m and v read and written
+    in float32; about 15 float32 operations an element."""
+    nbytes = n * (2 * p_bytes + 20)
+    return bound(nbytes, 15 * n, "float32") + (nbytes,)
+
+
+def adam_scalars(torch, FAD, wd=None):
+    lr, b1p, b2p = (torch.tensor(x, device="cuda")
+                    for x in (OPT_LR, 0.9 ** 3, 0.999 ** 3))
+    extra = () if wd is None else (wd,)
+    return (lr, b1p, b2p), FAD.scalars("cuda", lr, b1p, b2p, *extra)
+
+
+def fused_adam_case(torch, FAD, dtype, shape, iters, gen):
+    """The single-tensor kernel (no decay) against its plain version; the
+    library yardstick ``torch._fused_adam_`` takes m and v in p's dtype."""
+    dt = getattr(torch, dtype)
+    es = torch.empty((), dtype=dt).element_size()
+    n = math.prod(shape)
+    step = torch.tensor(3.0, device="cuda")
+    sets = []
+    for _ in range(n_sets(n * (2 * es + 20))):
+        (p,), (g,), (m,), (v,) = adam_state(torch, [shape], dtype, gen)
+        sets.append((p, g, m, v, g.to(dt), m.to(dt), v.to(dt)))
+    (lr, b1p, b2p), scal = adam_scalars(torch, FAD)
+    p, g, m, v = sets[0][:4]
+    want = FAD.adam_plain(p, g, m, v, scal)
+    got = FAD.fused_adam_update(p.clone(), g, m.clone(), v.clone(), lr, b1p,
+                                b2p)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, b) for a, b in zip(got, want))
+    rec = dict(phase="adam_kernel", name="fused_adam", dtype=dtype,
+               shape=list(shape),
+               max_abs_err=max(abs_err(a, b) for a, b in zip(got, want)),
+               max_scaled_err=err, tol=KERNEL_TOL[dtype])
+    check(err <= KERNEL_TOL[dtype], f"fused_adam {dtype} {shape}: error "
+                                    f"{err} > tolerance")
+
+    def library(p, g, m, v, gl, ml, vl):
+        torch._fused_adam_([p], [gl], [ml], [vl], [], [step], lr=OPT_LR,
+                           beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    rec.update(timings(
+        torch, lambda *a: FAD.fused_adam_update(*a[:4], lr, b1p, b2p),
+        lambda *a: FAD.adam_plain(*a[:4], scal), library, sets, iters))
+    rec["bound_ms"], rec["bound_by"], rec["bytes"] = adam_bound(n, es)
+    emit(rec)
+    return rec
+
+
+def pretraining_shapes():
+    """The shapes of BERT-base pretraining's 157 parameters with a
+    gradient in ``bench_bert`` (all but the token-type table), in
+    parameter order."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig.base())
+    return [tuple(p.shape) for name, p in model.named_parameters()
+            if name != "bert.embeddings.token_type_embeddings.weight"]
+
+
+def fused_adam_multi_flat_cases(torch, FAD, shapes, iters, gen):
+    """The many-tensor kernel over ``shapes`` and the arena kernel over
+    the same elements laid flat (padded to 1024), each against its plain
+    version, and the two against each other: identical bits. The library
+    yardstick is ``torch._fused_adamw_`` over the same tensors."""
+    wd = 0.01
+    ps, gs, ms, vs = adam_state(torch, shapes, "float32", gen)
+    (lr, b1p, b2p), scal = adam_scalars(torch, FAD, wd)
+    total = sum(p.numel() for p in ps)
+    size = total + (-total) % 1024
+
+    def flat(ts):
+        f = torch.zeros(size, device="cuda")
+        f[:total] = torch.cat([t.reshape(-1) for t in ts])
+        return f
+
+    fp, fg, fm, fv = (flat(ts) for ts in (ps, gs, ms, vs))
+    mp, mm, mv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    FAD.fused_adam_update_multi(mp, gs, mm, mv, lr, b1p, b2p,
+                                weight_decay=wd)
+    got_flat = FAD.fused_adam_update_flat(fp.clone(), fg, fm.clone(),
+                                          fv.clone(), lr, b1p, b2p,
+                                          weight_decay=wd)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(f[:total], torch.cat(
+        [t.reshape(-1) for t in ts])) for f, ts in
+        zip(got_flat, (mp, mm, mv)))
+    check(identical, "fused_adam_flat and fused_adam_multi differ on the "
+                     "same inputs")
+    err, aerr = 0.0, 0.0
+    for p, g, m, v, got in zip(ps, gs, ms, vs, zip(mp, mm, mv)):
+        want = FAD.adam_plain(p, g, m, v, scal, decay=True)
+        err = max(err, max(scaled_err(a, b) for a, b in zip(got, want)))
+        aerr = max(aerr, max(abs_err(a, b) for a, b in zip(got, want)))
+    del mp, mm, mv, got_flat
+    check(err <= KERNEL_TOL["float32"],
+          f"fused_adam_multi: error {err} > tolerance")
+    step = torch.tensor(3.0, device="cuda")
+    common = dict(phase="adam_kernel", dtype="float32", tensors=len(ps),
+                  elements=total, max_abs_err=aerr, max_scaled_err=err,
+                  tol=KERNEL_TOL["float32"], flat_equals_multi=identical)
+
+    def library(ps, gs, ms, vs):
+        torch._fused_adamw_(ps, gs, ms, vs, [], [step] * len(ps), lr=OPT_LR,
+                            beta1=0.9, beta2=0.999, weight_decay=wd,
+                            eps=1e-8, amsgrad=False, maximize=False)
+
+    multi = dict(common, name="fused_adam_multi",
+                 launches_per_call=-(-len(ps) // FAD.MULTI_MAX_TENSORS))
+    multi.update(timings(
+        torch, lambda *a: FAD.fused_adam_update_multi(
+            *a, lr, b1p, b2p, weight_decay=wd),
+        lambda *a: [FAD.adam_plain(*t, scal, decay=True)
+                    for t in zip(*a)], library, [(ps, gs, ms, vs)], iters))
+    multi["bound_ms"], multi["bound_by"], multi["bytes"] = adam_bound(total,
+                                                                      4)
+    emit(multi)
+    del ps, gs, ms, vs
+    flat_rec = dict(common, name="fused_adam_flat", elements=size)
+    flat_rec.update(timings(
+        torch, lambda *a: FAD.fused_adam_update_flat(
+            *a, lr, b1p, b2p, weight_decay=wd),
+        lambda *a: FAD.adam_plain(*a, scal, decay=True),
+        lambda *a: library(*([t] for t in a)), [(fp, fg, fm, fv)], iters))
+    flat_rec["bound_ms"], flat_rec["bound_by"], flat_rec["bytes"] = \
+        adam_bound(size, 4)
+    emit(flat_rec)
+    return multi, flat_rec
+
+
 # -- phases 3 and 4: serving ---------------------------------------------------
 
 def make_requests(np, seed):
@@ -621,11 +896,17 @@ def serve(np, pred, reqs, label, smi):
 
 # -- phases 6 and 7: training --------------------------------------------------
 
-def train(np, smi):
-    """``tools/bench_bert``'s pretraining step at full width and depth."""
+def train(np, smi, route):
+    """``tools/bench_bert``'s pretraining step at full width and depth, on
+    its ``default`` route or the ``fused`` one (the caller has set the
+    kernel switch)."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.tools.bench_bert import Trainer
     import torch
+    want = FUSED_LAUNCHES_PER_STEP if route == "fused" else \
+        TRAIN_LAUNCHES_PER_STEP
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(TRAIN_BATCH, TRAIN_SEQ, TRAIN_INNER)
     check(len(tr.model.bert.encoder) == 12 and
@@ -648,11 +929,12 @@ def train(np, smi):
     steps = TRAIN_TIMED_CALLS * TRAIN_INNER
     losses = [x.item() for x in tr.losses[n0:]]
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-          f"training: non-finite loss in {losses}")
-    for name, k in TRAIN_LAUNCHES_PER_STEP.items():
+          f"training ({route}): non-finite loss in {losses}")
+    for name in kernels.SOURCES:
+        k = want.get(name, 0)
         check(launches[name] == k * steps,
-              f"training: {name} launched {launches[name]} times in "
-              f"{steps} steps, want {k} a step")
+              f"training ({route}): {name} launched {launches[name]} times "
+              f"in {steps} steps, want {k} a step")
     step_ms = wall / steps * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -661,8 +943,11 @@ def train(np, smi):
     rep = [tr.one(ids, mlm, nsp) for _ in range(REPEAT_STEPS)]
     rep = [x.item() for x in rep]
     check(all(math.isfinite(x) for x in rep) and rep[-1] < rep[0],
-          f"training: the loss on a repeated batch did not fall: {rep}")
-    rec = dict(phase="train", card=smi, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          f"training ({route}): the loss on a repeated batch did not "
+          f"fall: {rep}")
+    rec = dict(phase="train", route=route,
+               kernels_on=[k for k in kernels.KERNELS if kernels.enabled(k)],
+               card=smi, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                layers=len(tr.model.bert.encoder), amp="bfloat16",
                optimizer="AdamW(1e-4)", dropout=0.1, warmup_steps=TRAIN_INNER,
                warmup_s=warm_s, steps=steps, launches=launches,
@@ -670,6 +955,119 @@ def train(np, smi):
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (wall / steps),
                losses=losses, repeated_batch_losses=rep,
                peak_memory_gib=peak_gb)
+    emit(rec)
+    del tr
+    return rec
+
+
+def optimizer_routes(np, seed):
+    """One BERT-base f32 backward with token types steps four copies of
+    the same weights by each AdamW route; then one arena step on
+    bench_bert's data (no token types) takes the arena's mask route."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools.bench_bert import make_data
+    t0 = time.perf_counter()
+    ptt.seed(seed)
+    cfg = BertConfig.base(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    base = BertForPretraining(cfg).cuda().train()
+    ids, mlm, nsp = (torch.from_numpy(a[0]).cuda() for a in
+                     make_data(cfg.vocab_size, 4, TRAIN_SEQ, 1,
+                               rng_seed=seed))
+    tt = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 2, (4, TRAIN_SEQ)).astype("int32")).cuda()
+    logits, nsp_logits = base(ids, tt)
+    base.loss(logits, nsp_logits, mlm, nsp).backward()
+    del logits, nsp_logits
+    check(all(p.grad is not None for p in base.parameters()),
+          "optimizer routes: a parameter got no gradient")
+    grads = [p.grad.detach().clone() for p in base.parameters()]
+    base.clear_gradients()
+    p0 = [p.detach().clone() for p in base.parameters()]
+    n = len(p0)
+    # name, AdamW options, kernels switched on, launches a step
+    routes = (("plain", dict(use_fused=False, use_multi_tensor=False), {},
+               {}),
+              ("use_fused", dict(use_fused=True, use_multi_tensor=False), {},
+               {"fused_adam": n}),
+              ("use_multi_tensor", dict(use_multi_tensor=True), {},
+               {"fused_adam_multi": 1}),
+              ("flat_arena", dict(flat_arena=True),
+               dict(fused_adam_multi=True), {"fused_adam_flat": 1}))
+    params, launches, opts = {}, {}, {}
+    for name, opt_kw, on, per_step in routes:
+        model = copy.deepcopy(base)
+        opt = optimizer.AdamW(learning_rate=OPT_LR,
+                              parameters=list(model.parameters()), **opt_kw)
+        kernels.configure(**on)
+        try:
+            # this route's path: counts zeroed just before, read just after
+            kernels.reset_launches()
+            for _ in range(OPT_STEPS):
+                for p, g in zip(model.parameters(), grads):
+                    p.grad = g.clone()
+                opt.step()
+                opt.clear_grad()
+            torch.cuda.synchronize()
+            launches[name] = dict(kernels.launches)
+        finally:
+            kernels.configure(fused_adam_multi=None)
+        for k in ("fused_adam", "fused_adam_multi", "fused_adam_flat"):
+            want = per_step.get(k, 0) * OPT_STEPS
+            check(launches[name][k] == want,
+                  f"optimizer route {name}: {k} launched "
+                  f"{launches[name][k]} times, want {want}")
+        params[name] = [p.detach() for p in model.parameters()]
+        opts[name] = (model, opt)
+    same = all(torch.equal(a, b) for a, b in
+               zip(params["flat_arena"], params["use_multi_tensor"]))
+    check(same, "optimizer routes: flat arena and multi-tensor differ")
+    upd_plain = torch.cat([(a - q).ravel() for a, q in
+                           zip(params["plain"], p0)])
+    vs_plain = {}
+    for name in ("use_fused", "use_multi_tensor", "flat_arena"):
+        upd = torch.cat([(a - q).ravel() for a, q in zip(params[name], p0)])
+        vs_plain[name] = dict(
+            max_abs=(upd - upd_plain).abs().max().item(),
+            update_rel_l2=((upd - upd_plain).norm() /
+                           upd_plain.norm()).item())
+        check(vs_plain[name]["max_abs"] <= 2 * OPT_LR * OPT_STEPS and
+              vs_plain[name]["update_rel_l2"] <= F32_UPDATE_TOL,
+              f"optimizer route {name} vs plain: {vs_plain[name]}")
+    del upd, upd_plain
+    # the arena on bench_bert's data: the token-type table gets no
+    # gradient, so the arena takes its mask route and not the kernel
+    model, opt = opts["flat_arena"]
+    tt_table = model.bert.embeddings.token_type_embeddings.weight
+    before = tt_table.detach().clone()
+    kernels.configure(fused_adam_multi=True)
+    try:
+        kernels.reset_launches()
+        logits, nsp_logits = model(ids)
+        model.loss(logits, nsp_logits, mlm, nsp).backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        mask_launches = dict(kernels.launches)
+    finally:
+        kernels.configure(fused_adam_multi=None)
+    check(mask_launches["fused_adam_flat"] == 0 and
+          torch.equal(tt_table, before),
+          f"flat arena without token types: fused_adam_flat launched "
+          f"{mask_launches['fused_adam_flat']} times, or the token-type "
+          f"table moved")
+    rec = dict(phase="optimizer_routes", params=n, steps=OPT_STEPS,
+               lr=OPT_LR, launches={k: {n_: v for n_, v in d.items()
+                                        if n_.startswith("fused_adam")}
+                                    for k, d in launches.items()},
+               flat_equals_multi=same, vs_plain=vs_plain,
+               param_tol=2 * OPT_LR * OPT_STEPS, update_tol=F32_UPDATE_TOL,
+               mask_step_flat_launches=mask_launches["fused_adam_flat"],
+               seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
 
@@ -765,7 +1163,9 @@ def main(argv=None):
     from paddle_tpu_torch.models import Bert, BertConfig
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import fused_adam as FAD
     from paddle_tpu_torch.ops.kernels import layer_norm as LN
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -851,14 +1251,39 @@ def main(argv=None):
         ("unaligned_s200", "float32", 4, 12, 200, 64, "key", False, 0.0),
         ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False, 0.0))]
 
-    # 6. training, and 7. the f32 step against the CPU
+    # 6. the loss and optimizer kernels against their plain versions
     del model, cpu_model
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    rect = train(np, smi)
+    xent = [xent_case(torch, SX, *c, XENT_ITERS, gen) for c in (
+        ("bert_mlm", "float32", 8192, 30522, 0.0, "bench"),
+        ("bert_mlm", "bfloat16", 8192, 30522, 0.0, "bench"),
+        ("smoothing", "float32", 4096, 30522, 0.1, "all"),
+        ("bert_nsp", "float32", 64, 2, 0.0, "all"),
+        ("out_of_range", "float32", 8192, 2500, 0.0, "oor"))]
+    adam1 = [fused_adam_case(torch, FAD, *c, TIMED_ITERS, gen) for c in (
+        ("float32", (30522, 768)), ("bfloat16", (1000, 77)))]
+    multi, flat = fused_adam_multi_flat_cases(torch, FAD, pretraining_shapes(),
+                                              ADAM_ITERS, gen)
+    torch.cuda.empty_cache()
+
+    # 7. training on the default route, then on the fused route
+    rect = train(np, smi, "default")
+    kernels.configure(softmax_xent=True, fused_adam_multi=True)
+    try:
+        rectf = train(np, smi, "fused")
+    finally:
+        kernels.configure(softmax_xent=None, fused_adam_multi=None)
+    emit(dict(phase="train_routes", card=smi,
+              default_step_ms=rect["step_ms"],
+              default_tokens_per_s=rect["tokens_per_s"],
+              fused_step_ms=rectf["step_ms"],
+              fused_tokens_per_s=rectf["tokens_per_s"]))
+
+    # 8. the optimizer routes, and 9. the f32 step against the CPU
+    rop = optimizer_routes(np, args.seed)
     f32_step_check(np, args.seed)
 
-    # 8. the kernels line, the card, and the verdict
+    # 10. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]
@@ -879,7 +1304,19 @@ def main(argv=None):
              dict(fb, ms=fb["dkv_ms"],
                   max_abs_err=max(fb["max_abs_err"]["dk"],
                                   fb["max_abs_err"]["dv"]),
-                  bound_ms=fb["bound_dkv_ms"], bound_by=fb["bound_dkv_by"]))):
+                  bound_ms=fb["bound_dkv_ms"], bound_by=fb["bound_dkv_by"])),
+            ("softmax_xent_fwd", "softmax_xent.cu", "softmax_xent.py:79",
+             rectf["launches"], xent[0][0]),
+            ("softmax_xent_bwd", "softmax_xent.cu", "softmax_xent.py:105",
+             rectf["launches"], xent[0][1]),
+            ("fused_adam", "fused_adam.cu", "fused_adam.py:62",
+             rop["launches"]["use_fused"], adam1[0]),
+            ("fused_adam_multi", "fused_adam.cu", "fused_adam.py:161",
+             rectf["launches"], multi),
+            ("fused_adam_flat", "fused_adam.cu", "fused_adam.py:232",
+             rop["launches"]["flat_arena"], flat)):
+        check(launches[name] > 0,
+              f"{name}: no launch on its path")
         line.append(dict(name=name, route="cuda", source=csrc + source,
                          replaces=pallas + replaces,
                          launches=launches[name],

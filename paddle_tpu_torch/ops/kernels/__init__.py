@@ -11,6 +11,9 @@ tensor the wrapper launches the kernel or raises; it never falls back.
 
 This module holds what the kernels share:
 
+* :func:`configure` and :func:`enabled` — the switch that routes the loss
+  and the optimizer through their kernels, the counterpart of
+  ``paddle_tpu.ops.pallas.configure``/``enabled``;
 * :func:`build` — the ``nvcc`` build, one process per source, all started
   together, into :data:`BUILD_DIR` (listed in ``.gitignore``). A library
   is named after a hash of its source and flags, so an edited source is
@@ -44,7 +47,67 @@ SOURCES = {
     "flash_attention_fwd": "flash_attention.cu",
     "flash_attention_bwd_dq": "flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "flash_attention_bwd.cu",
+    "softmax_xent_fwd": "softmax_xent.cu",
+    "softmax_xent_bwd": "softmax_xent.cu",
+    "fused_adam": "fused_adam.cu",
+    "fused_adam_multi": "fused_adam.cu",
+    "fused_adam_flat": "fused_adam.cu",
 }
+
+# -- the kernel switch -------------------------------------------------------
+
+#: the reference's kernel names (``paddle_tpu/ops/pallas/__init__.py``)
+KERNELS = ("layer_norm", "fused_adam", "fused_adam_multi",
+           "flash_attention", "softmax_xent", "batch_norm")
+# Auto, on the card and on the CPU alike. Layer norm and attention have no
+# other route on the card. The loss and Adam kernels stay off, which keeps
+# the default training step as it was measured before they were ported;
+# whether to turn them on is decided from the H100's numbers (ROADMAP.md
+# Queue A). None of this is a TPU measurement.
+_AUTO_ON = {"layer_norm": True, "flash_attention": True,
+            "fused_adam": False, "fused_adam_multi": False,
+            "softmax_xent": False, "batch_norm": False}
+_overrides = {}
+
+
+def configure(flash_min_seq=None, **kernels):
+    """``configure(softmax_xent=True, fused_adam_multi=None, ...)``:
+    override the auto default of named kernels; ``None`` restores auto;
+    an unknown name raises ``ValueError``. ``layer_norm`` and
+    ``flash_attention`` have no other route on the card, so ``False``
+    raises ``NotImplementedError``, as do ``batch_norm`` (not ported) and
+    a sequence gate ``flash_min_seq`` (the reference's default is a TPU
+    measurement). An override of ``True`` on a CPU tensor runs the
+    kernel's plain version."""
+    if flash_min_seq is not None:
+        raise NotImplementedError(
+            "flash_min_seq: the port runs attention through its kernel at "
+            "every length; a crossover needs an H100 measurement "
+            "(ROADMAP.md Queue A)")
+    for k, v in kernels.items():
+        if k not in KERNELS:
+            raise ValueError(f"unknown kernel {k!r}; known: {KERNELS}")
+        if v is None:
+            _overrides.pop(k, None)
+        elif k == "batch_norm":
+            raise NotImplementedError(
+                "batch_norm comes with the ResNet-50 slice (ROADMAP.md "
+                "Queue B #11-#14)")
+        elif k in ("layer_norm", "flash_attention") and not v:
+            raise NotImplementedError(
+                f"{k}=False: the port has no other route for {k} on the "
+                f"card (ROADMAP.md Queue A item 3)")
+        else:
+            _overrides[k] = bool(v)
+
+
+def enabled(kernel):
+    """Whether ``kernel`` is on: its override, else its auto default."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; known: {KERNELS}")
+    v = _overrides.get(kernel)
+    return _AUTO_ON[kernel] if v is None else v
+
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -162,7 +225,9 @@ def device_index(t):
     return t.device.index if t.device.index is not None else 0
 
 
-from . import layer_norm, flash_attention  # noqa: E402
+from . import layer_norm, flash_attention, softmax_xent  # noqa: E402
+from . import fused_adam  # noqa: E402
 
-__all__ = ["build", "function", "launches", "reset_launches", "layer_norm",
-           "flash_attention", "SOURCES", "BUILD_DIR"]
+__all__ = ["build", "function", "launches", "reset_launches", "configure",
+           "enabled", "layer_norm", "flash_attention", "softmax_xent",
+           "fused_adam", "SOURCES", "KERNELS", "BUILD_DIR"]

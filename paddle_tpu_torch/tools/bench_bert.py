@@ -2,7 +2,8 @@
 ``bench_bert``.
 
     python -m paddle_tpu_torch.tools.bench_bert [--batch 64] [--seq 128]
-        [--steps 32] [--inner 8] [--profile] [--out PATH]
+        [--steps 32] [--inner 8] [--kernels NAME,...] [--use-fused]
+        [--use-multi-tensor] [--flat-arena] [--profile] [--out PATH]
 
 The same model, data and step as the reference: ``BertForPretraining(
 BertConfig.base())`` with its default dropouts of 0.1, seeded with 0;
@@ -11,7 +12,12 @@ ids, labels (15% of positions, the rest ``-1``) and NSP labels drawn with
 numpy from ``RandomState(0)``; each step runs the forward under
 ``amp.auto_cast(dtype="bfloat16")``, ``model.loss`` in f32,
 ``loss.backward()``, ``step()`` and ``clear_grad()``, all wrapped in
-``jit.to_static``. One call of the step runs ``inner`` steps. After one
+``jit.to_static``. One call of the step runs ``inner`` steps. The
+optimizer's routes are the reference's options (``use_fused``,
+``use_multi_tensor``, ``flat_arena``), and ``--kernels`` turns kernels on
+through ``kernels.configure`` (``--kernels softmax_xent,fused_adam_multi``
+is the fused loss-and-optimizer route; by default both are off, as in the
+reference). After one
 warm-up call and one more, ``steps // inner`` calls are timed on the host
 clock, ending in a sync; the result is tokens/s (``batch * seq`` a step)
 and the last loss.
@@ -37,6 +43,7 @@ import torch
 from .. import amp, jit, optimizer, seed
 from .. import device as _device
 from ..models import BertConfig, BertForPretraining
+from ..ops import kernels
 from .profile_bert import _group
 
 
@@ -57,16 +64,19 @@ class Trainer:
     ``one(ids, mlm, nsp)`` is one optimizer step on one batch and returns
     its loss, which it also appends to ``losses`` (a device scalar: no
     sync); ``step(ids_k, mlm_k, nsp_k)`` (under ``jit.to_static``) runs
-    ``inner`` of them and returns the last loss."""
+    ``inner`` of them and returns the last loss. ``opt_kw`` goes to
+    ``AdamW`` (``use_fused``, ``use_multi_tensor``, ``flat_arena``)."""
 
-    def __init__(self, batch=64, seq=128, inner=8, device=None, **cfg_kw):
+    def __init__(self, batch=64, seq=128, inner=8, device=None, opt_kw=None,
+                 **cfg_kw):
         self.device = _device.resolve(device)
         self.inner = inner
         seed(0)
         self.config = BertConfig.base(**cfg_kw)
         self.model = BertForPretraining(self.config).to(self.device)
         self.opt = optimizer.AdamW(learning_rate=1e-4,
-                                   parameters=self.model.parameters())
+                                   parameters=self.model.parameters(),
+                                   **(opt_kw or {}))
         self.data = tuple(torch.from_numpy(a).to(self.device) for a in
                           make_data(self.config.vocab_size, batch, seq,
                                     inner))
@@ -92,10 +102,10 @@ class Trainer:
 
 
 def bench_bert(batch=64, seq=128, steps=32, inner=8, device=None,
-               **cfg_kw):
+               opt_kw=None, **cfg_kw):
     """Tokens/s and the last loss of ``steps`` timed pretraining steps
     (``bench.py``'s ``bench_bert``, on the port)."""
-    tr = Trainer(batch, seq, inner, device, **cfg_kw)
+    tr = Trainer(batch, seq, inner, device, opt_kw, **cfg_kw)
     tr.step(*tr.data)           # warm-up: builds the kernels, cuBLAS
     loss = tr.step(*tr.data)
     loss.item()                 # sync
@@ -149,6 +159,16 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--inner", type=int, default=8)
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernels to turn on with "
+                         "kernels.configure, e.g. softmax_xent,"
+                         "fused_adam_multi")
+    ap.add_argument("--use-fused", action="store_true",
+                    help="AdamW(use_fused=True): the per-tensor kernel")
+    ap.add_argument("--use-multi-tensor", action="store_true",
+                    help="AdamW(use_multi_tensor=True)")
+    ap.add_argument("--flat-arena", action="store_true",
+                    help="AdamW(flat_arena=True)")
     ap.add_argument("--profile", action="store_true",
                     help="also split one step's device time by kernel "
                          "group")
@@ -158,13 +178,20 @@ def main(argv=None):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    tok_s, loss = bench_bert(args.batch, args.seq, args.steps, args.inner)
+    on = [k for k in args.kernels.split(",") if k]
+    kernels.configure(**dict.fromkeys(on, True))
+    opt_kw = {k: True for k in ("use_fused", "use_multi_tensor",
+                                "flat_arena") if getattr(args, k)}
+    tok_s, loss = bench_bert(args.batch, args.seq, args.steps, args.inner,
+                             opt_kw=opt_kw)
     rec = dict(batch=args.batch, seq=args.seq, steps=args.steps,
-               inner=args.inner, tokens_per_s=tok_s,
+               inner=args.inner, kernels_on=on, optimizer=opt_kw,
+               tokens_per_s=tok_s,
                step_ms=args.batch * args.seq / tok_s * 1e3, loss=loss,
                card=smi)
     if args.profile:
-        rec["profile"] = profile_step(Trainer(args.batch, args.seq, 1))
+        rec["profile"] = profile_step(Trainer(args.batch, args.seq, 1,
+                                              opt_kw=opt_kw))
     print(json.dumps(rec), flush=True)
     if args.out:
         with open(args.out, "w") as f:

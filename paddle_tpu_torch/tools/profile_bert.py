@@ -41,6 +41,11 @@ GROUPS = (("ln_fwd", "layer_norm_fwd (port)"),
           ("ln_bwd", "layer_norm_bwd (port)"),
           ("flash_fwd", "flash_attention_fwd (port)"),
           ("flash_bwd", "flash_attention_bwd (port)"),
+          ("xent_fwd", "softmax_xent_fwd (port)"),
+          ("xent_bwd", "softmax_xent_bwd (port)"),
+          ("adam_single<false", "fused_adam (port)"),
+          ("adam_multi", "fused_adam_multi (port)"),
+          ("adam_single<true", "fused_adam_flat (port)"),
           ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
           ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),
           ("memcpy", "copies"),

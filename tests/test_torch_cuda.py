@@ -8,7 +8,10 @@ and the port, so on a machine without JAX it runs as
 
 Tolerance, as ``|kernel - plain| / max(1, |plain|)``: 1e-4 for float32
 (another summation order), 2e-2 for bf16 (the f32 result rounded to bf16
-once; one step is 2^-8 relative).
+once; one step is 2^-8 relative). The Adam kernels compute the plain
+version's float32 operations one for one with no FMA: they are held to
+one float32 step (rtol 2^-23) in the parameter and the moments, and the
+many-tensor and arena kernels to identical bits.
 """
 import copy
 
@@ -16,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import nn
+from paddle_tpu_torch import nn, optimizer
 from paddle_tpu_torch.inference import Predictor
 from paddle_tpu_torch.models import Bert, BertConfig, BertForPretraining
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
+from paddle_tpu_torch.ops.kernels import fused_adam as FAD
 from paddle_tpu_torch.ops.kernels import layer_norm as LN
+from paddle_tpu_torch.ops.kernels import softmax_xent as SX
 from paddle_tpu_torch.tools import bench_bert
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -150,10 +155,8 @@ def test_tiny_bert_on_card_matches_cpu_and_counts_launches(cuda_device):
         "int32")
     kernels.reset_launches()
     got = gpu.run(ids, tt, mask)
-    assert kernels.launches == {"layer_norm_fwd": 5, "layer_norm_bwd": 0,
-                                "flash_attention_fwd": 2,
-                                "flash_attention_bwd_dq": 0,
-                                "flash_attention_bwd_dkv": 0}
+    assert kernels.launches == dict(dict.fromkeys(kernels.SOURCES, 0),
+                                    layer_norm_fwd=5, flash_attention_fwd=2)
     for a, b in zip(got, cpu.run(ids, tt, mask)):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
 
@@ -310,10 +313,10 @@ def test_bert_every_parameter_gets_a_gradient_on_card(cuda_device):
     logits, nsp_logits = model(ids, tt.to(cuda_device))
     model.loss(logits, nsp_logits, mlm, nsp).backward()
     torch.cuda.synchronize()
-    assert kernels.launches == {"layer_norm_fwd": 6, "layer_norm_bwd": 6,
-                                "flash_attention_fwd": 2,
-                                "flash_attention_bwd_dq": 2,
-                                "flash_attention_bwd_dkv": 2}
+    assert kernels.launches == dict(
+        dict.fromkeys(kernels.SOURCES, 0), layer_norm_fwd=6,
+        layer_norm_bwd=6, flash_attention_fwd=2, flash_attention_bwd_dq=2,
+        flash_attention_bwd_dkv=2)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
@@ -325,3 +328,206 @@ def test_bert_every_parameter_gets_a_gradient_on_card(cuda_device):
 def test_bench_bert_runs_two_steps(cuda_device):
     tok_s, loss = bench_bert.bench_bert(batch=8, seq=128, steps=2, inner=1)
     assert tok_s > 0 and np.isfinite(loss)
+
+
+# -- the loss and optimizer slice's kernels ------------------------------------
+
+@pytest.fixture
+def kernel_switch():
+    """``kernels.configure``, with every name restored afterwards."""
+    yield kernels.configure
+    kernels.configure(softmax_xent=None, fused_adam=None,
+                      fused_adam_multi=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,v", [(37, 2500), (64, 2), (300, 30522),
+                                 (9, 7), (3, 4099)])
+def test_softmax_xent_kernels_match_plain(cuda_device, n, v, dtype, eps):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(n + v)
+    x = (torch.randn(n, v, device=cuda_device, generator=g) * 3).to(dt)
+    lab = torch.randint(0, v, (n, 1), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    lab[::3] = -1                   # no column: the caller's ignored rows
+    lab[1::4] = v + 2               # out of range
+    gy = torch.randn(n, 1, device=cuda_device, generator=g)
+    gy[::3] = 0.0
+    before = dict(kernels.launches)
+    loss, lse = SX.softmax_xent_fwd(x, lab, eps)
+    dx = SX.softmax_xent_bwd(x, lab, lse, gy, eps)
+    torch.cuda.synchronize()
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd"):
+        assert kernels.launches[name] == before[name] + 1
+    loss0, lse0 = SX.softmax_xent_fwd_plain(x, lab, eps)
+    assert _scaled_err(loss, loss0) <= 1e-4
+    assert _scaled_err(lse, lse0) <= 1e-4
+    assert dx.dtype == dt
+    assert _scaled_err(dx, SX.softmax_xent_bwd_plain(x, lab, lse, gy,
+                                                     eps)) <= TOL[dt]
+
+
+@pytest.mark.cuda
+def test_softmax_xent_kernels_take_unaligned_rows(cuda_device):
+    """Logits whose rows start off a 16-byte boundary (a view at an odd
+    offset): the forward's scalar head and the backward's element path."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(10 * 33 + 1, device=cuda_device, generator=g)[1:]
+    x = x.view(10, 33)
+    lab = torch.randint(0, 33, (10, 1), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    gy = torch.randn(10, 1, device=cuda_device, generator=g)
+    loss, lse = SX.softmax_xent_fwd(x, lab)
+    assert _scaled_err(loss, SX.softmax_xent_fwd_plain(x, lab)[0]) <= 1e-4
+    dx = SX.softmax_xent_bwd(x, lab, lse, gy)
+    assert _scaled_err(dx, SX.softmax_xent_bwd_plain(x, lab, lse, gy)) <= 1e-4
+
+
+def _adam_state(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = torch.randn(shape, device=device, generator=g).to(dtype)
+    gr = torch.randn(shape, device=device, generator=g)
+    m = torch.randn(shape, device=device, generator=g) * 0.1
+    v = torch.rand(shape, device=device, generator=g) * 0.01
+    return p, gr, m, v
+
+
+def _close_adam(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=2 ** -23, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(30522, 768), (1000, 77), (5,), (3,)])
+def test_fused_adam_kernel_matches_plain(cuda_device, shape, dtype):
+    p, g, m, v = _adam_state(shape, getattr(torch, dtype), cuda_device, 1)
+    lr, b1p, b2p = (torch.tensor(x, device=cuda_device)
+                    for x in (1e-3, 0.9 ** 3, 0.999 ** 3))
+    want = FAD.adam_plain(p, g, m, v, FAD.scalars(cuda_device, lr, b1p, b2p))
+    before = kernels.launches["fused_adam"]
+    got = FAD.fused_adam_update(p, g, m, v, lr, b1p, b2p)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam"] == before + 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    _close_adam(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [9, 300])
+def test_fused_adam_multi_and_flat_kernels(cuda_device, count):
+    """Many tensors (300: two launches of the 256-tensor table, and a view
+    off a 16-byte boundary) against the plain version, and the arena
+    kernel over the same elements laid flat: identical bits."""
+    shapes = [(30522, 768), (768,), (2, 768), (768, 3072), (7,)]
+    shapes = [shapes[i % len(shapes)] if count < 50 else (i % 37 + 1,)
+              for i in range(count)]
+    states = [_adam_state(s, torch.float32, cuda_device, i)
+              for i, s in enumerate(shapes)]
+    odd = torch.zeros(1025, device=cuda_device)[1:]    # unaligned view
+    states.append((odd, odd + 1, odd.clone(), odd.clone() + 0.5))
+    ps, gs, ms, vs = (list(t) for t in zip(*states))
+    lr, b1p, b2p = (torch.tensor(x, device=cuda_device)
+                    for x in (1e-3, 0.9 ** 2, 0.999 ** 2))
+    scal = FAD.scalars(cuda_device, lr, b1p, b2p, 0.01)
+    want = [FAD.adam_plain(*st, scal, decay=True) for st in states]
+    total = sum(p.numel() for p in ps)
+    flat = [torch.zeros(total + (-total) % 1024, device=cuda_device)
+            for _ in range(4)]
+    for f, ts in zip(flat, (ps, gs, ms, vs)):
+        f[:total] = torch.cat([t.reshape(-1) for t in ts])
+    before = dict(kernels.launches)
+    FAD.fused_adam_update_multi(ps, gs, ms, vs, lr, b1p, b2p,
+                                weight_decay=0.01)
+    FAD.fused_adam_update_flat(*flat, lr, b1p, b2p, weight_decay=0.01)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam_multi"] == \
+        before["fused_adam_multi"] + -(-len(ps) // 256)
+    assert kernels.launches["fused_adam_flat"] == \
+        before["fused_adam_flat"] + 1
+    for got, w in zip(zip(ps, ms, vs), want):
+        _close_adam(got, w)
+    for f, ts in zip((flat[0], flat[2], flat[3]), (ps, ms, vs)):
+        assert torch.equal(f[:total], torch.cat([t.reshape(-1)
+                                                 for t in ts]))
+
+
+@pytest.mark.cuda
+def test_loss_and_adam_wrappers_reject_bad_inputs(cuda_device):
+    x = torch.zeros(4, 6, device=cuda_device)
+    lab = torch.zeros(4, 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        SX.softmax_xent_fwd(x, lab.long())
+    with pytest.raises(ValueError, match="CUDA device"):
+        SX.softmax_xent_fwd(x, lab.cpu())
+    with pytest.raises(ValueError):
+        SX.softmax_xent_fwd(x, lab[:3])
+    _, lse = SX.softmax_xent_fwd(x, lab)
+    with pytest.raises(TypeError, match="float32"):
+        SX.softmax_xent_bwd(x, lab, lse, lse.double())
+    p, g, m, v = (torch.zeros(1024, device=cuda_device) for _ in range(4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        FAD.fused_adam_update(p, g, m.cpu(), v, 1e-3, 0.9, 0.999)
+    with pytest.raises(TypeError):
+        FAD.fused_adam_update(p, g, m.bfloat16(), v, 1e-3, 0.9, 0.999)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        FAD.fused_adam_update_flat(p[:1000], g[:1000], m[:1000], v[:1000],
+                                   1e-3, 0.9, 0.999)
+    with pytest.raises(ValueError, match="contiguous"):
+        FAD.fused_adam_update(p.view(32, 32).t(), g.view(32, 32),
+                              m.view(32, 32), v.view(32, 32), 1e-3, 0.9,
+                              0.999)
+
+
+@pytest.mark.cuda
+def test_adamw_routes_on_card_match_the_plain_route(cuda_device,
+                                                    kernel_switch):
+    """Four copies of one model stepped by the per-parameter plain AdamW,
+    use_fused, use_multi_tensor and the flat arena under
+    fused_adam_multi: the kernel routes within a float32 step or so of
+    the plain route, multi and arena identical."""
+    torch.manual_seed(0)
+    base = nn.Sequential(nn.Linear(64, 96), nn.Linear(96, 33))
+    models = [copy.deepcopy(base).to(cuda_device) for _ in range(4)]
+    kernel_switch(fused_adam_multi=True)
+    opts = [optimizer.AdamW(learning_rate=1e-3, parameters=list(
+        mod.parameters()), **kw) for mod, kw in zip(models, (
+            dict(use_multi_tensor=False), dict(use_fused=True,
+                                               use_multi_tensor=False),
+            dict(use_multi_tensor=True), dict(flat_arena=True)))]
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    kernels.reset_launches()
+    for _ in range(3):
+        grads = [torch.randn(p.shape, device=cuda_device, generator=g)
+                 for p in base.parameters()]
+        for mod, opt in zip(models, opts):
+            for p, gr in zip(mod.parameters(), grads):
+                p.grad = gr.clone()
+            opt.step()
+            opt.clear_grad()
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam"] == 3 * 4
+    assert kernels.launches["fused_adam_multi"] == 3
+    assert kernels.launches["fused_adam_flat"] == 3
+    plain = [p for p in models[0].parameters()]
+    for mod in models[1:]:
+        for p, q in zip(mod.parameters(), plain):
+            torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-6)
+    for p, q in zip(models[2].parameters(), models[3].parameters()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_bench_bert_fused_route_runs_two_steps(cuda_device, kernel_switch):
+    kernel_switch(softmax_xent=True, fused_adam_multi=True)
+    kernels.reset_launches()
+    tok_s, loss = bench_bert.bench_bert(batch=8, seq=128, steps=2, inner=1)
+    assert tok_s > 0 and np.isfinite(loss)
+    steps = 4                       # warm-up, one more, two timed
+    assert kernels.launches["softmax_xent_fwd"] == 2 * steps
+    assert kernels.launches["softmax_xent_bwd"] == 2 * steps
+    assert kernels.launches["fused_adam_multi"] == steps
+    assert kernels.launches["fused_adam"] == 0

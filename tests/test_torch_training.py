@@ -4,9 +4,11 @@ A tiny ``BertForPretraining`` is built in the JAX package, its weights are
 carried into the port with ``convert.load_jax_state``, and the same
 inputs (made with numpy from a seed) go through both: the pretraining
 loss, every gradient by name, and every parameter after three AdamW
-steps, in float32 and under ``amp.auto_cast(dtype="bfloat16")``. On the
-CPU the port's kernel wrappers and autograd Functions run their plain
-forward and backward versions. The loss, the optimizers, amp, the
+steps, in float32 and under ``amp.auto_cast(dtype="bfloat16")``; in
+float32 also with the loss and multi-tensor Adam kernels switched on in
+both packages (``configure(softmax_xent=True, fused_adam_multi=True)``).
+On the CPU the port's kernel wrappers and autograd Functions run their
+plain forward and backward versions. The loss, the optimizers, amp, the
 generators, ``jit.to_static`` and ``tools.bench_bert`` are checked on
 their own too.
 
@@ -128,9 +130,8 @@ def test_softmax_with_cross_entropy_matches_jax():
 
 def test_cross_entropy_unported_branches_raise():
     x, lbl = torch.zeros(2, 3), torch.zeros(2, dtype=torch.int64)
-    for kw in (dict(soft_label=True), dict(weight=torch.ones(3)),
-               dict(use_fused=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for kw in (dict(soft_label=True), dict(weight=torch.ones(3))):
+        with pytest.raises(NotImplementedError, match="not ported"):
             loss.cross_entropy(x, lbl, **kw)
 
 
@@ -202,10 +203,9 @@ def test_adam_l2_regularization_and_lr_match_jax():
                                    **OP_TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(use_fused=True),
-                                dict(use_multi_tensor=True),
-                                dict(flat_arena=True),
-                                dict(grad_clip=object())])
+# use_fused, use_multi_tensor and flat_arena are held against the JAX
+# package in test_torch_xent_adam.py
+@pytest.mark.parametrize("kw", [dict(grad_clip=object())])
 def test_unported_optimizer_options_raise(kw):
     with pytest.raises(NotImplementedError):
         optimizer.AdamW(parameters=[torch.nn.Parameter(torch.zeros(2))],
@@ -280,17 +280,30 @@ def _port_steps(m, batches, use_amp, steps):
 
 @pytest.fixture
 def pallas_config():
-    """Restores the JAX package's kernel configuration afterwards."""
+    """Restores both packages' kernel configuration afterwards, every
+    name either switch knows, so that later tests on the worker run with
+    the defaults."""
     yield P.configure
-    P.configure(layer_norm=None, flash_attention=None, flash_min_seq=None)
+    reset = dict(layer_norm=None, flash_attention=None, flash_min_seq=None,
+                 softmax_xent=None, fused_adam=None, fused_adam_multi=None)
+    P.configure(**reset)
+    kernels.configure(**reset)
 
 
-@pytest.mark.parametrize("jax_path", ["default", "pallas_kernels"])
+@pytest.mark.parametrize("jax_path", ["default", "pallas_kernels",
+                                      "loss_and_adam_kernels"])
 def test_bert_pretraining_steps_match_jax_f32(jax_path, pallas_config):
     if jax_path == "pallas_kernels":
         # the JAX side through its Pallas layer-norm and flash-attention
         # kernels (interpret mode): the counterparts of the port's
         pallas_config(layer_norm=True, flash_attention=True, flash_min_seq=0)
+    elif jax_path == "loss_and_adam_kernels":
+        # both sides through the fused loss and multi-tensor AdamW (the
+        # JAX side's Pallas kernels in interpret mode, the port's plain
+        # versions of its kernels)
+        on = dict(softmax_xent=True, fused_adam_multi=True)
+        pallas_config(**on)
+        kernels.configure(**on)
     jm, m = _bert_pair()
     p0 = export_state(m)
     batches = [_bert_inputs(seed=s) for s in (0, 1)]
