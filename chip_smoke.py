@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BERT-base serving and training paths on one
-CUDA card.
+"""Drive the PyTorch port's BERT-base serving and training paths and its
+ResNet-50 training path on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -76,8 +76,31 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
 9. f32 step check: one BERT-base pretraining step in float32 (TF32 off,
    dropout 0, batch 4, seq 128) on the card and on the CPU from the same
    weights: the loss, every gradient and every parameter after AdamW.
-10. the ``kernels`` line, the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+10. batch-norm kernels: ``batch_norm_stats``, ``batch_norm_normalize``,
+   ``batch_norm_bwd_reduce`` and ``batch_norm_bwd_dx`` against their plain
+   versions at the five shapes ResNet-50 gives them at batch 128 (rows by
+   channels (1605632, 64) to (6272, 2048), bf16), at (100352, 256) in
+   f32, and at (10007, 100) in bf16, where no 16-byte load applies and
+   the last row chunk is ragged; the two reductions must give the same
+   bits twice; timed as in phase 2. The library yardstick is
+   ``torch.nn.functional.batch_norm(training=True)`` on the same
+   channels-last data: its forward beside stats + normalize, its backward
+   (forward+backward minus forward) beside reduce + dx.
+11. ResNet-50 training: ``tools/bench_resnet``'s step at full width and
+   depth (batch 128, 224x224 uint8 images normalised on the card, amp
+   bf16, Momentum(0.1, 0.9)) on three routes, each from a fresh
+   ``Trainer``: NCHW and NHWC with the plain batch norm (no launch of any
+   kernel), then NHWC under ``kernels.configure(batch_norm=True)`` (53
+   launches of each of the four batch-norm kernels a step, counted over 8
+   steps with the counters zeroed just before and read just after); every
+   loss finite, step time, images/s and peak memory; then 10 steps on one
+   batch, whose loss must fall.
+12. ResNet f32 step check: one float32 training step of ResNet-50 (TF32
+   off, batch 8, 224x224, NHWC, batch-norm kernels on) on the card and on
+   the CPU from the same weights: the loss, every gradient, and every
+   parameter and running statistic after the Momentum step.
+13. the ``kernels`` line (all 14), the card's name and power limit, and
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
 writes every record to a JSON file.
@@ -146,6 +169,30 @@ FUSED_LAUNCHES_PER_STEP = dict(TRAIN_LAUNCHES_PER_STEP, softmax_xent_fwd=2,
                                softmax_xent_bwd=2, fused_adam_multi=1)
 # the optimizer-route check: AdamW steps on one f32 backward's gradients
 OPT_LR, OPT_STEPS = 1e-4, 3
+# ResNet-50 at batch 128, 224x224: its 53 batch-norm layers, each through
+# the four batch-norm kernels once a step on the kernel route
+RESNET_BATCH, RESNET_SIZE, RESNET_INNER = 128, 224, 4
+RESNET_TIMED_CALLS = 2       # x RESNET_INNER steps, counted and timed
+RESNET_REPEAT_STEPS = 10
+RESNET_BN_LAYERS = 53
+BN_KERNELS = ("batch_norm_stats", "batch_norm_normalize",
+              "batch_norm_bwd_reduce", "batch_norm_bwd_dx")
+# (N, H, W, C) of the batch-norm inputs the path's five widths first meet
+BN_PATH_SHAPES = ((128, 112, 112, 64), (128, 56, 56, 256),
+                  (128, 28, 28, 512), (128, 14, 14, 1024),
+                  (128, 7, 7, 2048))
+BN_ITERS = 20                # launches per timed run of a batch-norm case
+# the ResNet f32 step, card vs CPU. Of ResNet-50's tens of millions of
+# ReLU inputs at batch 8 a few lie within float32 rounding of 0 and fall
+# on the other side on the other device; each such flip moves the
+# gradients upstream of it a little, so a gradient is held by its relative
+# L2 error rather than element by element (the gap measured on an H100 is
+# 2.0e-2 over all gradients, 2.2e-5 for the classifier's, which no flip
+# reaches)
+RESNET_F32_LOSS_TOL = 1e-4
+RESNET_F32_GRAD_TOL = 5e-2
+RESNET_F32_FC_GRAD_TOL = 1e-3     # the classifier's: downstream of them all
+RESNET_F32_STAT_TOL = 1e-4      # running statistics: the forward alone
 TIMED_ITERS = 50             # launches per timed run (median of 5 runs)
 XENT_ITERS = 20              # the same for the (8192, 30522) loss kernels
 ADAM_ITERS = 10              # the same for the whole-model Adam cases
@@ -1135,6 +1182,268 @@ def f32_step_check(np, seed):
     return rec
 
 
+# -- phase 10: the batch-norm kernels ---------------------------------------------
+
+def batch_norm_case(torch, BN, label, dtype, shape, iters, gen):
+    """The four batch-norm kernels on ``shape`` (N, H, W, C) channels-last
+    data seen as (N H W, C) rows, x and g in ``dtype`` and every
+    per-channel operand f32, as on the training path. Returns the four
+    records in ``BN_KERNELS``' order."""
+    dt = getattr(torch, dtype)
+    es = torch.empty((), dtype=dt).element_size()
+    c = shape[-1]
+    m = math.prod(shape[:-1])
+    eps = 1e-5
+    sets = []
+    for _ in range(n_sets(3 * m * c * es)):
+        x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 1).to(dt)
+        g = torch.randn(m, c, device="cuda", generator=gen).to(dt)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen)
+        mean, _, rstd, scale, shift = BN.bn_stats_plain(x, w, b, eps)
+        dg, db = BN.bn_bwd_reduce_plain(x, g, mean, rstd)
+        gm, gv = torch.randn(2, c, device="cuda", generator=gen).unbind(0)
+        sets.append(dict(x=x, g=g, w=w, b=b, eps=eps, mean=mean, rstd=rstd,
+                         scale=scale, shift=shift, dg=dg, db=db, gm=gm,
+                         gv=gv))
+    # name -> (wrapper, plain version, operand names, bytes, operations);
+    # the per-channel operands' bytes are counted too
+    cases = {
+        "batch_norm_stats": (BN.bn_stats, BN.bn_stats_plain,
+                             ("x", "w", "b", "eps"),
+                             m * c * es + 7 * c * 4, 3 * m * c),
+        "batch_norm_normalize": (BN.bn_normalize, BN.bn_normalize_plain,
+                                 ("x", "scale", "shift"),
+                                 2 * m * c * es + 2 * c * 4, 2 * m * c),
+        "batch_norm_bwd_reduce": (BN.bn_bwd_reduce, BN.bn_bwd_reduce_plain,
+                                  ("x", "g", "mean", "rstd"),
+                                  2 * m * c * es + 4 * c * 4, 5 * m * c),
+        "batch_norm_bwd_dx": (BN.bn_bwd_dx, BN.bn_bwd_dx_plain,
+                              ("x", "g", "mean", "rstd", "w", "dg", "db",
+                               "gm", "gv"), 3 * m * c * es + 7 * c * 4,
+                              6 * m * c),
+    }
+    recs = []
+    for name in BN_KERNELS:
+        kernel, plain, names, nbytes, ops = cases[name]
+        arg_sets = [tuple(st[k] for k in names) for st in sets]
+        got = kernel(*arg_sets[0])
+        torch.cuda.synchronize()
+        ref = plain(*arg_sets[0])
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if name == "batch_norm_bwd_reduce":
+            # sums over m rows: relative to their largest element
+            err = max(abs_err(a, r) / max(1.0, r.abs().max().item())
+                      for a, r in zip(got, ref))
+        else:
+            err = max(scaled_err(a, r) for a, r in zip(got, ref))
+        # stats and sums are f32 whatever x's dtype
+        tol = KERNEL_TOL[dtype if name in ("batch_norm_normalize",
+                                           "batch_norm_bwd_dx")
+                         else "float32"]
+        rec = dict(phase="bn_kernel", name=name, case=label, dtype=dtype,
+                   shape=[m, c],
+                   max_abs_err=max(abs_err(a, r) for a, r in zip(got, ref)),
+                   max_scaled_err=err, tol=tol)
+        check(err <= tol, f"{name} {label} {dtype} {m}x{c}: error {err} > "
+                          f"tolerance {tol}")
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"{name} {label}: non-finite output")
+        if name in ("batch_norm_stats", "batch_norm_bwd_reduce"):
+            again = kernel(*arg_sets[0])
+            check(all(torch.equal(a, c2) for a, c2 in zip(got, again)),
+                  f"{name} {label}: two runs differ (the reduction must be "
+                  f"deterministic)")
+        rec.update(timings(torch, kernel, plain, None, arg_sets, iters))
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, "float32")
+        rec["bytes"] = nbytes
+        recs.append(rec)
+    # the library yardstick: torch's training-mode batch norm on the same
+    # channels-last data, forward, and forward+backward minus forward
+    F = torch.nn.functional
+    lib_sets = [(st["x"].view(shape).permute(0, 3, 1, 2).detach()
+                 .requires_grad_(), st["w"].detach().requires_grad_(),
+                 st["b"].detach().requires_grad_(),
+                 st["g"].view(shape).permute(0, 3, 1, 2)) for st in sets]
+
+    def library_fwd(x, w, b, g):
+        return F.batch_norm(x, None, None, w, b, training=True, eps=eps)
+
+    def library_fwd_bwd(x, w, b, g):
+        return torch.autograd.grad(library_fwd(x, w, b, g), (x, w, b), g)
+
+    with torch.no_grad():
+        lib_fwd = graph_ms(torch, library_fwd, lib_sets, iters)
+    lib_fwd_bwd = graph_ms(torch, library_fwd_bwd, lib_sets, iters)
+    st, no, rd, dx = recs
+    for rec, lib, pair in ((st, lib_fwd, st["ms"] + no["ms"]),
+                           (no, lib_fwd, st["ms"] + no["ms"]),
+                           (rd, lib_fwd_bwd - lib_fwd, rd["ms"] + dx["ms"]),
+                           (dx, lib_fwd_bwd - lib_fwd, rd["ms"] + dx["ms"])):
+        # the library call does the pair's work: stats + normalize in its
+        # forward, reduce + dx in its backward
+        rec.update(library_ms=lib, pair_ms=pair,
+                   library_covers="stats + normalize"
+                   if rec in (st, no) else "bwd_reduce + bwd_dx")
+        emit(rec)
+    return recs
+
+
+# -- phases 11 and 12: ResNet-50 training -------------------------------------------
+
+def train_resnet(np, smi, route, data_format):
+    """``tools/bench_resnet``'s training step at full width and depth on
+    one route (the caller has set the kernel switch)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools.bench_resnet import Trainer
+    import torch
+    per_step = RESNET_BN_LAYERS if route == "kernels" else 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(RESNET_BATCH, RESNET_INNER, data_format, size=RESNET_SIZE)
+    bns = [m for m in tr.model.modules() if isinstance(m, nn.BatchNorm)]
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    check(len(bns) == RESNET_BN_LAYERS and n_params == 25_557_032,
+          f"training runs ResNet-50: {len(bns)} batch norms, {n_params} "
+          f"parameters")
+    tr.step(*tr.data)                                 # warm-up
+    tr.losses[-1].item()
+    warm_s = time.perf_counter() - t0
+
+    # the main path: counts zeroed just before, read just after
+    kernels.reset_launches()
+    n0 = len(tr.losses)
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TIMED_CALLS):
+        loss = tr.step(*tr.data)
+    loss.item()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    steps = RESNET_TIMED_CALLS * RESNET_INNER
+    losses = [x.item() for x in tr.losses[n0:]]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"resnet training ({route}): non-finite loss in {losses}")
+    for name in kernels.SOURCES:
+        k = per_step if name in BN_KERNELS else 0
+        check(launches[name] == k * steps,
+              f"resnet training ({route}): {name} launched {launches[name]} "
+              f"times in {steps} steps, want {k} a step")
+    step_ms = wall / steps * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the loss on one repeated batch must fall
+    xb, yb = (t[0] for t in tr.data)
+    rep = [tr.one(xb, yb) for _ in range(RESNET_REPEAT_STEPS)]
+    rep = [x.item() for x in rep]
+    check(all(math.isfinite(x) for x in rep) and rep[-1] < rep[0],
+          f"resnet training ({route}): the loss on a repeated batch did not "
+          f"fall: {rep}")
+    stats = bns[0]._mean.float()
+    check(bool(torch.isfinite(stats).all()) and bool(stats.abs().sum() > 0),
+          f"resnet training ({route}): the running mean did not move")
+    rec = dict(phase="train_resnet", route=route, data_format=data_format,
+               kernels_on=[k for k in kernels.KERNELS if kernels.enabled(k)],
+               card=smi, batch=RESNET_BATCH, size=RESNET_SIZE,
+               batch_norm_layers=len(bns), params=n_params, amp="bfloat16",
+               optimizer="Momentum(0.1, 0.9)", warmup_steps=RESNET_INNER,
+               warmup_s=warm_s, steps=steps,
+               launches={k: launches[k] for k in BN_KERNELS},
+               launches_per_step={k: launches[k] // steps
+                                  for k in BN_KERNELS},
+               step_ms=step_ms, images_per_s=RESNET_BATCH / (wall / steps),
+               losses=losses, repeated_batch_losses=rep,
+               peak_memory_gib=peak_gb)
+    emit(rec)
+    del tr
+    return rec
+
+
+def resnet_f32_step_check(np, seed):
+    """One float32 training step of ResNet-50 on the kernel route (NHWC,
+    batch-norm kernels on) on the card and on the CPU, where the wrappers
+    compute their plain versions, from the same weights."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.ops import kernels, loss as loss_ops
+    from paddle_tpu_torch.tools.bench_resnet import make_data, normalize_u8
+    ptt.seed(seed)
+    cpu = resnet50(data_format="NHWC").train()
+    card = copy.deepcopy(cpu).cuda()
+    s0 = {n: t.detach().clone() for n, t in cpu.state_dict().items()}
+    x, y = (torch.from_numpy(a[0]) for a in
+            make_data(8, 1, "NHWC", RESNET_SIZE, rng_seed=seed))
+
+    def step(model, dev):
+        opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                 parameters=model.parameters())
+        loss = loss_ops.cross_entropy(model(normalize_u8(x.to(dev))),
+                                      y.to(dev))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters()}
+        opt.step()
+        return loss.item(), grads, {n: t.detach().cpu() for n, t in
+                                    model.state_dict().items()}
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    l_card, g_card, s_card = step(card, "cuda")
+    launches = {k: kernels.launches[k] for k in BN_KERNELS}
+    l_cpu, g_cpu, s_cpu = step(cpu, "cpu")
+    check(all(v == RESNET_BN_LAYERS for v in launches.values()),
+          f"resnet f32 step: launches {launches}")
+    check(set(g_card) == set(g_cpu) and len(g_cpu) == 161,
+          f"resnet f32 step: gradients for {len(g_card)} and {len(g_cpu)} "
+          f"params")
+    loss_err = abs(l_card - l_cpu) / max(1.0, abs(l_cpu))
+    rel = {n: ((g_card[n] - g_cpu[n]).norm() /
+               g_cpu[n].norm().clamp_min(1e-30)).item() for n in g_cpu}
+    worst = max(rel, key=rel.get)
+    all_card = torch.cat([g_card[n].ravel() for n in g_cpu])
+    all_cpu = torch.cat([g_cpu[n].ravel() for n in g_cpu])
+    grad_err = ((all_card - all_cpu).norm() / all_cpu.norm()).item()
+    # after the step: a parameter moved by lr * g, so the update is held as
+    # the gradient is; the running statistics come from the forward alone
+    params = list(g_cpu)
+    upd_card = torch.cat([(s_card[n] - s0[n]).ravel() for n in params])
+    upd_cpu = torch.cat([(s_cpu[n] - s0[n]).ravel() for n in params])
+    upd_err = ((upd_card - upd_cpu).norm() / upd_cpu.norm()).item()
+    stat_err = max(scaled_err(s_card[n], s_cpu[n]) for n in s_cpu
+                   if n not in g_cpu)
+    moved = all(not torch.equal(s_cpu[n], s0[n]) for n in s_cpu)
+    rec = dict(phase="resnet_f32_step", batch=8, size=RESNET_SIZE,
+               data_format="NHWC", launches=launches, loss_card=l_card,
+               loss_cpu=l_cpu, loss_err=loss_err,
+               loss_tol=RESNET_F32_LOSS_TOL, grad_rel_l2=grad_err,
+               worst_grad=worst, worst_grad_rel_l2=rel[worst],
+               fc_grad_rel_l2=rel["fc.weight"],
+               grad_tol=RESNET_F32_GRAD_TOL,
+               fc_grad_tol=RESNET_F32_FC_GRAD_TOL, update_rel_l2=upd_err,
+               update_tol=RESNET_F32_GRAD_TOL,
+               max_running_stat_scaled_err=stat_err,
+               running_stat_tol=RESNET_F32_STAT_TOL,
+               entries_checked=len(s_cpu),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    check(loss_err <= RESNET_F32_LOSS_TOL,
+          f"resnet f32 step: loss {l_card} vs {l_cpu}")
+    check(grad_err <= RESNET_F32_GRAD_TOL and
+          rel["fc.weight"] <= RESNET_F32_FC_GRAD_TOL,
+          f"resnet f32 step: gradient relative L2 {grad_err}, the "
+          f"classifier's {rel['fc.weight']}")
+    check(upd_err <= RESNET_F32_GRAD_TOL and moved,
+          f"resnet f32 step: the Momentum update differs by {upd_err} "
+          f"relative L2 (or an entry did not move)")
+    check(stat_err <= RESNET_F32_STAT_TOL,
+          f"resnet f32 step: running statistics differ by {stat_err}")
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -1162,6 +1471,7 @@ def main(argv=None):
     from paddle_tpu_torch.inference import Config, Predictor
     from paddle_tpu_torch.models import Bert, BertConfig
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import batch_norm as BN
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_adam as FAD
     from paddle_tpu_torch.ops.kernels import layer_norm as LN
@@ -1283,7 +1593,43 @@ def main(argv=None):
     rop = optimizer_routes(np, args.seed)
     f32_step_check(np, args.seed)
 
-    # 10. the kernels line, the card, and the verdict
+    # 10. the batch-norm kernels against their plain versions
+    torch.cuda.empty_cache()
+    bn = [batch_norm_case(torch, BN, "x".join(map(str, shape)), "bfloat16",
+                          shape, BN_ITERS, gen) for shape in BN_PATH_SHAPES]
+    batch_norm_case(torch, BN, "f32", "float32", (128, 28, 28, 256),
+                    BN_ITERS, gen)
+    batch_norm_case(torch, BN, "scalar_route_ragged_rows", "bfloat16",
+                    (10007, 1, 1, 100), BN_ITERS, gen)
+    torch.cuda.empty_cache()
+
+    # 11. ResNet-50 training: NCHW and NHWC on the plain batch norm, then
+    # NHWC through the batch-norm kernels
+    recr = {}
+    for route, fmt, on in (("default", "NCHW", None),
+                           ("nhwc_plain", "NHWC", None),
+                           ("kernels", "NHWC", True)):
+        kernels.configure(batch_norm=on)
+        try:
+            recr[route] = train_resnet(np, smi, route, fmt)
+        finally:
+            kernels.configure(batch_norm=None)
+    for route, rec in recr.items():
+        print(json.dumps(dict(
+            phase="train_resnet_route", route=route, card=smi,
+            step_ms=rec["step_ms"], images_per_s=rec["images_per_s"],
+            peak_memory_gib=rec["peak_memory_gib"],
+            batch_norm_launches_per_step=rec["launches_per_step"])),
+            flush=True)
+
+    # 12. the ResNet f32 step against the CPU
+    kernels.configure(batch_norm=True)
+    try:
+        resnet_f32_step_check(np, args.seed)
+    finally:
+        kernels.configure(batch_norm=None)
+
+    # 13. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]
@@ -1314,7 +1660,15 @@ def main(argv=None):
             ("fused_adam_multi", "fused_adam.cu", "fused_adam.py:161",
              rectf["launches"], multi),
             ("fused_adam_flat", "fused_adam.cu", "fused_adam.py:232",
-             rop["launches"]["flat_arena"], flat)):
+             rop["launches"]["flat_arena"], flat),
+            ("batch_norm_stats", "batch_norm.cu", "batch_norm.py:118",
+             recr["kernels"]["launches"], bn[0][0]),
+            ("batch_norm_normalize", "batch_norm.cu", "batch_norm.py:138",
+             recr["kernels"]["launches"], bn[0][1]),
+            ("batch_norm_bwd_reduce", "batch_norm.cu", "batch_norm.py:181",
+             recr["kernels"]["launches"], bn[0][2]),
+            ("batch_norm_bwd_dx", "batch_norm.cu", "batch_norm.py:199",
+             recr["kernels"]["launches"], bn[0][3])):
         check(launches[name] > 0,
               f"{name}: no launch on its path")
         line.append(dict(name=name, route="cuda", source=csrc + source,

@@ -31,6 +31,20 @@ and pretrains it (``tools/bench_bert.py`` is the measured loop)::
         logits, nsp_logits = model(ids)
     loss = model.loss(logits.float(), nsp_logits.float(), mlm, nsp)
     loss.backward(); opt.step(); opt.clear_grad()
+
+and trains the ResNets, NCHW or NHWC (``tools/bench_resnet.py``; with
+``ops.kernels.configure(batch_norm=True)`` an NHWC model's batch norms run
+the port's batch-norm kernels)::
+
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.ops import loss
+
+    model = resnet50(data_format="NHWC").cuda()
+    opt = optimizer.Momentum(0.1, 0.9, parameters=model.parameters())
+    with amp.auto_cast(dtype="bfloat16"):
+        logits = model(images)
+    loss.cross_entropy(logits.float(), labels).backward()
+    opt.step(); opt.clear_grad()
 """
 from . import device, random, amp, initializer, nn, ops, models, inference
 from . import io, resilience, serving, convert, regularizer, optimizer, jit

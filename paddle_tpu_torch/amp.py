@@ -3,9 +3,12 @@
 Counterpart of ``paddle_tpu/amp.py`` (``auto_cast``, ``is_enabled``,
 ``compute_dtype``, ``maybe_cast``), with the reference's policy rather than
 ``torch.autocast``'s: :func:`auto_cast` sets a global flag, and only the
-white-listed ops — :func:`paddle_tpu_torch.ops.nn_ops.linear` and
+white-listed ops — :func:`paddle_tpu_torch.ops.nn_ops.linear`,
+:func:`paddle_tpu_torch.ops.nn_ops.conv2d` and
 :func:`paddle_tpu_torch.ops.math.matmul` — cast their floating inputs to
-the compute dtype. Parameters stay float32 (master weights), and every
+the compute dtype. Batch norm is not on the list: under amp its input is
+the convolution's bf16 output while its weight, bias and statistics stay
+float32. Parameters stay float32 (master weights), and every
 other op keeps the dtypes it is given, so a residual sum of an f32 stream
 and a bf16 projection stays f32 by PyTorch's type promotion, as it does in
 the JAX package. ``GradScaler`` and ``decorate`` are not ported yet.
@@ -37,7 +40,8 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     if custom_white_list or custom_black_list or level != "O1":
         raise NotImplementedError(
             "amp.auto_cast: custom op lists and level O2 are not ported "
-            "yet; the port casts linear and matmul (the O1 white list)")
+            "yet; the port casts linear, conv2d and matmul (the O1 white "
+            "list)")
     if dtype not in _DTYPES:
         raise ValueError(f"amp.auto_cast: dtype must be one of "
                          f"{sorted(_DTYPES)}, got {dtype!r}")

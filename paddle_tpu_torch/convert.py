@@ -1,6 +1,8 @@
 """paddle_tpu_torch.convert — carry the JAX package's weights into the port.
 
-The port keeps the JAX package's parameter names and layouts, so a JAX
+The port keeps the JAX package's parameter and buffer names and layouts
+(Linear weights ``[in, out]``, convolution weights OIHW, batch norm's
+running statistics ``_mean`` and ``_variance``), so a JAX
 ``Layer.state_dict()`` taken as numpy (``state_dict(keep_vars=False)``)
 loads into the port's model of the same configuration key for key, and
 :func:`export_state` takes the port's back out the same way, so that two

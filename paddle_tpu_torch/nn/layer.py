@@ -1,8 +1,9 @@
 """paddle_tpu_torch.nn.layer — the Layer base class.
 
 Counterpart of ``paddle_tpu/nn/layer.py``: a ``torch.nn.Module`` with
-paddle's ``create_parameter`` and ``clear_gradients``. Parameter names and
-layouts are the JAX package's (Linear weights ``[in, out]``), so
+paddle's ``create_parameter``, ``register_buffer`` and
+``clear_gradients``. Parameter and buffer names and layouts are the JAX
+package's (Linear weights ``[in, out]``, convolution weights OIHW), so
 ``state_dict()`` keys and shapes match the JAX ``Layer.state_dict()`` one
 to one. ``eval()``/``train()`` and traversal are torch's own; torch's
 ``parameters()`` order (a layer's own parameters, then each sublayer's in
@@ -40,6 +41,13 @@ class Layer(nn.Module):
             I.Constant(0.0) if is_bias else I.XavierUniform())
         data = init(shape, dtype or self._dtype, generator=generator)
         return nn.Parameter(data)
+
+    def register_buffer(self, name, tensor, persistable=True):
+        """Non-trainable state (running statistics), under the
+        reference's signature; a persistable buffer is part of
+        ``state_dict()`` under the reference's key."""
+        super().register_buffer(name, tensor, persistent=persistable)
+        return tensor
 
     def clear_gradients(self):
         """Drop every parameter's gradient (``Layer.clear_gradients``)."""

@@ -11,9 +11,9 @@ tensor the wrapper launches the kernel or raises; it never falls back.
 
 This module holds what the kernels share:
 
-* :func:`configure` and :func:`enabled` — the switch that routes the loss
-  and the optimizer through their kernels, the counterpart of
-  ``paddle_tpu.ops.pallas.configure``/``enabled``;
+* :func:`configure` and :func:`enabled` — the switch that routes the
+  loss, the optimizer and batch norm through their kernels, the
+  counterpart of ``paddle_tpu.ops.pallas.configure``/``enabled``;
 * :func:`build` — the ``nvcc`` build, one process per source, all started
   together, into :data:`BUILD_DIR` (listed in ``.gitignore``). A library
   is named after a hash of its source and flags, so an edited source is
@@ -52,6 +52,10 @@ SOURCES = {
     "fused_adam": "fused_adam.cu",
     "fused_adam_multi": "fused_adam.cu",
     "fused_adam_flat": "fused_adam.cu",
+    "batch_norm_stats": "batch_norm.cu",
+    "batch_norm_normalize": "batch_norm.cu",
+    "batch_norm_bwd_reduce": "batch_norm.cu",
+    "batch_norm_bwd_dx": "batch_norm.cu",
 }
 
 # -- the kernel switch -------------------------------------------------------
@@ -60,10 +64,11 @@ SOURCES = {
 KERNELS = ("layer_norm", "fused_adam", "fused_adam_multi",
            "flash_attention", "softmax_xent", "batch_norm")
 # Auto, on the card and on the CPU alike. Layer norm and attention have no
-# other route on the card. The loss and Adam kernels stay off, which keeps
-# the default training step as it was measured before they were ported;
-# whether to turn them on is decided from the H100's numbers (ROADMAP.md
-# Queue A). None of this is a TPU measurement.
+# other route on the card. The loss, Adam and batch-norm kernels stay off,
+# as in the reference, which keeps the default training steps as they
+# were measured before those kernels were ported; whether to turn them on
+# is decided from the H100's numbers (ROADMAP.md Queue A). None of this is
+# a TPU measurement.
 _AUTO_ON = {"layer_norm": True, "flash_attention": True,
             "fused_adam": False, "fused_adam_multi": False,
             "softmax_xent": False, "batch_norm": False}
@@ -75,10 +80,12 @@ def configure(flash_min_seq=None, **kernels):
     override the auto default of named kernels; ``None`` restores auto;
     an unknown name raises ``ValueError``. ``layer_norm`` and
     ``flash_attention`` have no other route on the card, so ``False``
-    raises ``NotImplementedError``, as do ``batch_norm`` (not ported) and
-    a sequence gate ``flash_min_seq`` (the reference's default is a TPU
-    measurement). An override of ``True`` on a CPU tensor runs the
-    kernel's plain version."""
+    raises ``NotImplementedError``, as does a sequence gate
+    ``flash_min_seq`` (the reference's default is a TPU measurement).
+    ``batch_norm=True`` sends a training-mode, affine, channels-last
+    ``ops.nn_ops.batch_norm`` through the four batch-norm kernels. An
+    override of ``True`` on a CPU tensor runs the kernel's plain
+    version."""
     if flash_min_seq is not None:
         raise NotImplementedError(
             "flash_min_seq: the port runs attention through its kernel at "
@@ -89,10 +96,6 @@ def configure(flash_min_seq=None, **kernels):
             raise ValueError(f"unknown kernel {k!r}; known: {KERNELS}")
         if v is None:
             _overrides.pop(k, None)
-        elif k == "batch_norm":
-            raise NotImplementedError(
-                "batch_norm comes with the ResNet-50 slice (ROADMAP.md "
-                "Queue B #11-#14)")
         elif k in ("layer_norm", "flash_attention") and not v:
             raise NotImplementedError(
                 f"{k}=False: the port has no other route for {k} on the "
@@ -226,8 +229,8 @@ def device_index(t):
 
 
 from . import layer_norm, flash_attention, softmax_xent  # noqa: E402
-from . import fused_adam  # noqa: E402
+from . import fused_adam, batch_norm  # noqa: E402
 
 __all__ = ["build", "function", "launches", "reset_launches", "configure",
            "enabled", "layer_norm", "flash_attention", "softmax_xent",
-           "fused_adam", "SOURCES", "KERNELS", "BUILD_DIR"]
+           "fused_adam", "batch_norm", "SOURCES", "KERNELS", "BUILD_DIR"]

@@ -1,4 +1,4 @@
-"""paddle_tpu_torch.optimizer — Optimizer, Adam and AdamW.
+"""paddle_tpu_torch.optimizer — Optimizer, SGD, Momentum, Adam and AdamW.
 
 Counterpart of the same classes in ``paddle_tpu/optimizer/__init__.py``,
 with the reference's step order, routes and update arithmetic rather than
@@ -19,6 +19,9 @@ with the reference's step order, routes and update arithmetic rather than
 * AdamW then applies its decoupled decay with the parameter as it was
   before the step, ``p_new - lr * wd * p_old``, cast per term; the
   multi-tensor and arena kernels fold the same decay in;
+* SGD is ``p - lr g``; Momentum keeps a ``velocity`` slot in the
+  parameter's dtype, ``v = momentum v + g``, and steps by ``lr v`` or,
+  with ``use_nesterov``, by ``lr (g + momentum v)``;
 * each parameter carries its own ``beta1_pow`` and ``beta2_pow`` slots,
   f32 scalars on its device, and the learning rate is an f32 scalar on
   each device that holds parameters, so a step never syncs with the host.
@@ -199,6 +202,30 @@ class Optimizer:
             p.grad = None
 
 
+class SGD(Optimizer):
+    def _rule(self, p, g, slots, lr):
+        return p - lr * g, {}
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, **kw):
+        super().__init__(learning_rate, parameters, **kw)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _pre_param(self, p):
+        self._slot(p, "velocity")
+
+    def _rule(self, p, g, slots, lr):
+        v = self._momentum * slots["velocity"] + g
+        if self._nesterov:
+            new_p = p - lr * (g + self._momentum * v)
+        else:
+            new_p = p - lr * v
+        return new_p, {"velocity": v}
+
+
 class Adam(Optimizer):
     """Adam with per-parameter ``beta1_pow`` / ``beta2_pow`` slots.
     ``use_fused=True`` runs the per-parameter rule through the
@@ -309,4 +336,4 @@ class AdamW(Adam):
         return (new_p - decay).to(p.dtype), new_slots
 
 
-__all__ = ["Optimizer", "Adam", "AdamW", "ParamArena"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "ParamArena"]

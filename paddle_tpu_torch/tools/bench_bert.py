@@ -118,12 +118,13 @@ def bench_bert(batch=64, seq=128, steps=32, inner=8, device=None,
     return batch * seq / dt, last
 
 
-def profile_step(tr):
-    """Device time of one step by kernel group (``torch.profiler``), the
+def profile_step(tr, group=_group, top=15):
+    """Device time of one step of trainer ``tr`` by kernel group
+    (``torch.profiler``; ``group`` maps a kernel's name to its group), the
     step's CUDA-event time, the share of it the card is idle, and the
-    kernels that took the most device time."""
-    ids, mlm, nsp = (t[0] for t in tr.data)
-    tr.one(ids, mlm, nsp)
+    ``top`` kernels that took the most device time."""
+    batch = tuple(t[0] for t in tr.data)
+    tr.one(*batch)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -131,7 +132,7 @@ def profile_step(tr):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         start.record()
-        tr.one(ids, mlm, nsp)
+        tr.one(*batch)
         end.record()
         torch.cuda.synchronize()
     groups = collections.defaultdict(float)
@@ -139,12 +140,12 @@ def profile_step(tr):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms = e.time_range.elapsed_us() / 1e3
-            groups[_group(e.name)] += ms
+            groups[group(e.name)] += ms
             names[e.name][0] += ms
             names[e.name][1] += 1
     busy = sum(groups.values())
     step_ms = start.elapsed_time(end)
-    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:15]
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(step_ms=step_ms, busy_ms=busy,
                 idle_share=1.0 - busy / step_ms if busy else None,
                 launches=sum(n for _, n in names.values()),

@@ -23,11 +23,12 @@ from paddle_tpu_torch import nn, optimizer
 from paddle_tpu_torch.inference import Predictor
 from paddle_tpu_torch.models import Bert, BertConfig, BertForPretraining
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import batch_norm as BN
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_adam as FAD
 from paddle_tpu_torch.ops.kernels import layer_norm as LN
 from paddle_tpu_torch.ops.kernels import softmax_xent as SX
-from paddle_tpu_torch.tools import bench_bert
+from paddle_tpu_torch.tools import bench_bert, bench_resnet
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -531,3 +532,149 @@ def test_bench_bert_fused_route_runs_two_steps(cuda_device, kernel_switch):
     assert kernels.launches["softmax_xent_bwd"] == 2 * steps
     assert kernels.launches["fused_adam_multi"] == steps
     assert kernels.launches["fused_adam"] == 0
+
+
+# -- the batch-norm kernels ------------------------------------------------------
+
+BN_SHAPES = [(200, 24), (32, 2048), (4097, 64), (6272, 2048), (1000, 100),
+             (70001, 256), (3, 8)]
+
+
+def _bn_operands(device, m, c, dt, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(m, c, device=device, generator=g) * 2 + 1).to(dt)
+    gr = torch.randn(m, c, device=device, generator=g).to(dt)
+    w = torch.rand(c, device=device, generator=g) + 0.5
+    b = torch.randn(c, device=device, generator=g)
+    return x, gr, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda_device, m, c, dtype):
+    """Vector and scalar routes (C a multiple of the 16-byte vector or
+    not), ragged last row chunks, few rows with many channels."""
+    dt = getattr(torch, dtype)
+    x, g, w, b = _bn_operands(cuda_device, m, c, dt, m + c)
+    before = dict(kernels.launches)
+    got = BN.bn_stats(x, w, b, 1e-5)
+    mean0, var0, rstd, scale, shift = BN.bn_stats_plain(x, w, b, 1e-5)
+    for a, r in zip(got, (mean0, var0, rstd, scale, shift)):
+        assert a.shape == r.shape and _scaled_err(a, r) <= 1e-4
+    again = BN.bn_stats(x)             # mean and var alone: the same bits
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert _scaled_err(BN.bn_normalize(x, scale, shift),
+                       BN.bn_normalize_plain(x, scale, shift)) <= TOL[dt]
+    dg, db = BN.bn_bwd_reduce(x, g, mean0, rstd)
+    dg0, db0 = BN.bn_bwd_reduce_plain(x, g, mean0, rstd)
+    for a, r in ((dg, dg0), (db, db0)):
+        assert (a - r).abs().max().item() <= \
+            1e-4 * max(1.0, r.abs().max().item())
+    gm, gv = torch.randn(2, c, device=cuda_device).unbind(0)
+    for args in ((x, g, mean0, rstd, w, dg0, db0, gm, gv),
+                 (x, g, mean0, rstd, w, dg0, db0)):
+        assert _scaled_err(BN.bn_bwd_dx(*args),
+                           BN.bn_bwd_dx_plain(*args)) <= TOL[dt]
+    torch.cuda.synchronize()
+    for name in (BN.STATS, BN.NORMALIZE, BN.BWD_REDUCE, BN.BWD_DX):
+        assert kernels.launches[name] == before[name] + (
+            2 if name in (BN.STATS, BN.BWD_DX) else 1)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_take_an_unaligned_view_and_a_large_mean(
+        cuda_device):
+    """A view that starts 4 bytes into its storage takes the scalar
+    route; at mean 1000 the shifted sums keep the variance."""
+    base = torch.randn(64 * 32 + 1, device=cuda_device)
+    x = base[1:].view(64, 32)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    mean, var = BN.bn_stats(x)
+    mean0, var0 = BN.bn_stats_plain(x)
+    assert _scaled_err(mean, mean0) <= 1e-4 and _scaled_err(var, var0) <= 1e-4
+    xl = torch.randn(5000, 64, device=cuda_device) + 1000.0
+    _, var = BN.bn_stats(xl)
+    assert torch.allclose(var.ravel(), xl.double().var(0, unbiased=False)
+                          .float(), rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_norm_function_matches_plain_autograd(cuda_device, dtype):
+    """All three outputs' gradients through the kernels against autograd
+    of the plain forward, and the refusals on the card."""
+    dt = getattr(torch, dtype)
+    x, g, w, b = _bn_operands(cuda_device, 777, 48, dt, 5)
+    gm = torch.randn(48, device=cuda_device)
+    gv = torch.randn(48, device=cuda_device)
+
+    def run(fn):
+        xs = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        out, mean, var = fn(*xs)
+        ((out.reshape(g.shape).float() * g.float()).sum() +
+         (mean.reshape(-1) * gm).sum() +
+         (var.reshape(-1) * gv).sum()).backward()
+        return [out, mean, var] + [t.grad for t in xs]
+
+    def plain(x, w, b):
+        mean, var, _, scale, shift = BN.bn_stats_plain(x, w, b, 1e-5)
+        return BN.bn_normalize_plain(x, scale, shift), mean, var
+
+    got = run(lambda x, w, b: BN.bn_channels_last(
+        x.view(7, 111, 48), w, b, 1e-5))
+    ref = run(plain)
+    for a, r, name in zip(got, ref, ("out", "mean", "var", "dx", "dw", "db")):
+        tol = TOL[dt] if name in ("out", "dx") else 1e-3
+        assert (a.reshape(r.shape).float() - r.float()).abs().max().item() \
+            <= tol * max(1.0, r.float().abs().max().item()), name
+    with pytest.raises(ValueError, match="copy"):
+        BN.bn_channels_last(x.t(), w[:1].expand(777), b[:1].expand(777), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        BN.bn_stats(x[:, ::2])
+    with pytest.raises(TypeError):
+        BN.bn_stats(x.half())
+
+
+@pytest.mark.cuda
+def test_resnet_kernel_route_launches_and_matches_the_cpu(cuda_device):
+    """A 4-block bottleneck ResNet, NHWC, batch-norm kernels on: one f32
+    step on the card against the CPU (the plain versions), 17 launches of
+    each kernel; the NCHW model launches none."""
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.models import BottleneckBlock, ResNet
+    from paddle_tpu_torch.ops import loss as loss_ops
+    import paddle_tpu_torch as ptt
+    ptt.seed(0)
+    cpu = ResNet(BottleneckBlock, [1, 1, 1, 1], num_classes=10,
+                 data_format="NHWC").train()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.randn(8, 64, 64, 3)
+    y = torch.randint(0, 10, (8,))
+    kernels.configure(batch_norm=True)
+    try:
+        kernels.reset_launches()
+        res = []
+        for model, dev in ((card, cuda_device), (cpu, "cpu")):
+            o = opt.Momentum(0.01, 0.9, parameters=model.parameters())
+            lo = loss_ops.cross_entropy(model(x.to(dev)), y.to(dev))
+            lo.backward()
+            o.step()
+            res.append((lo.item(), {k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()}))
+        launches = dict(kernels.launches)
+    finally:
+        kernels.configure(batch_norm=None)
+    assert all(launches[n] == 17 for n in launches
+               if n.startswith("batch_norm")), launches
+    assert abs(res[0][0] - res[1][0]) <= 1e-4
+    for k in res[1][1]:
+        assert torch.allclose(res[0][1][k], res[1][1][k], atol=2e-4,
+                              rtol=2e-3), k
+    kernels.reset_launches()
+    small = dict(model_fn=lambda **kw: ResNet(BottleneckBlock, [1, 1, 1, 1],
+                                              num_classes=10, **kw))
+    img_s, last = bench_resnet.bench_resnet(batch=8, steps=2, inner=1,
+                                            size=64, **small)
+    assert img_s > 0 and np.isfinite(last)
+    assert sum(kernels.launches.values()) == 0

@@ -285,7 +285,8 @@ def pallas_config():
     the defaults."""
     yield P.configure
     reset = dict(layer_norm=None, flash_attention=None, flash_min_seq=None,
-                 softmax_xent=None, fused_adam=None, fused_adam_multi=None)
+                 softmax_xent=None, fused_adam=None, fused_adam_multi=None,
+                 batch_norm=None)
     P.configure(**reset)
     kernels.configure(**reset)
 

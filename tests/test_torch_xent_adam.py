@@ -58,7 +58,8 @@ ADAM_TOL = dict(atol=1e-6, rtol=1e-5)
 BF16_TOL = dict(atol=1e-6, rtol=2 ** -7)
 # every kernel name either package's switch knows
 _RESET = dict(layer_norm=None, flash_attention=None, flash_min_seq=None,
-              softmax_xent=None, fused_adam=None, fused_adam_multi=None)
+              softmax_xent=None, fused_adam=None, fused_adam_multi=None,
+              batch_norm=None)
 
 
 @pytest.fixture
