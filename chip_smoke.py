@@ -10,9 +10,14 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
 
 1. device: the card's name and power limit; every kernel of the path is
    built from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and ``-Xptxas -v``'s registers, shared memory and spills shown.
+   once) and ``-Xptxas -v``'s registers, shared memory and spills shown,
+   with each kernel instance's count of tensor-core (HMMA) instructions
+   from ``cuobjdump -sass``: the bf16 flash forward and dK/dV kernels
+   must have some, and no spill at head dim 64.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, with the tolerance
+   card, at the shapes the serving path gives it (flash attention also
+   causal at S = 512, a full bias, S = 200, 77 queries over 200 keys, and
+   head dim 128 causal with dropout, in bf16), with the tolerance
    stated; CUDA-event times of the kernel, the plain version and one
    PyTorch library call computing the same function (a yardstick the port
    never calls), replayed from a CUDA graph so that they are the card's
@@ -35,7 +40,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    kernel with in-kernel dropout (and its kept fraction), and the flash
    dQ and dK/dV kernels, each against its plain version on the card at
    the training path's shapes (and causal, unaligned and head-dim-128
-   cases), timed as in phase 2; the library yardsticks are
+   cases, and in bf16 the causal, full-bias, S = 200, 77-over-200 and
+   head-dim-128 causal dropout cases of phase 2), timed as in phase 2;
+   the library yardsticks are
    ``aten.native_layer_norm_backward`` and the backward of
    ``scaled_dot_product_attention``.
 6. loss and optimizer kernels: ``softmax_xent`` forward and backward at
@@ -111,6 +118,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -319,6 +327,89 @@ def abs_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+# -- phase 1: what the build made ---------------------------------------------
+
+# the tensor-core kernels, by their template instance; those at head dim 64
+# (the path's) must also show no spill
+TENSOR_CORE_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tc<128>",
+                       "flash_bwd_dkv_tc<64>", "flash_bwd_dkv_tc<128>")
+NO_SPILL_KERNELS = ("flash_fwd_tc<64>", "flash_bwd_dkv_tc<64>")
+
+
+def demangle(names, tool_dir):
+    """Short names ("flash_fwd_tc<64>") for mangled kernel names, by the
+    toolkit's cu++filt (or c++filt); a name stays mangled where neither
+    is found."""
+    for tool in (tool_dir / "cu++filt", "c++filt"):
+        try:
+            out = subprocess.run([str(tool)], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60,
+                                 check=True).stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            continue
+        if len(out) == len(names):
+            short = [re.search(r"::(\w+(?:<[^>]*>)?)\(", d) for d in out]
+            return {n: (re.sub(r"\(\w+\)", "", m.group(1))
+                        .replace("__nv_bfloat16", "bf16") if m else d)
+                    for n, m, d in zip(names, short, out)}
+    return {n: n for n in names}
+
+
+def build_report(kernels, logs):
+    """Per kernel instance: registers and spill bytes from ``-Xptxas
+    -v``, and its tensor-core (HMMA) instructions in ``cuobjdump -sass``
+    of the built library (the toolkit's copy beside nvcc)."""
+    tool_dir = Path(kernels._nvcc()).parent
+    info = {}
+    for log in logs.values():
+        fn = None
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = m.group(1)
+                info[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and fn:
+                info[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn:
+                info[fn]["registers"] = int(m.group(1))
+    for source in logs:
+        so = kernels._library_path(source)
+        out = subprocess.run([str(tool_dir / "cuobjdump"), "-sass", str(so)],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        fn = None
+        for ln in out.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                info.setdefault(fn, {})["hmma"] = 0
+            elif fn and "HMMA" in ln:
+                info[fn]["hmma"] += 1
+    names = demangle(sorted(info), tool_dir)
+    report = {names[n]: v for n, v in info.items()}
+
+    def entry(name):
+        # "flash_fwd_tc<64>" is "...12flash_fwd_tcILi64EE..." mangled
+        base, arg = name[:-1].split("<")
+        hits = [v for k, v in info.items()
+                if f"{len(base)}{base}ILi{arg}E" in k]
+        check(len(hits) == 1, f"{name}: {len(hits)} kernels of that name "
+                              f"in the build")
+        return hits[0]
+
+    for name in TENSOR_CORE_KERNELS:
+        check(entry(name).get("hmma", 0) > 0,
+              f"{name}: no tensor-core (HMMA) instruction in the build")
+    for name in NO_SPILL_KERNELS:
+        check(entry(name).get("spill_bytes") == 0,
+              f"{name}: ptxas reports {entry(name).get('spill_bytes')} "
+              f"spill bytes")
+    return report
+
+
 # -- phase 2: kernels against their plain versions ----------------------------
 
 def layer_norm_case(torch, LN, dtype, n, d, iters, gen):
@@ -357,43 +448,64 @@ def layer_norm_case(torch, LN, dtype, n, d, iters, gen):
     return rec
 
 
+def causal_pairs(sq, sk):
+    """(query, key) pairs with q_pos >= k_pos (top-left)."""
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
 def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
-               iters, gen):
+               iters, gen, sk=None, dropout_p=0.0, phase="kernel"):
+    """The forward kernel at (b, h, s, d) queries over ``sk`` keys (default
+    s) against its plain version, with dropout at ``dropout_p`` from one
+    seed (and then the kept fraction of its hash mask checked)."""
+    sk = sk or s
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
-    sets = [st[:4] for st in flash_sets(torch, dtype, b, h, s, d, mask_kind,
-                                         gen, n_sets(4 * b * h * s * d * es))]
+    seed = (20240601, -17)
+    kw = dict(causal=causal, dropout_p=dropout_p, seed=seed)
+    sets = [st[:4] for st in flash_sets(
+        torch, dtype, b, h, s, d, mask_kind, gen,
+        n_sets(2 * b * h * (s + sk) * d * es), sk=sk)]
     q, k, v, mask = sets[0]
-    out, m, l = FA.flash_attention_fwd(q, k, v, mask, causal=causal)
+    out, m, l = FA.flash_attention_fwd(q, k, v, mask, **kw)
     torch.cuda.synchronize()
-    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, mask, causal=causal)
+    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, mask, **kw)
     err = max(scaled_err(out, out0), scaled_err(m, m0), scaled_err(l, l0))
-    rec = dict(phase="kernel", name="flash_attention_fwd", case=label,
-               dtype=dtype, shape=[b, h, s, d], mask=mask_kind,
-               causal=causal, max_abs_err=abs_err(out, out0),
-               max_scaled_err=err, tol=KERNEL_TOL[dtype])
+    rec = dict(phase=phase, name="flash_attention_fwd", case=label,
+               dtype=dtype, shape=[b, h, s, d], keys=sk, mask=mask_kind,
+               causal=causal, dropout_p=dropout_p,
+               max_abs_err=abs_err(out, out0), max_scaled_err=err,
+               tol=KERNEL_TOL[dtype])
     check(err <= KERNEL_TOL[dtype],
           f"flash_attention_fwd {label}: error {err} > tolerance")
     if mask_kind == "bool":
         check(bool((out[0, :, 5] == 0).all()),
               "flash_attention_fwd: a fully masked row must give 0")
+    if dropout_p > 0:
+        kept = FA.dropout_keep_mask(seed, b * h, s, sk, dropout_p,
+                                    "cuda").float().mean().item()
+        rec["kept_fraction"] = kept
+        check(abs(kept - (1 - dropout_p)) <= KEEP_TOL,
+              f"flash_attention_fwd {label}: kept fraction {kept}, want "
+              f"{1 - dropout_p} +- {KEEP_TOL}")
     F = torch.nn.functional
 
     def library(q, k, v, mask):
         if mask is not None and mask.dtype != torch.bool:
             mask = mask.to(q.dtype)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              is_causal=causal)
+                                              is_causal=causal,
+                                              dropout_p=dropout_p)
 
     rec.update(timings(
-        torch, lambda *a: FA.flash_attention_fwd(*a, causal=causal),
-        lambda *a: FA.flash_attention_fwd_plain(*a, causal=causal),
+        torch, lambda *a: FA.flash_attention_fwd(*a, **kw),
+        lambda *a: FA.flash_attention_fwd_plain(*a, **kw),
         library, sets, iters))
     # q, k, v read and O written once, the mask read as given, m and l
     # written; two products of 2*D operations per (query, key) pair the
     # function needs (the lower triangle when causal)
-    pairs = s * (s + 1) // 2 if causal else s * s
-    nbytes = (4 * b * h * s * d * es + 2 * b * h * s * 4 +
+    pairs = causal_pairs(s, sk) if causal else s * sk
+    nbytes = (2 * b * h * (s + sk) * d * es + 2 * b * h * s * 4 +
               (0 if mask is None else mask.numel() * mask.element_size()))
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * b * h * pairs * d,
                                              dtype)
@@ -454,89 +566,55 @@ def layer_norm_bwd_case(torch, LN, dtype, n, d, iters, gen):
     return rec
 
 
-def flash_sets(torch, dtype, b, h, s, d, mask_kind, gen, count):
+def flash_sets(torch, dtype, b, h, s, d, mask_kind, gen, count, sk=None):
     """``count`` input sets (q, k, v, mask, dO): head-split views of a
-    fused (B, S, 3, H, D) projection, as BERT gives the kernels; a key
-    padding mask of real lengths 16..S, a full f32 bias, a bool mask with
-    one query row that sees no key, or none; and dO in the (B, S, H, D)
-    memory order the model hands the backward."""
+    fused (B, S, 3, H, D) projection, as BERT gives the kernels (with
+    ``sk`` keys other than s: q from a (B, S, H, D) projection, k and v
+    from a fused (B, Sk, 2, H, D) one); a key padding mask of real lengths
+    16..Sk, a full f32 bias, a bool mask with one query row that sees no
+    key, or none; and dO in the (B, S, H, D) memory order the model hands
+    the backward."""
     dt = getattr(torch, dtype)
+    sk = sk or s
     sets = []
     for _ in range(count):
-        qkv = torch.randn(b, s, 3, h, d, device="cuda", generator=gen)
-        qkv = qkv.to(dt).permute(2, 0, 3, 1, 4)
+        if sk == s:
+            qkv = torch.randn(b, s, 3, h, d, device="cuda", generator=gen)
+            q, k, v = qkv.to(dt).permute(2, 0, 3, 1, 4)
+        else:
+            q = torch.randn(b, s, h, d, device="cuda", generator=gen)
+            q = q.to(dt).transpose(1, 2)
+            kv = torch.randn(b, sk, 2, h, d, device="cuda", generator=gen)
+            k, v = kv.to(dt).permute(2, 0, 3, 1, 4)
         mask = None
         if mask_kind == "key":
-            lens = torch.randint(16, s + 1, (b,), device="cuda",
+            lens = torch.randint(16, sk + 1, (b,), device="cuda",
                                  generator=gen)
-            keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+            keep = torch.arange(sk, device="cuda")[None, :] < lens[:, None]
             mask = ((~keep).float() * -1e9)[:, None, None, :]
         elif mask_kind == "full":
-            mask = torch.randn(b, 1, s, s, device="cuda", generator=gen) * 2
+            mask = torch.randn(b, 1, s, sk, device="cuda", generator=gen) * 2
         elif mask_kind == "bool":
-            mask = torch.rand(b, 1, s, s, device="cuda", generator=gen) > 0.3
+            mask = torch.rand(b, 1, s, sk, device="cuda", generator=gen) > 0.3
             mask[0, 0, 5, :] = False       # one query row sees no key
         do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dt)
-        sets.append((qkv[0], qkv[1], qkv[2], mask, do.transpose(1, 2)))
+        sets.append((q, k, v, mask, do.transpose(1, 2)))
     return sets
 
 
-def flash_dropout_fwd_case(torch, FA, dtype, b, h, s, d, iters, gen):
-    """The forward kernel with in-kernel dropout at the training path's
-    shape, against its plain version with the same seed."""
-    dt = getattr(torch, dtype)
-    es = torch.empty((), dtype=dt).element_size()
-    seed = (20240601, -17)
-    sets = [st[:4] for st in flash_sets(torch, dtype, b, h, s, d, "key",
-                                         gen, n_sets(4 * b * h * s * d * es))]
-    q, k, v, mask = sets[0]
-    out, m, l = FA.flash_attention_fwd(q, k, v, mask, dropout_p=DROPOUT_P,
-                                       seed=seed)
-    torch.cuda.synchronize()
-    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, mask,
-                                                dropout_p=DROPOUT_P,
-                                                seed=seed)
-    err = max(scaled_err(out, out0), scaled_err(m, m0), scaled_err(l, l0))
-    kept = FA.dropout_keep_mask(seed, b * h, s, s, DROPOUT_P,
-                                "cuda").float().mean().item()
-    rec = dict(phase="train_kernel", name="flash_attention_fwd",
-               case="bert_s128_dropout", dtype=dtype, shape=[b, h, s, d],
-               mask="key", dropout_p=DROPOUT_P, kept_fraction=kept,
-               max_abs_err=abs_err(out, out0), max_scaled_err=err,
-               tol=KERNEL_TOL[dtype])
-    check(err <= KERNEL_TOL[dtype],
-          f"flash_attention_fwd with dropout: error {err} > tolerance")
-    check(abs(kept - (1 - DROPOUT_P)) <= KEEP_TOL,
-          f"flash_attention_fwd: kept fraction {kept}, want "
-          f"{1 - DROPOUT_P} +- {KEEP_TOL}")
-    F = torch.nn.functional
-    rec.update(timings(
-        torch, lambda *a: FA.flash_attention_fwd(*a, dropout_p=DROPOUT_P,
-                                                 seed=seed),
-        lambda *a: FA.flash_attention_fwd_plain(*a, dropout_p=DROPOUT_P,
-                                                seed=seed),
-        lambda q, k, v, mask: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask.to(q.dtype), dropout_p=DROPOUT_P),
-        sets, iters))
-    nbytes = 4 * b * h * s * d * es + 2 * b * h * s * 4 + b * s * 4
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * b * h * s * s * d,
-                                             dtype)
-    rec["bytes"] = nbytes
-    emit(rec)
-    return rec
-
-
 def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
-                   dropout_p, iters, gen):
+                   dropout_p, iters, gen, sk=None):
     """The dQ and dK/dV kernels against the plain backward, timed each on
     its own (``dq``, ``dkv``), together with the delta reduction
     (``ms``), and against the plain backward and the backward of
-    ``scaled_dot_product_attention``, which compute all three gradients."""
+    ``scaled_dot_product_attention``, which compute all three gradients.
+    ``sk`` keys (default s) for the ``s`` queries."""
+    sk = sk or s
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
     seed = (7, 11)
     sets = flash_sets(torch, dtype, b, h, s, d, mask_kind, gen,
-                      n_sets(8 * b * h * s * d * es))
+                      n_sets(4 * b * h * (s + sk) * d * es), sk=sk)
     fwd = [FA.flash_attention_fwd(q, k, v, mask, causal=causal,
                                   dropout_p=dropout_p, seed=seed)
            for q, k, v, mask, _ in sets]
@@ -550,7 +628,7 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     err = max(scaled_err(a, r) for a, r in zip(got, ref))
     names = ("dq", "dk", "dv")
     rec = dict(phase="train_kernel", name="flash_attention_bwd", case=label,
-               dtype=dtype, shape=[b, h, s, d], mask=mask_kind,
+               dtype=dtype, shape=[b, h, s, d], keys=sk, mask=mask_kind,
                causal=causal, dropout_p=dropout_p,
                max_abs_err={n: abs_err(a, r)
                             for n, a, r in zip(names, got, ref)},
@@ -560,7 +638,7 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     check(all(bool(torch.isfinite(a).all()) for a in got),
           f"flash_attention_bwd {label}: non-finite gradient")
     F = torch.nn.functional
-    cms = [FA._canon_mask(a[3], b, h, s, s) for a in full]
+    cms = [FA._canon_mask(a[3], b, h, s, sk) for a in full]
     launchers = [(FA._bwd_setup(q, k, v, cm, out, m, l, do, causal, None,
                                 dropout_p, seed)[3],)
                  for (q, k, v, _, out, m, l, do), cm in zip(full, cms)]
@@ -571,17 +649,17 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     # the stream of its forward): its forward and backward are captured
     # together, its forward alone likewise, and the backward is the
     # difference of the two device times
-    lib_sets = [(torch.stack([q, k, v]).detach().requires_grad_(),
-                 None if mask is None else mask.to(q.dtype), do)
+    lib_sets = [tuple(t.detach().requires_grad_() for t in (q, k, v)) +
+                (None if mask is None else mask.to(q.dtype), do)
                 for q, k, v, mask, do in sets]
 
-    def library_fwd(qkv, mask, do):
+    def library_fwd(q, k, v, mask, do):
         return F.scaled_dot_product_attention(
-            qkv[0], qkv[1], qkv[2], attn_mask=mask, is_causal=causal,
-            dropout_p=dropout_p)
+            q, k, v, attn_mask=mask, is_causal=causal, dropout_p=dropout_p)
 
-    def library_fwd_bwd(qkv, mask, do):
-        return torch.autograd.grad(library_fwd(qkv, mask, do), qkv, do)
+    def library_fwd_bwd(q, k, v, mask, do):
+        return torch.autograd.grad(library_fwd(q, k, v, mask, do),
+                                   (q, k, v), do)
 
     # the kernel time here is the wrapper's: delta, then both kernels
     rec.update(timings(
@@ -600,13 +678,13 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     # each kernel's own work: dQ reads q, k, v, dO, m, l, delta (and the
     # mask) and writes dq, three products of 2 D operations a (query, key)
     # pair; dK/dV reads the same and writes dk and dv, four products
-    pairs = s * (s + 1) // 2 if causal else s * s
+    pairs = causal_pairs(s, sk) if causal else s * sk
     mask_bytes = 0 if sets[0][3] is None else sets[0][3].numel() * 4
-    rd = 4 * b * h * s * d * es + 3 * b * h * s * 4 + mask_bytes
+    rd = 2 * b * h * (s + sk) * d * es + 3 * b * h * s * 4 + mask_bytes
     rec["bound_dq_ms"], rec["bound_dq_by"] = bound(
         rd + b * h * s * d * es, 6 * b * h * pairs * d, dtype)
     rec["bound_dkv_ms"], rec["bound_dkv_by"] = bound(
-        rd + 2 * b * h * s * d * es, 8 * b * h * pairs * d, dtype)
+        rd + 2 * b * h * sk * d * es, 8 * b * h * pairs * d, dtype)
     emit(rec)
     return rec
 
@@ -1493,8 +1571,10 @@ def main(argv=None):
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name, log in logs.items()}
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              flags=" ".join(kernels.NVCC_FLAGS), ptxas=ptxas))
+    build_s = time.perf_counter() - t0
+    emit(dict(phase="build", seconds=build_s,
+              flags=" ".join(kernels.NVCC_FLAGS), ptxas=ptxas,
+              instances=build_report(kernels, logs)))
 
     # 2. kernels against their plain versions, at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1510,7 +1590,15 @@ def main(argv=None):
         ("bool_fully_masked_row", "bfloat16", 4, 12, 128, 64, "bool",
          False),
         ("unaligned_s200", "float32", 4, 12, 200, 64, "key", False),
-        ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False))]
+        ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False),
+        ("causal", "bfloat16", 4, 12, 512, 64, None, True),
+        ("unaligned_s200", "bfloat16", 4, 12, 200, 64, "key", False),
+        ("full_mask", "bfloat16", 4, 12, 128, 64, "full", False))]
+    fa += [flash_case(torch, FA, "q77_k200", "bfloat16", 4, 12, 77, 64,
+                      "key", False, TIMED_ITERS, gen, sk=200),
+           flash_case(torch, FA, "head_dim_128_causal_dropout", "bfloat16",
+                      4, 8, 256, 128, None, True, TIMED_ITERS, gen,
+                      dropout_p=DROPOUT_P)]
 
     # 3. serving, f32
     ptt.seed(args.seed)
@@ -1551,15 +1639,24 @@ def main(argv=None):
     # 5. the training kernels against their plain versions
     lnb = [layer_norm_bwd_case(torch, LN, dt, 8192, 768, TIMED_ITERS, gen)
            for dt in ("float32", "bfloat16")]
-    flash_dropout_fwd_case(torch, FA, "bfloat16", 64, 12, 128, 64,
-                           TIMED_ITERS, gen)
+    flash_case(torch, FA, "bert_s128_dropout", "bfloat16", 64, 12, 128, 64,
+               "key", False, TIMED_ITERS, gen, dropout_p=DROPOUT_P,
+               phase="train_kernel")
     fab = [flash_bwd_case(torch, FA, *c, TIMED_ITERS, gen) for c in (
         ("bert_s128_dropout", "bfloat16", 64, 12, 128, 64, "key", False,
          DROPOUT_P),
         ("bert_s128", "bfloat16", 64, 12, 128, 64, "key", False, 0.0),
         ("causal", "float32", 4, 12, 512, 64, None, True, 0.0),
         ("unaligned_s200", "float32", 4, 12, 200, 64, "key", False, 0.0),
-        ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False, 0.0))]
+        ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False, 0.0),
+        ("causal", "bfloat16", 4, 12, 512, 64, None, True, 0.0),
+        ("unaligned_s200", "bfloat16", 4, 12, 200, 64, "key", False, 0.0),
+        ("full_mask", "bfloat16", 4, 12, 128, 64, "full", False, 0.0),
+        ("head_dim_128_causal_dropout", "bfloat16", 4, 8, 256, 128, None,
+         True, DROPOUT_P))]
+    fab.append(flash_bwd_case(torch, FA, "q77_k200", "bfloat16", 4, 12, 77,
+                              64, "key", False, 0.0, TIMED_ITERS, gen,
+                              sk=200))
 
     # 6. the loss and optimizer kernels against their plain versions
     del model, cpu_model
@@ -1638,7 +1735,7 @@ def main(argv=None):
             ("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:78",
              rec32["launches"], ln[0]),
             ("flash_attention_fwd", "flash_attention.cu",
-             "flash_attention.py:344", rec32["launches"], fa[0]),
+             "flash_attention.py:344", rec16["launches"], fa[1]),
             ("layer_norm_bwd", "layer_norm_bwd.cu", "layer_norm.py:122",
              rect["launches"], lnb[0]),
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu",

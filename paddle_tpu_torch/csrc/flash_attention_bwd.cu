@@ -25,27 +25,43 @@
 // masked row (bool mask, -1e30) has m = 0 and gets p = 0 everywhere.
 //
 // What bounds it on the H100: at BERT's shapes (S = 128, head dim 64,
-// bf16) the bytes of q, k, v, dO and the gradients on paper; but, like the
-// forward, this first version computes its three (dQ) and four (dK/dV)
-// products per tile on CUDA cores in f32, so its own arithmetic is what
-// limits it (PERF.md has the times against the bound).
+// bf16) the bytes of q, k, v, dO and the gradients: dK/dV's four
+// products need 6.5 us at (64, 12, 128, 64) on the tensor cores against a
+// 23 us byte bound. In float32, and in the dQ kernel (both types), the
+// products run on CUDA cores in f32, so their own arithmetic limits them
+// (PERF.md has the times against the bound).
 //
-// What the design does about it: the tiles are staged in shared memory as
-// f32, transposed with an odd row stride, so that both the score loops
-// (reading along the head dim) and the accumulation loops (reading along
-// the tile) are free of bank conflicts; each of the 256 threads keeps a
-// 4 x 4 tile of scores and of dp, and a 4 x (D/16) tile of each
-// accumulator in registers (two accumulators in dK/dV, hence 256 threads
-// rather than the forward's 128: the per-thread accumulator halves). ds
-// and pd pass through shared memory to the accumulation loops. q, k, v
-// and dO are read in place through their strides (the head-split views
-// of BERT's fused QKV projection, and dO in the forward output's
-// (B, S, H, D) memory order), and the gradients are written through
-// strides. Tensor cores (wgmma) and TMA are later work.
+// What the design does about it. dK/dV in bf16 (`flash_bwd_dkv_tc`): one
+// block per (bh, 64-key tile), 4 warps of 16 keys; k and v are copied
+// once (their A fragments read from shared memory at each use, which
+// leaves the registers for three blocks an SM), and the loop over 64-row
+// query tiles, in halves of 32, from the causal start, double-buffers q
+// and dO by 16-byte cp.async into XOR-swizzled
+// bf16 tiles, the tile's m, 1/l, delta and dropout row hashes beside
+// them. Every product runs on the tensor cores (mma.sync m16n8k16, f32
+// sums) in transposed form, so that each takes its A operand from
+// registers: s^T = k q^T and dp^T = v dO^T (q and dO the B operands
+// through ldmatrix), then p^T, pd^T and ds^T in registers, and
+// dv += pd^T dO, dk += ds^T q with pd^T and ds^T rounded to bf16 straight
+// from the accumulators (the one rounding the reference does not make,
+// 2^-9 relative) and dO, q through ldmatrix.trans. The scale multiplies
+// the f32 scores and, once, dk at the end. No two blocks write the same
+// rows, so nothing needs atomics and the bits are the same every run.
+// The f32 kernels and dQ stage their tiles in shared memory as f32,
+// transposed with an odd row stride so that both the score loops (along
+// the head dim) and the accumulation loops (along the tile) are free of
+// bank conflicts; each of 256 threads keeps a 4 x 4 tile of scores and of
+// dp, and a 4 x (D/16) tile of each accumulator in registers, and ds and
+// pd pass through shared memory. All read q, k, v and dO in place through
+// their strides (the head-split views of BERT's fused QKV projection, and
+// dO in the forward output's (B, S, H, D) memory order; the bf16 dK/dV
+// kernel wants 16-byte aligned rows, which the wrapper ensures), and
+// write the gradients through strides.
 
 #include <atomic>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -437,45 +453,268 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
   }
 }
 
+
+// -- dK/dV in bf16 on the tensor cores ----------------------------------------
+
+namespace tc = ptk::tc;
+
+constexpr int NT_TC = 128;  // 4 warps, 16 keys each
+
+template <int D>
+constexpr int dkv_tc_smem_bytes() {
+  // k and v tiles; two q and two dO tiles (bf16); two sets of the query
+  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row
+  return (2 * BK * D + 4 * BQ * D) * 2 + 2 * 4 * BQ * 4 + BK * 4;
+}
+
+template <int D>
+// three blocks an SM at D = 64 (168 registers, no spill); two at D = 128
+__global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
+    flash_bwd_dkv_tc(const Params p) {
+  using bf16 = tc::bf16;
+  constexpr int KD = D / 16;  // 16-wide slices of the head dim
+  constexpr int ND = D / 8;   // 8-wide n-tiles of dk and dv
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][D]
+  bf16* Vs = Ks + BK * D;                        // [BK][D]
+  bf16* Qs = Vs + BK * D;                        // [2][BQ][D]
+  bf16* Os = Qs + 2 * BQ * D;                    // [2][BQ][D]  dO
+  float* Mr = reinterpret_cast<float*>(Os + 2 * BQ * D);  // [2][BQ] m
+  float* Li = Mr + 2 * BQ;                       // [2][BQ] 1 / max(l, 1e-20)
+  float* Dl = Li + 2 * BQ;                       // [2][BQ] delta
+  uint32_t* Hr = reinterpret_cast<uint32_t*>(Dl + 2 * BQ);  // [2][BQ]
+  float* Bk = reinterpret_cast<float*>(Hr + 2 * BQ);        // [BK]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;  // the warp's first key in the tile
+  const int keys[2] = {k0 + wrow + g, k0 + wrow + g + 8};
+
+  const bf16* qb = at<bf16>(p, p.q, Q, b, h);
+  const bf16* kb = at<bf16>(p, p.k, K, b, h);
+  const bf16* vb = at<bf16>(p, p.v, V, b, h);
+  const bf16* dob = at<bf16>(p, p.dout, DO, b, h);
+  bf16* dkb = at<bf16>(p, p.dk, DK, b, h);
+  bf16* dvb = at<bf16>(p, p.dv, DV, b, h);
+  const float* mg = mask_group(p, b, h, bh);
+
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int q_first = p.causal ? k0 / BQ : 0;
+  auto load_q_tile = [&](int buf, int qt) {
+    const int q0 = qt * BQ;
+    tc::load_tile<D, BQ, NT_TC>(Qs + buf * BQ * D, qb, p.st[Q][2], q0, p.Sq,
+                                tid);
+    tc::load_tile<D, BQ, NT_TC>(Os + buf * BQ * D, dob, p.st[DO][2], q0,
+                                p.Sq, tid);
+    tc::cp_async_commit();
+    for (int r = tid; r < BQ; r += NT_TC) {
+      const int qi = q0 + r;
+      const bool in = qi < p.Sq;
+      const int64_t row = (int64_t)bh * p.Sq + qi;
+      Mr[buf * BQ + r] = in ? p.m[row] : 0.f;
+      Li[buf * BQ + r] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
+      Dl[buf * BQ + r] = in ? p.delta[row] : 0.f;
+      Hr[buf * BQ + r] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
+    }
+  };
+
+  tc::load_tile<D, BK, NT_TC>(Ks, kb, p.st[K][2], k0, p.Sk, tid);
+  tc::load_tile<D, BK, NT_TC>(Vs, vb, p.st[V][2], k0, p.Sk, tid);
+  if (p.mask_mode == 1)
+    for (int c = tid; c < BK; c += NT_TC)
+      Bk[c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  load_q_tile(0, q_first);
+  const float inv_keep = 1.f / p.keep_div;
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int buf = (qt - q_first) & 1;
+    const int q0 = qt * BQ;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile qt is in; every reader of tile qt-1 is done
+    if (qt + 1 < nq) load_q_tile(buf ^ 1, qt + 1);
+    const bf16* Qt = Qs + buf * BQ * D;
+    const bf16* Ot = Os + buf * BQ * D;
+    const float* mr = Mr + buf * BQ;
+    const float* li = Li + buf * BQ;
+    const float* dl = Dl + buf * BQ;
+    const uint32_t* hr = Hr + buf * BQ;
+
+    // the query tile in two halves of 32, so that s^T and dp^T of one
+    // half are live at a time beside the two D-wide accumulators; the k
+    // and v A fragments are re-read from shared memory at each use, which
+    // leaves registers for three blocks an SM (faster on the H100 than
+    // keeping them in registers at two blocks, PERF.md)
+    const bool edge = q0 + BQ > p.Sq || k0 + BK > p.Sk ||
+                      (p.causal && q0 < k0 + wrow + 15);
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      // s^T = k q^T and dp^T = v dO^T: 16 keys x 32 queries a warp
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        tc::load_a<D>(ka, Ks, wrow, kk, lane);
+        tc::load_a<D>(va, Vs, wrow, kk, lane);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bq[4], bo[4];
+          const int n0 = (hq * 2 + np) * 16;
+          tc::load_b_rows<D>(bq, Qt, n0, kk, lane);
+          tc::load_b_rows<D>(bo, Ot, n0, kk, lane);
+          tc::mma(s[2 * np], ka, bq[0], bq[1]);
+          tc::mma(s[2 * np + 1], ka, bq[2], bq[3]);
+          tc::mma(dp[2 * np], va, bo[0], bo[1]);
+          tc::mma(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // p^T, pd^T (in s) and ds^T (in dp), masked per element only on an
+      // edge tile: queries past Sq, keys past Sk, or the causal diagonal
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = keys[e >> 1];
+          const int c = (hq * 4 + t) * 8 + t4 * 2 + (e & 1);
+          const int qi = q0 + c;
+          float x = s[t][e] * p.scale;
+          if (p.mask_mode == 1) x += Bk[wrow + g + ((e >> 1) << 3)];
+          else if (p.mask_mode == 2)
+            x += qi < p.Sq && kj < p.Sk ? mg[(int64_t)qi * p.Sk + kj] : 0.f;
+          const bool valid =
+              !edge || (qi < p.Sq && kj < p.Sk && (!p.causal || qi >= kj));
+          const float pv = valid ? __expf(x - mr[c]) * li[c] : 0.f;
+          float pd = pv, dpv = dp[t][e];
+          if (p.dropout) {
+            const bool keep =
+                ptk::dropout_keep(hr[c], p.seed0, kj, p.threshold);
+            pd = keep ? pv * inv_keep : 0.f;
+            dpv = keep ? dpv * inv_keep : 0.f;
+          }
+          s[t][e] = pd;
+          dp[t][e] = pv * (dpv - dl[c]);
+        }
+      uint32_t pa[2][4], da[2][4];
+      tc::c_to_a<2>(pa, s);
+      tc::c_to_a<2>(da, dp);
+
+      // dv += pd^T dO and dk += ds^T q: 16 queries a step
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t bo[4], bq[4];
+          const int r0 = (hq * 2 + kk) * 16;
+          tc::load_b_cols<D>(bo, Ot, r0, n2 * 2, lane);
+          tc::load_b_cols<D>(bq, Qt, r0, n2 * 2, lane);
+          tc::mma(dv[2 * n2], pa[kk], bo[0], bo[1]);
+          tc::mma(dv[2 * n2 + 1], pa[kk], bo[2], bo[3]);
+          tc::mma(dk[2 * n2], da[kk], bq[0], bq[1]);
+          tc::mma(dk[2 * n2 + 1], da[kk], bq[2], bq[3]);
+        }
+    }
+  }
+  tc::cp_async_wait_all();  // no copy outlives the block
+
+  // dk sums ds^T q: the scale once, here
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = keys[i];
+    if (kj >= p.Sk) continue;
+    bf16* dkr = dkb + kj * p.st[DK][2] + t4 * 2;
+    bf16* dvr = dvb + kj * p.st[DV][2] + t4 * 2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dkr + n * 8) = tc::pack_bf16(
+          dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvr + n * 8) =
+          tc::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
-// Launch the dQ (DKV false) or dK/dV (DKV true) kernel, opting in to more
-// than 48 KB of shared memory once per kernel instance and device (two
-// threads racing only repeat the same idempotent call).
-template <typename T, int D, bool DKV>
-cudaError_t launch(const Params& p, int bh, int device, cudaStream_t stream) {
-  constexpr int bytes =
-      (DKV ? dkv_smem_floats<D>() : dq_smem_floats<D>()) * sizeof(float);
-  static std::atomic<bool> opted_in[kMaxDevices];
+// Launch one kernel instance on a (bh, tiles) grid, opting in to its
+// dynamic shared memory once per instance and device (two threads racing
+// only repeat the same idempotent call).
+template <typename Kern>
+cudaError_t launch_kernel(Kern kernel, int threads, int bytes, int tiles,
+                          int bh, int device, cudaStream_t stream,
+                          std::atomic<bool>* opted_in, const Params& p) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!opted_in[device].load(std::memory_order_acquire)) {
-    cudaError_t err =
-        DKV ? cudaFuncSetAttribute(flash_bwd_dkv<T, D>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   bytes)
-            : cudaFuncSetAttribute(flash_bwd_dq<T, D>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   bytes);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     opted_in[device].store(true, std::memory_order_release);
   }
-  if (DKV)
-    flash_bwd_dkv<T, D>
-        <<<dim3(bh, (p.Sk + BK - 1) / BK), NT, bytes, stream>>>(p);
-  else
-    flash_bwd_dq<T, D>
-        <<<dim3(bh, (p.Sq + BQ - 1) / BQ), NT, bytes, stream>>>(p);
+  kernel<<<dim3(bh, tiles), threads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The dQ kernel (DKV false, f32 or bf16) or the f32 dK/dV kernel.
+template <typename T, int D, bool DKV>
+cudaError_t launch(const Params& p, int bh, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if constexpr (DKV)
+    return launch_kernel(flash_bwd_dkv<T, D>, NT,
+                         dkv_smem_floats<D>() * 4, (p.Sk + BK - 1) / BK,
+                         bh, device, stream, opted_in, p);
+  else
+    return launch_kernel(flash_bwd_dq<T, D>, NT, dq_smem_floats<D>() * 4,
+                         (p.Sq + BQ - 1) / BQ, bh, device, stream, opted_in,
+                         p);
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Params& p, int bh, int device,
+                          cudaStream_t stream) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  return launch_kernel(flash_bwd_dkv_tc<D>, NT_TC, dkv_tc_smem_bytes<D>(),
+                       (p.Sk + BK - 1) / BK, bh, device, stream, opted_in,
+                       p);
 }
 
 template <bool DKV>
 cudaError_t launch_any(const Params& p, int bh, int D, int bf16, int device,
                        cudaStream_t s) {
-  if (bf16)
-    return D == 64 ? launch<__nv_bfloat16, 64, DKV>(p, bh, device, s)
-                   : launch<__nv_bfloat16, 128, DKV>(p, bh, device, s);
+  if constexpr (DKV) {
+    if (bf16)
+      return D == 64 ? launch_dkv_tc<64>(p, bh, device, s)
+                     : launch_dkv_tc<128>(p, bh, device, s);
+  } else {
+    if (bf16)
+      return D == 64 ? launch<__nv_bfloat16, 64, false>(p, bh, device, s)
+                     : launch<__nv_bfloat16, 128, false>(p, bh, device, s);
+  }
   return D == 64 ? launch<float, 64, DKV>(p, bh, device, s)
                  : launch<float, 128, DKV>(p, bh, device, s);
+}
+
+// bf16 operands of the dK/dV kernel are read by 16-byte copies: the base
+// pointer and every stride of a dimension longer than 1 must be a
+// multiple of 16 bytes
+bool rows_aligned(const void* ptr, const long long* st, int B, int H,
+                  int S) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         (B == 1 || st[0] % 8 == 0) && (H == 1 || st[1] % 8 == 0) &&
+         (S == 1 || st[2] % 8 == 0);
 }
 
 int run(bool dkv, int device, const void* q, const void* k, const void* v,
@@ -516,6 +755,12 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
   p.seed0 = seed0;
   p.seed1 = seed1;
   p.keep_div = keep_div;
+  if (dkv && bf16 &&
+      !(rows_aligned(q, strides + 3 * Q, B, H, Sq) &&
+        rows_aligned(k, strides + 3 * K, B, H, Sk) &&
+        rows_aligned(v, strides + 3 * V, B, H, Sk) &&
+        rows_aligned(dout, strides + 3 * DO, B, H, Sq)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
   err = dkv ? launch_any<true>(p, bh, D, bf16, device, s)
@@ -531,7 +776,10 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
 // each for q, k, v, dO, dq, dk, dv. mask: contiguous f32 (mb*mh, 1 or Sq,
 // Sk) for mask_mode 1 or 2, else null. m, l, delta: contiguous f32
 // (B*H, Sq). D must be 64 or 128. The dropout arguments are the
-// forward's. `flash_attention_bwd_dq` writes dq and ignores dk, dv;
+// forward's. bf16 q, k, v and dO must start on 16 bytes and have strides
+// that are multiples of 8 elements for `flash_attention_bwd_dkv`
+// (cudaErrorMisalignedAddress otherwise). `flash_attention_bwd_dq`
+// writes dq and ignores dk, dv;
 // `flash_attention_bwd_dkv` writes dk and dv and ignores dq. Each
 // launches on `stream` and returns a CUDA error code; allocates nothing.
 #define PTK_BWD_ARGS                                                        \

@@ -11,6 +11,10 @@ sdpa's: a bool mask becomes an additive ``-1e30`` bias, and a query row
 whose every key is masked that way gets probability 0 everywhere and
 output 0 (plain sdpa's ``-1e9`` would give a uniform average instead).
 
+In bf16 the forward and the dK/dV kernel run their products on the
+tensor cores (``csrc/tensor_core.cuh``); float32 stays in full float32 on
+the CUDA cores, and dQ runs there in both types.
+
 Attention dropout is drawn inside the kernels. The TPU's random bits
 cannot be reproduced, so the keep decision is a counter hash of ``(seed0,
 seed1, batch*head, row, col)`` (``csrc/common.cuh``), which the forward
@@ -157,6 +161,28 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _aligned16(t):
+    """Whether 16-byte copies can read ``t``'s head-dim rows: the pointer
+    and every stride of a dimension longer than 1 a multiple of 16
+    bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * es) % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
+def _kernel_operand(t):
+    """``t`` as the kernels read it: the head dim contiguous, and a bf16
+    tensor's rows on 16-byte boundaries (the tensor-core kernels copy
+    them 16 bytes at a time). Anything else is copied, never routed to
+    the plain version."""
+    if t.stride(-1) != 1:
+        return t.contiguous()
+    if t.dtype == torch.bfloat16 and not _aligned16(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _dropout_args(dropout_p, seed):
     if dropout_p <= 0.0:
         return 0, 0, 0, 0, 1.0
@@ -220,7 +246,7 @@ def _fwd(q, k, v, cm, causal, scale, dropout_p, seed):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     m = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
@@ -260,7 +286,8 @@ def flash_attention_fwd(q, k, v, attn_mask=None, causal=False, scale=None,
                         dropout_p=0.0, seed=(0, 0)):
     """Flash attention forward over (B, H, S, D). On a CUDA tensor it
     launches the kernel (head dim 64 or 128, f32 or bf16 q/k/v, any
-    strides with a contiguous head dim, an f32 mask, dropout at rate
+    strides with a contiguous head dim, copied first where a bf16 row is
+    off a 16-byte boundary, an f32 mask, dropout at rate
     ``dropout_p`` from the two 32-bit words of ``seed``); on a CPU tensor
     it computes :func:`flash_attention_fwd_plain`. Returns ``(out, m,
     l)`` as the plain version does; the kernel's ``out`` is laid out as
@@ -309,9 +336,7 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
-    q, k, v, g = (t if t.stride(-1) == 1 else t.contiguous()
-                  for t in (q, k, v, g))
-    g = g.to(q.dtype)
+    q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g.to(q.dtype)))
     delta = (g.float() * out.float()).sum(dim=-1).reshape(b * h, sq)
     m, l = m.contiguous(), l.contiguous()
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)

@@ -30,6 +30,8 @@ from paddle_tpu_torch.ops.kernels import layer_norm as LN
 from paddle_tpu_torch.ops.kernels import softmax_xent as SX
 from paddle_tpu_torch.tools import bench_bert, bench_resnet
 
+from flash_grid import GRID
+
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -257,6 +259,123 @@ def test_flash_attention_fwd_bwd_kernels_match_plain(cuda_device, case,
         assert _scaled_err(got, want) <= TOL[dt]
     if case == "bool_fully_masked_row":
         assert bool((grads[0][1, :, 5] == 0).all())
+
+
+
+
+def _tile_inputs(case, device):
+    """q (B, H, Sq, D), k and v (B, H, Sk, D), dO in the (B, S, H, D)
+    memory order, the mask, and the case's options."""
+    d, dtype, sq, sk, kind, causal, p_drop = GRID[case]
+    dt = getattr(torch, dtype)
+    b, h = 2, 3
+    g = torch.Generator(device=device).manual_seed(sorted(GRID)
+                                                   .index(case))
+    q = torch.randn(b, h, sq, d, device=device, generator=g).to(dt)
+    k, v = torch.randn(2, b, h, sk, d, device=device, generator=g).to(dt)
+    do = torch.randn(b, sq, h, d, device=device, generator=g).to(dt)
+    mask = None
+    if kind == "key":
+        mask = torch.where(torch.rand(b, 1, 1, sk, device=device,
+                                      generator=g) < 0.3, -1e9, 0.0)
+    elif kind == "full":
+        mask = torch.randn(1, h, sq, sk, device=device, generator=g) * 2
+    elif kind == "bool":
+        mask = torch.rand(b, 1, sq, sk, device=device, generator=g) > 0.3
+        mask[0, 0, 5, :] = False
+    return q, k, v, do.transpose(1, 2), mask, dict(
+        causal=causal, dropout_p=p_drop, seed=(sq, sk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID))
+def test_flash_kernels_match_plain_at_tile_edges(cuda_device, case):
+    q, k, v, do, mask, kw = _tile_inputs(case, cuda_device)
+    dt = q.dtype
+    before = dict(kernels.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches[FA.NAME] == before[FA.NAME] + 1
+    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, mask, **kw)
+    assert _scaled_err(out, out0) <= TOL[dt]
+    assert _scaled_err(m, m0) <= 1e-4 and _scaled_err(l, l0) <= 1e-4
+    grads = FA.flash_attention_bwd(q, k, v, mask, out, m, l, do, **kw)
+    torch.cuda.synchronize()
+    for name in (FA.BWD_DQ, FA.BWD_DKV):
+        assert kernels.launches[name] == before[name] + 1
+    ref = FA.flash_attention_bwd_plain(q, k, v, mask, out, m, l, do, **kw)
+    for got, want in zip(grads, ref):
+        assert got.dtype == dt and bool(torch.isfinite(got).all())
+        assert _scaled_err(got, want) <= TOL[dt]
+    if GRID[case][4] == "bool":
+        assert bool((out[0, :, 5] == 0).all())
+        assert bool((grads[0][0, :, 5] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fwd_and_dkv_kernels_draw_the_same_dropout_mask(cuda_device,
+                                                              dtype):
+    """q = 0 makes every probability 1/Sk, and dO = I puts query i's
+    dropped, scaled probabilities in column i of dv: dv[k, i] =
+    keep[i, k] / (0.9 Sk). So the dv the dK/dV kernel computes from the
+    forward kernel's output is positive exactly where the hash keeps, and
+    equals the plain backward under ``dropout_keep_mask``."""
+    dt = getattr(torch, dtype)
+    b, h, sq, sk, d = 2, 3, 64, 130, 64
+    seed = (4242, -99)
+    q = torch.zeros(b, h, sq, d, device=cuda_device, dtype=dt)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    k = torch.randn(b, h, sk, d, device=cuda_device, generator=g).to(dt)
+    v = torch.randn(b, h, sk, d, device=cuda_device, generator=g).to(dt)
+    do = torch.eye(sq, d, device=cuda_device, dtype=dt).expand(b, h, sq, d)
+    out, m, l = FA.flash_attention_fwd(q, k, v, dropout_p=0.1, seed=seed)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, None, out, m, l, do,
+                                        dropout_p=0.1, seed=seed)
+    keep = FA.dropout_keep_mask(seed, b * h, sq, sk, 0.1, cuda_device)
+    assert torch.equal(dv.reshape(b * h, sk, d)[:, :, :sq] > 0,
+                       keep.transpose(1, 2))
+    kf = keep.float()
+    _, _, dv0 = FA.flash_attention_bwd_plain(q, k, v, None, out, m, l, do,
+                                             dropout_p=0.1, keep=kf)
+    assert _scaled_err(dv, dv0) <= TOL[dt]
+    torch.testing.assert_close(
+        dv.reshape(b * h, sk, d)[:, :, :sq].float(),
+        kf.transpose(1, 2) / (0.9 * sk), rtol=TOL[dt], atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_copy_inputs_off_16_byte_rows(cuda_device):
+    """bf16 q, k, v, dO whose storage starts 2 bytes off a 16-byte
+    boundary, or whose rows are 68 elements apart: the wrappers copy them
+    for the tensor-core kernels, and the results equal those from
+    contiguous copies."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, h, s, d = 2, 3, 70, 64
+    n = b * h * s * d
+    flat = torch.randn(n + 1, device=cuda_device, generator=g).bfloat16()
+    q = flat[1:].view(b, h, s, d)                 # 2 bytes off
+    assert q.data_ptr() % 16 == 2
+    wide = torch.randn(b, h, s, d + 4, device=cuda_device,
+                       generator=g).bfloat16()
+    k = wide[..., :d]                             # rows 68 elements apart
+    v = wide[..., 4:]                             # and 8 bytes off
+    do = torch.randn(n + 3, device=cuda_device, generator=g).bfloat16()[3:]
+    do = do.view(b, h, s, d)
+    for t in (q, k, v, do):
+        assert not FA._aligned16(t)
+        assert FA._aligned16(FA._kernel_operand(t))
+    out, m, l = FA.flash_attention_fwd(q, k, v)
+    want = FA.flash_attention_fwd(*(t.contiguous().clone()
+                                    for t in (q, k, v)))
+    assert torch.equal(out, want[0])
+    grads = FA.flash_attention_bwd(q, k, v, None, out, m, l, do)
+    ref = FA.flash_attention_bwd(*(t.clone() for t in (q, k, v)), None,
+                                 out, m, l, do.clone())
+    for a, r in zip(grads, ref):
+        assert torch.equal(a, r)
+    assert _scaled_err(grads[2], FA.flash_attention_bwd_plain(
+        q, k, v, None, out, m, l, do)[2]) <= TOL[torch.bfloat16]
 
 
 def _grad_fns(model, x):
