@@ -12,8 +12,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    built from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and ``-Xptxas -v``'s registers, shared memory and spills shown,
    with each kernel instance's count of tensor-core (HMMA) instructions
-   from ``cuobjdump -sass``: the bf16 flash forward and dK/dV kernels
-   must have some, and no spill at head dim 64.
+   from ``cuobjdump -sass``: the flash forward (bf16, and float32 in split
+   TF32), dQ and dK/dV kernels on the tensor cores must have some, and no
+   spill at head dim 64.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the serving path gives it (flash attention also
    causal at S = 512, a full bias, S = 200, 77 queries over 200 keys, and
@@ -22,7 +23,8 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    PyTorch library call computing the same function (a yardstick the port
    never calls), replayed from a CUDA graph so that they are the card's
    time alone, beside the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of the inputs' type), and
+   3.35 TB/s or operations over the peak rate of the inputs' type; the
+   float32 forward's three TF32 products a term over the TF32 rate), and
    the eager time per call of the kernel's wrapper and the library call,
    host side included.
 3. serving f32: BERT-base at full width (12 layers, 768 wide, 12 heads,
@@ -39,9 +41,10 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
 5. training kernels: the layer-norm backward kernel, the flash forward
    kernel with in-kernel dropout (and its kept fraction), and the flash
    dQ and dK/dV kernels, each against its plain version on the card at
-   the training path's shapes (and causal, unaligned and head-dim-128
-   cases, and in bf16 the causal, full-bias, S = 200, 77-over-200 and
-   head-dim-128 causal dropout cases of phase 2), timed as in phase 2;
+   the training path's shapes, in bf16 and float32 (and causal, unaligned
+   and head-dim-128 cases, and in bf16 the causal, full-bias, S = 200,
+   77-over-200 and head-dim-128 causal dropout cases of phase 2), timed
+   as in phase 2 (dK/dV alone, from the delta a dQ launch wrote);
    the library yardsticks are
    ``aten.native_layer_norm_backward`` and the backward of
    ``scaled_dot_product_attention``.
@@ -132,14 +135,14 @@ HERE = Path(__file__).resolve().parent
 # for each input type: bf16 on the tensor cores, float32 on the CUDA cores
 # (the port's float32 arithmetic is full float32, not TF32).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12}
 # kernel vs plain version, as |diff| / max(1, |plain|): float32 sums in
 # another order; bf16 rounds the f32 result once, one step being 2^-8
 # relative, so 2e-2 allows a few steps
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the served f32 model on the card vs the same model on the CPU: 12
-# layers of float32 matmuls in another summation order (the gap measured
-# on an H100 is about 5e-6)
+# layers of float32 matmuls in another summation order, and attention
+# products in split TF32 (the gap measured on an H100 is about 2e-5)
 SERVE_F32_TOL = 1e-4
 # bf16 serving vs f32 serving, as a relative L2 error per output (the gap
 # measured on an H100 is about 1.2e-2)
@@ -332,8 +335,11 @@ def abs_err(a, b):
 # the tensor-core kernels, by their template instance; those at head dim 64
 # (the path's) must also show no spill
 TENSOR_CORE_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tc<128>",
+                       "flash_fwd_tf32<64>", "flash_fwd_tf32<128>",
+                       "flash_bwd_dq_tc<64>", "flash_bwd_dq_tc<128>",
                        "flash_bwd_dkv_tc<64>", "flash_bwd_dkv_tc<128>")
-NO_SPILL_KERNELS = ("flash_fwd_tc<64>", "flash_bwd_dkv_tc<64>")
+NO_SPILL_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tf32<64>",
+                    "flash_bwd_dq_tc<64>", "flash_bwd_dkv_tc<64>")
 
 
 def demangle(names, tool_dir):
@@ -503,12 +509,19 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
         library, sets, iters))
     # q, k, v read and O written once, the mask read as given, m and l
     # written; two products of 2*D operations per (query, key) pair the
-    # function needs (the lower triangle when causal)
+    # function needs (the lower triangle when causal). float32 runs them
+    # on the tensor cores as three TF32 products each: its bound is theirs
+    # at the TF32 rate, beside the CUDA cores' float32 rate for one
     pairs = causal_pairs(s, sk) if causal else s * sk
+    ops = 4 * b * h * pairs * d
     nbytes = (2 * b * h * (s + sk) * d * es + 2 * b * h * s * 4 +
               (0 if mask is None else mask.numel() * mask.element_size()))
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * b * h * pairs * d,
-                                             dtype)
+    if dtype == "float32":
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * ops,
+                                                 "tfloat32")
+        rec["bound_cuda_cores_ms"] = bound(nbytes, ops, dtype)[0]
+    else:
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
     rec["bytes"] = nbytes
     emit(rec)
     return rec
@@ -605,8 +618,9 @@ def flash_sets(torch, dtype, b, h, s, d, mask_kind, gen, count, sk=None):
 def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                    dropout_p, iters, gen, sk=None):
     """The dQ and dK/dV kernels against the plain backward, timed each on
-    its own (``dq``, ``dkv``), together with the delta reduction
-    (``ms``), and against the plain backward and the backward of
+    its own (``dq``, which also computes delta; ``dkv``, from the delta a
+    dQ launch wrote) and together through the wrapper (``ms``), and
+    against the plain backward and the backward of
     ``scaled_dot_product_attention``, which compute all three gradients.
     ``sk`` keys (default s) for the ``s`` queries."""
     sk = sk or s
@@ -643,6 +657,8 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                                 dropout_p, seed)[3],)
                  for (q, k, v, _, out, m, l, do), cm in zip(full, cms)]
     rec["dq_ms"] = graph_ms(torch, lambda L: L(FA.BWD_DQ), launchers, iters)
+    for (L,) in launchers:      # each dK/dV reads the delta its dQ wrote
+        L(FA.BWD_DQ)
     rec["dkv_ms"] = graph_ms(torch, lambda L: L(FA.BWD_DKV), launchers,
                              iters)
     # the library's backward alone cannot be captured (autograd runs it on
@@ -661,7 +677,7 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
         return torch.autograd.grad(library_fwd(q, k, v, mask, do),
                                    (q, k, v), do)
 
-    # the kernel time here is the wrapper's: delta, then both kernels
+    # the kernel time here is the wrapper's: both kernels
     rec.update(timings(
         torch, lambda *a: FA.flash_attention_bwd(*a, causal=causal,
                                                  dropout_p=dropout_p,
@@ -675,14 +691,16 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     rec["library_fwd_bwd_ms"] = graph_ms(torch, library_fwd_bwd, lib_sets,
                                          iters)
     rec["library_ms"] = rec["library_fwd_bwd_ms"] - rec["library_fwd_ms"]
-    # each kernel's own work: dQ reads q, k, v, dO, m, l, delta (and the
-    # mask) and writes dq, three products of 2 D operations a (query, key)
-    # pair; dK/dV reads the same and writes dk and dv, four products
+    # each kernel's own work: dQ reads q, k, v, dO, O, m, l (and the mask)
+    # and writes dq and delta, three products of 2 D operations a (query,
+    # key) pair and D for delta a query; dK/dV reads q, k, v, dO, m, l,
+    # delta (and the mask) and writes dk and dv, four products
     pairs = causal_pairs(s, sk) if causal else s * sk
     mask_bytes = 0 if sets[0][3] is None else sets[0][3].numel() * 4
     rd = 2 * b * h * (s + sk) * d * es + 3 * b * h * s * 4 + mask_bytes
     rec["bound_dq_ms"], rec["bound_dq_by"] = bound(
-        rd + b * h * s * d * es, 6 * b * h * pairs * d, dtype)
+        rd + 2 * b * h * s * d * es, 6 * b * h * pairs * d + 2 * b * h * s * d,
+        dtype)
     rec["bound_dkv_ms"], rec["bound_dkv_by"] = bound(
         rd + 2 * b * h * sk * d * es, 8 * b * h * pairs * d, dtype)
     emit(rec)
@@ -1646,6 +1664,7 @@ def main(argv=None):
         ("bert_s128_dropout", "bfloat16", 64, 12, 128, 64, "key", False,
          DROPOUT_P),
         ("bert_s128", "bfloat16", 64, 12, 128, 64, "key", False, 0.0),
+        ("bert_s128", "float32", 64, 12, 128, 64, "key", False, 0.0),
         ("causal", "float32", 4, 12, 512, 64, None, True, 0.0),
         ("unaligned_s200", "float32", 4, 12, 200, 64, "key", False, 0.0),
         ("head_dim_128", "bfloat16", 4, 8, 256, 128, None, False, 0.0),

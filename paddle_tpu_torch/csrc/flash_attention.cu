@@ -24,35 +24,41 @@
 // What bounds it on the H100: at BERT's shapes (S = 128..512, head dim
 // 64) the bytes of q, k, v and O in bf16 (the two products need 1.6 us at
 // (32, 12, 128, 64) on the tensor cores against a 7.6 us byte bound); in
-// float32, whose products stay on the CUDA cores so that the result keeps
-// full float32, the operations (PERF.md has the times against the bound).
+// float32, the bytes too once its products run on the tensor cores (below:
+// their three TF32 products a term need 9.8 us at that shape against a 15
+// us byte bound), but also the instructions that split every operand
+// (PERF.md has the times against the bound).
 //
-// What the design does about it. bf16 (`flash_fwd_tc`): 4 warps, 64 query
-// rows a block, 16 a warp, 64-key tiles. q is copied once, k and v tiles
-// double-buffered, by 16-byte cp.async into XOR-swizzled bf16 shared
-// tiles, so the next tile's copy overlaps this tile's arithmetic and the
-// ldmatrix loads meet no bank conflict; nothing is staged as f32. Both
-// products run on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
-// sums): q's A fragments stay in registers for the whole key loop, k is
-// the B operand of s = q k^T through ldmatrix, v that of pd v through
-// ldmatrix.trans. The scale multiplies the f32 scores (1/sqrt(128) is not
-// a power of two, so scaling bf16 q would round); the softmax runs in
-// registers (row max and sum over the 4 lanes of a quad, two shuffles),
-// and p goes to the P·V product straight from the score accumulators,
-// rounded to bf16 pairs: it never enters shared memory. l sums the f32,
-// unrounded, undropped p; the one rounding the reference does not make is
-// p to bf16 (2^-9 relative). Causal blocks stop at the diagonal tile, and
-// only tiles on an edge (the diagonal, past Sk) are masked per element.
-// float32 (`flash_fwd`): q (pre-scaled), k and v tiles staged in shared
-// memory as f32, q and k transposed so that the score loop reads them
-// without bank conflicts; each of the 128 threads keeps a 4 x 8 tile of
-// scores and a 4 x (D/8) tile of the accumulator in registers (8 threads
-// share a row: the row max and sum are 3 shuffles), and the probabilities
-// pass through shared memory to the P·V loop.
+// What the design does about it. Both kernels: 4 warps, 64 query rows a
+// block, 16 a warp, 64-key tiles; k and v tiles double-buffered by 16-byte
+// cp.async into XOR-swizzled shared tiles (csrc/tensor_core.cuh), so the
+// next tile's copy overlaps this tile's arithmetic and the fragment loads
+// meet no bank conflict; both products on the tensor cores with f32 sums,
+// the softmax in registers (row max and sum over the 4 lanes of a quad,
+// two shuffles), p handed to the P·V product straight from the score
+// accumulators, never through shared memory. Causal blocks stop at the
+// diagonal tile, and only tiles on an edge (the diagonal, past Sk) are
+// masked per element. l sums the f32, undropped p.
+// bf16 (`flash_fwd_tc`): q copied once as well, mma.sync m16n8k16: q's A
+// fragments stay in registers for the whole key loop, k is the B operand
+// of s = q k^T through ldmatrix, v that of pd v through ldmatrix.trans.
+// The scale multiplies the f32 scores (1/sqrt(128) is not a power of two,
+// so scaling bf16 q would round). The one rounding the reference does not
+// make is p to bf16 (2^-9 relative).
+// float32 (`flash_fwd_tf32`): mma.sync m16n8k8 on TF32 operands, each
+// product split in three (lo hi + hi lo + hi hi, "3xTF32"), which keeps
+// about 2^-21 of each product where one TF32 product keeps 2^-11: the
+// result stays within float32 tolerance. q's rows, pre-scaled, are read
+// anew (from L1) and split at each tile, which costs fewer cycles than
+// the block an SM their registers would; k and v are split as they are
+// read. Fragments are read with 16-byte shared loads: both products
+// order their k index so that a thread's two k values sit side by side,
+// and p v orders O's columns so that a thread's four n-tiles take four
+// neighbouring columns of v (and write four neighbouring columns of O).
 // Both read q, k, v in place through their strides, so the head-split
-// view of the fused QKV projection needs no copy (the bf16 kernel wants
-// 16-byte aligned rows, which the wrapper ensures), and write O through
-// strides; the S x S score matrix never reaches device memory.
+// view of the fused QKV projection needs no copy (16-byte aligned rows,
+// which the wrapper ensures), and write O through strides; the S x S
+// score matrix never reaches device memory.
 
 #include <atomic>
 
@@ -61,21 +67,10 @@
 
 namespace {
 
-using ptk::from_f32;
-using ptk::to_f32;
-
-constexpr int BQ = 64;         // query rows per block
+constexpr int BQ = 64;         // query rows per block, 16 a warp
 constexpr int BK = 64;         // keys per tile
 constexpr int NT = 128;        // threads per block
-constexpr int CG = 8;          // threads sharing one row group
-constexpr int TM = 4;          // query rows per thread
-constexpr int TN = BK / CG;    // score columns per thread
-constexpr int QS = BQ + 1;     // row stride of the transposed q tile
-constexpr int KS = BK + 1;     // row stride of the transposed k tile
-constexpr int PS = BK + 2;     // row stride of the probability tile
 constexpr float NEG_INF = -1e30f;
-
-static_assert(NT == (BQ / TM) * CG, "thread layout");
 
 struct Params {
   const void* q;
@@ -100,176 +95,265 @@ struct Params {
   float keep_div;      // 1 - rate
 };
 
-template <int D>
-constexpr int smem_floats() {
-  return D * QS + D * KS + BK * D + BQ * PS;
+// the mask rows this (batch, head) reads: the Pallas bh_to_g broadcast
+__device__ __forceinline__ const float* mask_group(const Params& p, int b,
+                                                   int h, int bh) {
+  if (p.mask_mode == 0) return nullptr;
+  int64_t g;
+  if (p.mb == 1 && p.mh == 1) g = 0;
+  else if (p.mb == 1) g = h;
+  else if (p.mh == 1) g = b;
+  else g = bh;
+  return p.mask + g * (p.mask_mode == 1 ? 1 : p.Sq) * (int64_t)p.Sk;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd(const Params p) {
-  constexpr int DC = D / CG;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qt = smem;            // [D][QS]  q^T, pre-scaled
-  float* Kt = Qt + D * QS;     // [D][KS]  k^T
-  float* Vs = Kt + D * KS;     // [BK][D]
-  float* Ps = Vs + BK * D;     // [BQ][PS]
+namespace tc = ptk::tc;
+
+// -- float32 on the tensor cores, in split TF32 -------------------------------
+
+template <int D>
+constexpr int tf32_smem_bytes() {
+  // two k and two v tiles (f32), two key-bias rows
+  return 4 * BK * D * 4 + 2 * BK * 4;
+}
+
+template <int D>
+// three blocks an SM at D = 64 (168 registers, no spill); one at D = 128,
+// whose tiles take 128 KB
+__global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
+    flash_fwd_tf32(const Params p) {
+  constexpr int KD = D / 16;  // 16-wide slices of the head dim
+  constexpr int NG = D / 32;  // 32-wide column groups of the output
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [2][BK][D]
+  float* Vs = Ks + 2 * BK * D;                     // [2][BK][D]
+  float* Bs = Vs + 2 * BK * D;                     // [2][BK]
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = blockIdx.y * BQ;
   const int tid = threadIdx.x;
-  const int rg = tid / CG;  // row group: rows rg*TM .. rg*TM+TM-1
-  const int cg = tid % CG;  // column group: columns cg + CG*j
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;          // the warp's first row in the tile
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  // the mask group this (batch, head) reads: the Pallas bh_to_g broadcast
-  const float* mg = nullptr;
-  if (p.mask_mode != 0) {
-    int64_t g;
-    if (p.mb == 1 && p.mh == 1) g = 0;
-    else if (p.mb == 1) g = h;
-    else if (p.mh == 1) g = b;
-    else g = bh;
-    const int64_t rows = p.mask_mode == 1 ? 1 : p.Sq;
-    mg = p.mask + g * rows * p.Sk;
-  }
-
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e % D;
-    const int qi = q0 + r;
-    Qt[d * QS + r] =
-        qi < p.Sq ? to_f32(qb[qi * p.q_ss + d]) * p.scale : 0.f;
-  }
-
-  float m[TM], l[TM], acc[TM][DC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = __int_as_float(0xff800000);  // -inf
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* ob = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* mg = mask_group(p, b, h, bh);
+  auto load_bias = [&](int buf, int k0) {
+    for (int c = tid; c < BK; c += NT)
+      Bs[buf * BK + c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  };
 
   int nk = (p.Sk + BK - 1) / BK;
   if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
 
+  tc::load_tile_f32<D, BK, NT>(Ks, kb, p.k_ss, 0, p.Sk, tid);
+  tc::load_tile_f32<D, BK, NT>(Vs, vb, p.v_ss, 0, p.Sk, tid);
+  tc::cp_async_commit();
+  if (p.mask_mode == 1) load_bias(0, 0);
+
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+  const float inv_keep = 1.f / p.keep_div;
+
+  // o[G][n][.]: the C tile of output n-tile n of column group G, whose
+  // logical column c is column 32 G + 4 c + n of O (v is read that way)
+  float o[NG][4][4];
+  float m[2], l[2];  // l: this thread's share of the row sum
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = __int_as_float(0xff800000);  // -inf
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[G][n][e] = 0.f;
+
   for (int j = 0; j < nk; ++j) {
+    const int buf = j & 1;
     const int k0 = j * BK;
-    __syncthreads();  // the previous tile's readers are done (and Qt is in)
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, d = e % D;
-      const int kj = k0 + r;
-      const bool in = kj < p.Sk;
-      Kt[d * KS + r] = in ? to_f32(kb[kj * p.k_ss + d]) : 0.f;
-      // padded v rows are zero: p is 0 there, but 0 * garbage could be NaN
-      Vs[r * D + d] = in ? to_f32(vb[kj * p.v_ss + d]) : 0.f;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile j is in; every reader of tile j-1 is done
+    if (j + 1 < nk) {
+      tc::load_tile_f32<D, BK, NT>(Ks + (buf ^ 1) * BK * D, kb, p.k_ss,
+                                   k0 + BK, p.Sk, tid);
+      tc::load_tile_f32<D, BK, NT>(Vs + (buf ^ 1) * BK * D, vb, p.v_ss,
+                                   k0 + BK, p.Sk, tid);
+      tc::cp_async_commit();
+      if (p.mask_mode == 1) load_bias(buf ^ 1, k0 + BK);
     }
-    __syncthreads();
+    const float* Kt = Ks + buf * BK * D;
+    const float* Vt = Vs + buf * BK * D;
 
-    float s[TM][TN];
+    // s = q k^T: 16 rows x 64 keys a warp, eight 8-key n-tiles. A slice
+    // of 16 columns at a time: q's rows (pre-scaled) read anew from
+    // device memory (L1 after the first tile) and split, where keeping
+    // them in registers would cost a block an SM; qk[4 i + j] is row
+    // rows[i] at column 16 kk + 4 t4 + j, so that step u takes columns
+    // 4 t4 + 2u (as k = t4) and 4 t4 + 2u + 1 (as k = t4 + 4). k's
+    // columns 4 t4 .. 4 t4 + 3 come in one 16-byte load.
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int t = 0; t < TN; ++t) s[i][t] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[TM], bk[TN];
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < KD; ++kk) {
+      float qk[8];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Qt[d * QS + rg * TM + i];
+      for (int i = 0; i < 2; ++i) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (rows[i] < p.Sq)
+          x = *reinterpret_cast<const float4*>(qb + rows[i] * p.q_ss +
+                                               16 * kk + 4 * t4);
+        qk[4 * i + 0] = x.x * p.scale;
+        qk[4 * i + 1] = x.y * p.scale;
+        qk[4 * i + 2] = x.z * p.scale;
+        qk[4 * i + 3] = x.w * p.scale;
+      }
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int t = 0; t < TN; ++t) bk[t] = Kt[d * KS + cg + CG * t];
+      for (int u = 0; u < 2; ++u) {
+        tc::tf32_split(qk[2 * u], ah[u][0], al[u][0]);
+        tc::tf32_split(qk[4 + 2 * u], ah[u][1], al[u][1]);
+        tc::tf32_split(qk[2 * u + 1], ah[u][2], al[u][2]);
+        tc::tf32_split(qk[4 + 2 * u + 1], ah[u][3], al[u][3]);
+      }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) s[i][t] = fmaf(a[i], bk[t], s[i][t]);
+      for (int t = 0; t < 8; ++t) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            Kt + tc::f32_off<D>(t * 8 + g, kk * 4 + t4));
+        uint32_t bh[4], bl[4];
+        tc::tf32_split(kv.x, bh[0], bl[0]);
+        tc::tf32_split(kv.y, bh[1], bl[1]);
+        tc::tf32_split(kv.z, bh[2], bl[2]);
+        tc::tf32_split(kv.w, bh[3], bl[3]);
+        tc::mma_3xtf32(s[t], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        tc::mma_3xtf32(s[t], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      }
     }
 
+    // bias, and -1e30 where a key is past Sk or above the diagonal
+    const bool edge = k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + wrow);
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = rg * TM + i;
-      const int qi = q0 + r;
-      float mx = NEG_INF;
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        const int kj = k0 + cg + CG * t;
-        bool valid = qi < p.Sq && kj < p.Sk;
-        if (p.causal) valid = valid && qi >= kj;
-        float sv = s[i][t];
-        if (valid && p.mask_mode == 1) sv += mg[kj];
-        if (valid && p.mask_mode == 2) sv += mg[(int64_t)qi * p.Sk + kj];
-        s[i][t] = valid ? sv : NEG_INF;
-        mx = fmaxf(mx, s[i][t]);
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1];
+        const int cl = t * 8 + t4 * 2 + (e & 1);
+        const int kj = k0 + cl;
+        float x = s[t][e];
+        if (p.mask_mode == 1) x += Bs[buf * BK + cl];
+        else if (p.mask_mode == 2)
+          x += row < p.Sq && kj < p.Sk ? mg[(int64_t)row * p.Sk + kj] : 0.f;
+        if (edge && (kj >= p.Sk || (p.causal && row < kj))) x = NEG_INF;
+        s[t][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      // the 8 threads of a row group are adjacent lanes of one warp
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new <= NEG_INF ? 0.f : m_new;
-      const uint32_t hrow = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
-      float rs = 0.f;
+    float msafe[2], corr[2];
 #pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        const float pv = s[i][t] <= NEG_INF ? 0.f : expf(s[i][t] - m_safe);
-        float pd = pv;
-        if (p.dropout)
-          pd = ptk::dropout_keep(hrow, p.seed0, k0 + cg + CG * t, p.threshold)
-                   ? pv / p.keep_div
-                   : 0.f;
-        Ps[r * PS + cg + CG * t] = pd;
-        rs += pv;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      const float corr = m[i] <= NEG_INF ? 0.f : expf(m[i] - m_safe);
-      l[i] = l[i] * corr + rs;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      msafe[i] = m_new <= NEG_INF ? 0.f : m_new;
+      corr[i] = m[i] <= NEG_INF ? 0.f : expf(m[i] - msafe[i]);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+      l[i] *= corr[i];
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[TM], vv[DC];
+    // p, l from the undropped p, then the dropped p
 #pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = Ps[(rg * TM + i) * PS + c];
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) vv[cc] = Vs[c * D + cg + CG * cc];
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[t][e];
+        float pv = x <= NEG_INF ? 0.f : expf(x - msafe[e >> 1]);
+        l[e >> 1] += pv;
+        if (p.dropout)
+          pv = ptk::dropout_keep(hrow[e >> 1], p.seed0,
+                                 k0 + t * 8 + t4 * 2 + (e & 1), p.threshold)
+                   ? pv * inv_keep
+                   : 0.f;
+        s[t][e] = pv;
+      }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int G = 0; G < NG; ++G)
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[G][n][e] *= corr[e >> 1];
+
+    // o += p v, 8 keys a step: p's C tile t is the A fragment with k = t4
+    // as key 2 t4 and k = t4 + 4 as key 2 t4 + 1; v's rows 2 t4 and
+    // 2 t4 + 1 are then b0 and b1, four output n-tiles a 16-byte load
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      uint32_t ph[4], pl[4];
+      tc::tf32_split(s[t][0], ph[0], pl[0]);
+      tc::tf32_split(s[t][2], ph[1], pl[1]);
+      tc::tf32_split(s[t][1], ph[2], pl[2]);
+      tc::tf32_split(s[t][3], ph[3], pl[3]);
+#pragma unroll
+      for (int G = 0; G < NG; ++G) {
+        const float4 v0 = *reinterpret_cast<const float4*>(
+            Vt + tc::f32_off<D>(t * 8 + 2 * t4, G * 8 + g));
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            Vt + tc::f32_off<D>(t * 8 + 2 * t4 + 1, G * 8 + g));
+        const float b0[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float b1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          tc::tf32_split(b0[n], bh0, bl0);
+          tc::tf32_split(b1[n], bh1, bl1);
+          tc::mma_3xtf32(o[G][n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
     }
   }
+  tc::cp_async_wait_all();  // no copy outlives the block
 
+  // row rows[i] of O: logical columns 2 t4 and 2 t4 + 1 of the four
+  // n-tiles of group G are O's columns 32 G + 8 t4 .. 32 G + 8 t4 + 7,
+  // two 16-byte stores
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qi = q0 + rg * TM + i;
-    if (qi >= p.Sq) continue;
-    const float den = fmaxf(l[i], 1e-20f);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = rows[i];
+    if (row >= p.Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-20f);
+    float* orow = ob + row * p.o_ss + 8 * t4;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      ob[qi * p.o_ss + cg + CG * cc] = from_f32<T>(acc[i][cc] / den);
-    if (cg == 0) {
-      const int64_t row = (int64_t)bh * p.Sq + qi;
-      p.m[row] = m[i] <= NEG_INF ? 0.f : m[i];
-      p.l[row] = l[i];
+    for (int G = 0; G < NG; ++G)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        *reinterpret_cast<float4*>(orow + 32 * G + 4 * c) = make_float4(
+            o[G][0][2 * i + c] * inv, o[G][1][2 * i + c] * inv,
+            o[G][2][2 * i + c] * inv, o[G][3][2 * i + c] * inv);
+    if (t4 == 0) {
+      const int64_t r = (int64_t)bh * p.Sq + row;
+      p.m[r] = m[i] <= NEG_INF ? 0.f : m[i];
+      p.l[r] = l[i];
     }
   }
 }
 
 
 // -- bf16 on the tensor cores ---------------------------------------------
-
-namespace tc = ptk::tc;
 
 template <int D>
 constexpr int tc_smem_bytes() {
@@ -304,15 +388,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   bf16* ob = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const float* mg = nullptr;
-  if (p.mask_mode != 0) {
-    int64_t grp;
-    if (p.mb == 1 && p.mh == 1) grp = 0;
-    else if (p.mb == 1) grp = h;
-    else if (p.mh == 1) grp = b;
-    else grp = bh;
-    mg = p.mask + grp * (p.mask_mode == 1 ? 1 : p.Sq) * (int64_t)p.Sk;
-  }
+  const float* mg = mask_group(p, b, h, bh);
   auto load_bias = [&](int buf, int k0) {
     for (int c = tid; c < BK; c += NT)
       Bs[buf * BK + c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
@@ -492,7 +568,7 @@ template <int D>
 cudaError_t launch_f32(const Params& p, int bh, int device,
                        cudaStream_t stream) {
   static std::atomic<bool> opted_in[kMaxDevices];
-  return launch_kernel(flash_fwd<float, D>, smem_floats<D>() * 4, p, bh,
+  return launch_kernel(flash_fwd_tf32<D>, tf32_smem_bytes<D>(), p, bh,
                        device, stream, opted_in);
 }
 
@@ -504,13 +580,14 @@ cudaError_t launch_bf16(const Params& p, int bh, int device,
                        stream, opted_in);
 }
 
-// bf16 operands are read by 16-byte copies: the base pointer and every
+// q, k and v are read by 16-byte copies: the base pointer and every
 // stride of a dimension longer than 1 must be a multiple of 16 bytes
+// (`per16` elements)
 bool rows_aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
-                  int B, int H, int S) {
+                  int B, int H, int S, int per16) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
-         (B == 1 || sb % 8 == 0) && (H == 1 || sh % 8 == 0) &&
-         (S == 1 || ss % 8 == 0);
+         (B == 1 || sb % per16 == 0) && (H == 1 || sh % per16 == 0) &&
+         (S == 1 || ss % per16 == 0);
 }
 
 }  // namespace
@@ -519,8 +596,9 @@ bool rows_aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
 // batch, head and sequence dims, the head dim contiguous (strides in
 // elements). mask: contiguous f32 (mb*mh, 1 or Sq, Sk) for mask_mode 1 or
 // 2, else null. m, l: contiguous f32 (B*H, Sq). D must be 64 or 128.
-// bf16 q, k, v must start on 16 bytes and have strides that are
-// multiples of 8 elements (cudaErrorMisalignedAddress otherwise).
+// q, k, v must start on 16 bytes and have strides that are multiples of
+// 16 bytes (cudaErrorMisalignedAddress otherwise); O's row stride must be
+// a multiple of 4 elements.
 // dropout 1 drops attention probabilities where the counter hash of
 // (seed0, seed1, bh, row, col) is below threshold, scaling the kept ones
 // by 1 / keep_div. Launches on `stream` and returns a CUDA error code;
@@ -566,11 +644,12 @@ extern "C" int flash_attention_fwd(
   p.keep_div = keep_div;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
+  const int per16 = bf16 ? 8 : 4;
+  if (!rows_aligned(q, q_sb, q_sh, q_ss, B, H, Sq, per16) ||
+      !rows_aligned(k, k_sb, k_sh, k_ss, B, H, Sk, per16) ||
+      !rows_aligned(v, v_sb, v_sh, v_ss, B, H, Sk, per16))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (bf16) {
-    if (!rows_aligned(q, q_sb, q_sh, q_ss, B, H, Sq) ||
-        !rows_aligned(k, k_sb, k_sh, k_ss, B, H, Sk) ||
-        !rows_aligned(v, v_sb, v_sh, v_ss, B, H, Sk))
-      return static_cast<int>(cudaErrorMisalignedAddress);
     err = D == 64 ? launch_bf16<64>(p, bh, device, s)
                   : launch_bf16<128>(p, bh, device, s);
   } else {

@@ -3,8 +3,9 @@
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_bwd_dq_kernel`
 // and `_bwd_dkv_kernel` (both launched by `_flash_bwd`). From the
 // forward's saved per-row max m and normalizer l, and delta = rowsum(dO*O)
-// (one PyTorch reduction before the kernels, as the Pallas module computes
-// it outside its kernels), each recomputes for a (query, key) pair
+// (which the Pallas module computes outside its kernels; here the dQ
+// kernel computes it for its rows and writes it for dK/dV, which runs
+// after it), each recomputes for a (query, key) pair
 //   s   = (q * scale) k^T + bias, -1e30 past the edges or above the
 //         diagonal (causal), as in the forward
 //   p   = valid ? exp(s - m) / max(l, 1e-20) : 0
@@ -27,36 +28,48 @@
 // What bounds it on the H100: at BERT's shapes (S = 128, head dim 64,
 // bf16) the bytes of q, k, v, dO and the gradients: dK/dV's four
 // products need 6.5 us at (64, 12, 128, 64) on the tensor cores against a
-// 23 us byte bound. In float32, and in the dQ kernel (both types), the
+// 23 us byte bound, dQ's three 4.9 us against 19 us. In float32 the
 // products run on CUDA cores in f32, so their own arithmetic limits them
 // (PERF.md has the times against the bound).
 //
-// What the design does about it. dK/dV in bf16 (`flash_bwd_dkv_tc`): one
-// block per (bh, 64-key tile), 4 warps of 16 keys; k and v are copied
-// once (their A fragments read from shared memory at each use, which
-// leaves the registers for three blocks an SM), and the loop over 64-row
-// query tiles, in halves of 32, from the causal start, double-buffers q
-// and dO by 16-byte cp.async into XOR-swizzled
-// bf16 tiles, the tile's m, 1/l, delta and dropout row hashes beside
-// them. Every product runs on the tensor cores (mma.sync m16n8k16, f32
-// sums) in transposed form, so that each takes its A operand from
-// registers: s^T = k q^T and dp^T = v dO^T (q and dO the B operands
-// through ldmatrix), then p^T, pd^T and ds^T in registers, and
-// dv += pd^T dO, dk += ds^T q with pd^T and ds^T rounded to bf16 straight
-// from the accumulators (the one rounding the reference does not make,
-// 2^-9 relative) and dO, q through ldmatrix.trans. The scale multiplies
-// the f32 scores and, once, dk at the end. No two blocks write the same
-// rows, so nothing needs atomics and the bits are the same every run.
-// The f32 kernels and dQ stage their tiles in shared memory as f32,
-// transposed with an odd row stride so that both the score loops (along
-// the head dim) and the accumulation loops (along the tile) are free of
-// bank conflicts; each of 256 threads keeps a 4 x 4 tile of scores and of
-// dp, and a 4 x (D/16) tile of each accumulator in registers, and ds and
-// pd pass through shared memory. All read q, k, v and dO in place through
-// their strides (the head-split views of BERT's fused QKV projection, and
-// dO in the forward output's (B, S, H, D) memory order; the bf16 dK/dV
-// kernel wants 16-byte aligned rows, which the wrapper ensures), and
-// write the gradients through strides.
+// What the design does about it. bf16, both kernels on the tensor cores
+// (mma.sync m16n8k16, f32 sums), tiles copied by 16-byte cp.async into
+// XOR-swizzled bf16 tiles (csrc/tensor_core.cuh), p and ds computed in
+// registers from the accumulators and rounded to bf16 straight from them
+// as the A operand of the next product (the one rounding the reference
+// does not make, 2^-9 relative), the scale multiplying the f32 scores and,
+// once, the gradient at the end. No two blocks write the same rows, so
+// nothing needs atomics and the bits are the same every run.
+// dK/dV (`flash_bwd_dkv_tc`): one block per (bh, 64-key tile), 4 warps of
+// 16 keys; k and v are copied once (their A fragments read from shared
+// memory at each use, which leaves the registers for three blocks an SM),
+// and the loop over 64-row query tiles, in halves of 32, from the causal
+// start, double-buffers q and dO, the tile's m, 1/l, delta and dropout
+// row hashes beside them. Every product runs in transposed form, so that
+// each takes its A operand from registers: s^T = k q^T and dp^T = v dO^T
+// (q and dO the B operands through ldmatrix), then p^T, pd^T and ds^T in
+// registers, and dv += pd^T dO, dk += ds^T q with dO, q through
+// ldmatrix.trans.
+// dQ (`flash_bwd_dq_tc`): one block per (bh, 64-query tile), 4 warps of
+// 16 rows; q and dO copied once (their A fragments read from shared
+// memory at each use, which leaves the registers for four blocks an SM);
+// k and v tiles double-buffered with the key-bias row. Per key tile, in
+// chunks of 16 keys: s = q k^T and dp = dO v^T (k and v the B operands
+// through ldmatrix), p and ds in registers, dq += ds k (k through
+// ldmatrix.trans). Its prologue computes delta from dO's tile and
+// O's rows (read while the first copies are in flight), in f32, and
+// writes it for dK/dV: no PyTorch pass over float32 copies of dO and O.
+// The f32 kernels stage their tiles in shared memory as f32, transposed
+// with an odd row stride so that both the score loops (along the head
+// dim) and the accumulation loops (along the tile) are free of bank
+// conflicts; each of 256 threads keeps a 4 x 4 tile of scores and of dp,
+// and a 4 x (D/16) tile of each accumulator in registers, and ds and pd
+// pass through shared memory; the f32 dQ computes delta in the same
+// prologue, four threads a row. All read q, k, v, dO and O in place
+// through their strides (the head-split views of BERT's fused QKV
+// projection, and dO and O in the forward output's (B, S, H, D) memory
+// order; the bf16 kernels want 16-byte aligned rows, which the wrapper
+// ensures), and write the gradients through strides.
 
 #include <atomic>
 
@@ -64,9 +77,6 @@
 #include "tensor_core.cuh"
 
 namespace {
-
-using ptk::from_f32;
-using ptk::to_f32;
 
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
@@ -90,13 +100,14 @@ struct Params {
   const float* mask;   // (G, 1 or Sq, Sk) f32, or null
   const float* m;      // (B*H, Sq)
   const float* l;      // (B*H, Sq)
-  const float* delta;  // (B*H, Sq)
+  float* delta;        // (B*H, Sq): written by dQ, read by dK/dV
+  const void* o;       // the forward's output
   void* dq;
   void* dk;
   void* dv;
   int H, Sq, Sk;
-  // batch, head, sequence strides in elements: q, k, v, dO, dq, dk, dv
-  int64_t st[7][3];
+  // batch, head, sequence strides in elements: q, k, v, dO, dq, dk, dv, O
+  int64_t st[8][3];
   int mask_mode;       // 0 none, 1 key row, 2 full
   int mb, mh;
   float scale;
@@ -107,7 +118,7 @@ struct Params {
   float keep_div;
 };
 
-enum { Q = 0, K = 1, V = 2, DO = 3, DQ = 4, DK = 5, DV = 6 };
+enum { Q = 0, K = 1, V = 2, DO = 3, DQ = 4, DK = 5, DV = 6, O = 7 };
 
 template <typename P>
 __device__ __forceinline__ P* at(const Params& p, void* base, int which,
@@ -150,10 +161,10 @@ __device__ __forceinline__ float masked_score(const Params& p,
 
 template <int D>
 constexpr int dq_smem_floats() {
-  return 2 * D * QS + 2 * D * KS + BQ * PS;
+  return 2 * D * QS + 2 * D * KS + BQ * PS + BQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
   constexpr int DC = D / CG;  // head-dim columns per thread
   extern __shared__ float smem[];
@@ -162,6 +173,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
   float* Kt = Ot + D * QS;     // [D][KS]  k^T
   float* Vt = Kt + D * KS;     // [D][KS]  v^T
   float* Ps = Vt + D * KS;     // [BQ][PS] ds
+  float* Dl = Ps + BQ * PS;    // [BQ] delta
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -171,20 +183,40 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
   const int rg = tid / CG;
   const int cg = tid % CG;
 
-  const T* qb = at<T>(p, p.q, Q, b, h);
-  const T* kb = at<T>(p, p.k, K, b, h);
-  const T* vb = at<T>(p, p.v, V, b, h);
-  const T* dob = at<T>(p, p.dout, DO, b, h);
-  T* dqb = at<T>(p, p.dq, DQ, b, h);
+  const float* qb = at<float>(p, p.q, Q, b, h);
+  const float* kb = at<float>(p, p.k, K, b, h);
+  const float* vb = at<float>(p, p.v, V, b, h);
+  const float* dob = at<float>(p, p.dout, DO, b, h);
+  float* dqb = at<float>(p, p.dq, DQ, b, h);
+  const float* ob = at<float>(p, p.o, O, b, h);
   const float* mg = mask_group(p, b, h, bh);
 
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D, d = e % D;
     const int qi = q0 + r;
     const bool in = qi < p.Sq;
-    Qt[d * QS + r] = in ? to_f32(qb[qi * p.st[Q][2] + d]) * p.scale : 0.f;
-    Ot[d * QS + r] = in ? to_f32(dob[qi * p.st[DO][2] + d]) : 0.f;
+    Qt[d * QS + r] = in ? qb[qi * p.st[Q][2] + d] * p.scale : 0.f;
+    Ot[d * QS + r] = in ? dob[qi * p.st[DO][2] + d] : 0.f;
   }
+  // delta = rowsum(dO * O) of the tile's rows, four threads a row, for
+  // this kernel and for the dK/dV kernel after it
+  {
+    static_assert(NT == 4 * BQ, "four threads a row");
+    const int r = tid >> 2, qi = q0 + r;
+    float acc = 0.f;
+    if (qi < p.Sq)
+#pragma unroll
+      for (int d = tid & 3; d < D; d += 4)
+        acc += dob[qi * p.st[DO][2] + d] *
+               ob[qi * p.st[O][2] + d];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if ((tid & 3) == 0) {
+      Dl[r] = acc;
+      if (qi < p.Sq) p.delta[(int64_t)bh * p.Sq + qi] = acc;
+    }
+  }
+  __syncthreads();
 
   float mrow[TM], linv[TM], dl[TM];
   uint32_t hrow[TM];
@@ -195,7 +227,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
     const int64_t row = (int64_t)bh * p.Sq + qi;
     mrow[i] = in ? p.m[row] : 0.f;
     linv[i] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
-    dl[i] = in ? p.delta[row] : 0.f;
+    dl[i] = Dl[rg * TM + i];
     hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
   }
 
@@ -215,8 +247,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
       const int r = e / D, d = e % D;
       const int kj = k0 + r;
       const bool in = kj < p.Sk;
-      Kt[d * KS + r] = in ? to_f32(kb[kj * p.st[K][2] + d]) : 0.f;
-      Vt[d * KS + r] = in ? to_f32(vb[kj * p.st[V][2] + d]) : 0.f;
+      Kt[d * KS + r] = in ? kb[kj * p.st[K][2] + d] : 0.f;
+      Vt[d * KS + r] = in ? vb[kj * p.st[V][2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -289,7 +321,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
       dqb[qi * p.st[DQ][2] + cg + CG * cc] =
-          from_f32<T>(acc[i][cc] * p.scale);
+          acc[i][cc] * p.scale;
   }
 }
 
@@ -298,7 +330,7 @@ constexpr int dkv_smem_floats() {
   return 2 * D * KS + 2 * D * QS + 2 * BK * PS + 4 * BQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
   constexpr int DC = D / CG;
   extern __shared__ float smem[];
@@ -321,20 +353,20 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
   const int rg = tid / CG;  // key rows rg*TM .. rg*TM+TM-1
   const int cg = tid % CG;  // query columns cg + CG*t
 
-  const T* qb = at<T>(p, p.q, Q, b, h);
-  const T* kb = at<T>(p, p.k, K, b, h);
-  const T* vb = at<T>(p, p.v, V, b, h);
-  const T* dob = at<T>(p, p.dout, DO, b, h);
-  T* dkb = at<T>(p, p.dk, DK, b, h);
-  T* dvb = at<T>(p, p.dv, DV, b, h);
+  const float* qb = at<float>(p, p.q, Q, b, h);
+  const float* kb = at<float>(p, p.k, K, b, h);
+  const float* vb = at<float>(p, p.v, V, b, h);
+  const float* dob = at<float>(p, p.dout, DO, b, h);
+  float* dkb = at<float>(p, p.dk, DK, b, h);
+  float* dvb = at<float>(p, p.dv, DV, b, h);
   const float* mg = mask_group(p, b, h, bh);
 
   for (int e = tid; e < BK * D; e += NT) {
     const int r = e / D, d = e % D;
     const int kj = k0 + r;
     const bool in = kj < p.Sk;
-    Kt[d * KS + r] = in ? to_f32(kb[kj * p.st[K][2] + d]) : 0.f;
-    Vt[d * KS + r] = in ? to_f32(vb[kj * p.st[V][2] + d]) : 0.f;
+    Kt[d * KS + r] = in ? kb[kj * p.st[K][2] + d] : 0.f;
+    Vt[d * KS + r] = in ? vb[kj * p.st[V][2] + d] : 0.f;
   }
 
   float dk[TM][DC], dv[TM][DC];
@@ -353,8 +385,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
       const int r = e / D, d = e % D;
       const int qi = q0 + r;
       const bool in = qi < p.Sq;
-      Qt[d * QS + r] = in ? to_f32(qb[qi * p.st[Q][2] + d]) * p.scale : 0.f;
-      Ot[d * QS + r] = in ? to_f32(dob[qi * p.st[DO][2] + d]) : 0.f;
+      Qt[d * QS + r] = in ? qb[qi * p.st[Q][2] + d] * p.scale : 0.f;
+      Ot[d * QS + r] = in ? dob[qi * p.st[DO][2] + d] : 0.f;
     }
     for (int r = tid; r < BQ; r += NT) {
       const int qi = q0 + r;
@@ -447,8 +479,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
-      dkb[kj * p.st[DK][2] + cg + CG * cc] = from_f32<T>(dk[i][cc]);
-      dvb[kj * p.st[DV][2] + cg + CG * cc] = from_f32<T>(dv[i][cc]);
+      dkb[kj * p.st[DK][2] + cg + CG * cc] = dk[i][cc];
+      dvb[kj * p.st[DV][2] + cg + CG * cc] = dv[i][cc];
     }
   }
 }
@@ -648,6 +680,230 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
   }
 }
 
+// -- dQ in bf16 on the tensor cores -------------------------------------------
+
+template <int D>
+constexpr int dq_tc_smem_bytes() {
+  // q and dO tiles, two k and two v tiles (bf16); two key-bias rows and
+  // the query tile's delta (f32)
+  return (2 * BQ * D + 4 * BK * D) * 2 + 2 * BK * 4 + BQ * 4;
+}
+
+template <int D>
+// four blocks an SM at D = 64 (128 registers, no spill); two at D = 128
+__global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
+    flash_bwd_dq_tc(const Params p) {
+  using bf16 = tc::bf16;
+  constexpr int KD = D / 16;  // 16-wide slices of the head dim
+  constexpr int ND = D / 8;   // 8-wide n-tiles of dq
+  constexpr int CH = D / 8;   // 16-byte chunks of a row
+  constexpr int KC = 16;      // keys a warp takes at a time
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][D]
+  bf16* Os = Qs + BQ * D;                        // [BQ][D]  dO
+  bf16* Ks = Os + BQ * D;                        // [2][BK][D]
+  bf16* Vs = Ks + 2 * BK * D;                    // [2][BK][D]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BK * D);  // [2][BK]
+  float* Dl = Bs + 2 * BK;                       // [BQ] delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;  // the warp's first row in the tile
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+
+  const bf16* qb = at<bf16>(p, p.q, Q, b, h);
+  const bf16* kb = at<bf16>(p, p.k, K, b, h);
+  const bf16* vb = at<bf16>(p, p.v, V, b, h);
+  const bf16* dob = at<bf16>(p, p.dout, DO, b, h);
+  const bf16* ob = at<bf16>(p, p.o, O, b, h);
+  bf16* dqb = at<bf16>(p, p.dq, DQ, b, h);
+  const float* mg = mask_group(p, b, h, bh);
+  auto load_bias = [&](int buf, int k0) {
+    for (int c = tid; c < BK; c += NT_TC)
+      Bs[buf * BK + c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  };
+
+  int nk = (p.Sk + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  tc::load_tile<D, BQ, NT_TC>(Qs, qb, p.st[Q][2], q0, p.Sq, tid);
+  tc::load_tile<D, BQ, NT_TC>(Os, dob, p.st[DO][2], q0, p.Sq, tid);
+  tc::load_tile<D, BK, NT_TC>(Ks, kb, p.st[K][2], 0, p.Sk, tid);
+  tc::load_tile<D, BK, NT_TC>(Vs, vb, p.st[V][2], 0, p.Sk, tid);
+  tc::cp_async_commit();
+  if (p.mask_mode == 1) load_bias(0, 0);
+
+  // delta's operands: two lanes a row of the warp's 16, this lane's half
+  // of O's row read from device memory while the copies are in flight
+  const int drow = wrow + (lane >> 1);
+  uint4 orow[CH / 2];
+#pragma unroll
+  for (int i = 0; i < CH / 2; ++i)
+    orow[i] = q0 + drow < p.Sq
+                  ? *reinterpret_cast<const uint4*>(
+                        ob + (q0 + drow) * p.st[O][2] +
+                        ((lane & 1) + 2 * i) * 8)
+                  : make_uint4(0u, 0u, 0u, 0u);
+
+  float mrow[2], linv[2], dl[2];
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = rows[i] < p.Sq;
+    const int64_t r = (int64_t)bh * p.Sq + rows[i];
+    mrow[i] = in ? p.m[r] : 0.f;
+    linv[i] = in ? 1.f / fmaxf(p.l[r], 1e-20f) : 0.f;
+    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+  }
+  const float inv_keep = 1.f / p.keep_div;
+
+  tc::cp_async_wait_all();
+  __syncthreads();  // q, dO and the first k and v tiles are in
+  // delta = rowsum(dO * O) in f32 from the bf16 rows (zero past Sq),
+  // written for the dK/dV kernel, which runs after this one
+  {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) {
+      const uint4 dv = *reinterpret_cast<const uint4*>(
+          Os + tc::swz<D>(drow, (lane & 1) + 2 * i));
+      const __nv_bfloat162* x =
+          reinterpret_cast<const __nv_bfloat162*>(&orow[i]);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(x[e]);
+        const float2 c = __bfloat1622float2(y[e]);
+        acc = fmaf(a.x, c.x, acc);
+        acc = fmaf(a.y, c.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((lane & 1) == 0) {
+      Dl[drow] = acc;
+      if (q0 + drow < p.Sq) p.delta[(int64_t)bh * p.Sq + q0 + drow] = acc;
+    }
+    __syncwarp();
+    dl[0] = Dl[wrow + g];
+    dl[1] = Dl[wrow + g + 8];
+  }
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int buf = j & 1;
+    const int k0 = j * BK;
+    if (j > 0) {
+      tc::cp_async_wait_all();
+      __syncthreads();  // tile j is in; every reader of tile j-1 is done
+    }
+    if (j + 1 < nk) {
+      tc::load_tile<D, BK, NT_TC>(Ks + (buf ^ 1) * BK * D, kb, p.st[K][2],
+                                  k0 + BK, p.Sk, tid);
+      tc::load_tile<D, BK, NT_TC>(Vs + (buf ^ 1) * BK * D, vb, p.st[V][2],
+                                  k0 + BK, p.Sk, tid);
+      tc::cp_async_commit();
+      if (p.mask_mode == 1) load_bias(buf ^ 1, k0 + BK);
+    }
+    const bf16* Kt = Ks + buf * BK * D;
+    const bf16* Vt = Vs + buf * BK * D;
+    const bool edge = k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + wrow);
+
+    // the key tile in chunks of KC keys, so that s and dp of one chunk
+    // are live at a time beside the accumulator; q's and dO's A fragments
+    // are re-read from shared memory at each use, one 16-wide slice at a
+    // time, which leaves registers for four blocks an SM (faster on the
+    // H100 than keeping them in registers at three, PERF.md)
+#pragma unroll 2
+    for (int hk = 0; hk < BK / KC; ++hk) {
+      // s = q k^T and dp = dO v^T: 16 rows x KC keys a warp
+      float s[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int t = 0; t < KC / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qa[4], oa[4];
+        tc::load_a<D>(qa, Qs, wrow, kk, lane);
+        tc::load_a<D>(oa, Os, wrow, kk, lane);
+#pragma unroll
+        for (int np = 0; np < KC / 16; ++np) {
+          uint32_t kf[4], vf[4];
+          const int n0 = hk * KC + np * 16;
+          tc::load_b_rows<D>(kf, Kt, n0, kk, lane);
+          tc::load_b_rows<D>(vf, Vt, n0, kk, lane);
+          tc::mma(s[2 * np], qa, kf[0], kf[1]);
+          tc::mma(s[2 * np + 1], qa, kf[2], kf[3]);
+          tc::mma(dp[2 * np], oa, vf[0], vf[1]);
+          tc::mma(dp[2 * np + 1], oa, vf[2], vf[3]);
+        }
+      }
+
+      // p and ds = p (dp - delta) in s, masked per element only on an
+      // edge tile: keys past Sk, or the causal diagonal
+#pragma unroll
+      for (int t = 0; t < KC / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int row = rows[i];
+          const int cl = hk * KC + t * 8 + t4 * 2 + (e & 1);
+          const int kj = k0 + cl;
+          float x = s[t][e] * p.scale;
+          if (p.mask_mode == 1) x += Bs[buf * BK + cl];
+          else if (p.mask_mode == 2)
+            x += row < p.Sq && kj < p.Sk ? mg[(int64_t)row * p.Sk + kj] : 0.f;
+          const bool valid =
+              !edge || (kj < p.Sk && (!p.causal || row >= kj));
+          const float pv = valid ? __expf(x - mrow[i]) * linv[i] : 0.f;
+          float dpv = dp[t][e];
+          if (p.dropout)
+            dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
+                      ? dpv * inv_keep
+                      : 0.f;
+          s[t][e] = pv * (dpv - dl[i]);
+        }
+      uint32_t da[KC / 16][4];
+      tc::c_to_a<KC / 16>(da, s);
+
+      // dq += ds k: 16 keys a step, k through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t kf[4];
+          tc::load_b_cols<D>(kf, Kt, hk * KC + kk * 16, n2 * 2, lane);
+          tc::mma(dq[2 * n2], da[kk], kf[0], kf[1]);
+          tc::mma(dq[2 * n2 + 1], da[kk], kf[2], kf[3]);
+        }
+    }
+  }
+  tc::cp_async_wait_all();  // no copy outlives the block
+
+  // dq sums ds k: the scale once, here
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
+    if (row >= p.Sq) continue;
+    bf16* dqr = dqb + row * p.st[DQ][2] + t4 * 2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dqr + n * 8) =
+          tc::pack_bf16(dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
 // Launch one kernel instance on a (bh, tiles) grid, opting in to its
@@ -668,48 +924,48 @@ cudaError_t launch_kernel(Kern kernel, int threads, int bytes, int tiles,
   return cudaGetLastError();
 }
 
-// The dQ kernel (DKV false, f32 or bf16) or the f32 dK/dV kernel.
-template <typename T, int D, bool DKV>
+// The f32 dQ (DKV false) or dK/dV kernel, on the CUDA cores.
+template <int D, bool DKV>
 cudaError_t launch(const Params& p, int bh, int device, cudaStream_t stream) {
   static std::atomic<bool> opted_in[kMaxDevices];
   if constexpr (DKV)
-    return launch_kernel(flash_bwd_dkv<T, D>, NT,
+    return launch_kernel(flash_bwd_dkv<D>, NT,
                          dkv_smem_floats<D>() * 4, (p.Sk + BK - 1) / BK,
                          bh, device, stream, opted_in, p);
   else
-    return launch_kernel(flash_bwd_dq<T, D>, NT, dq_smem_floats<D>() * 4,
+    return launch_kernel(flash_bwd_dq<D>, NT, dq_smem_floats<D>() * 4,
                          (p.Sq + BQ - 1) / BQ, bh, device, stream, opted_in,
                          p);
 }
 
-template <int D>
-cudaError_t launch_dkv_tc(const Params& p, int bh, int device,
-                          cudaStream_t stream) {
+// The bf16 dK/dV (DKV true) or dQ kernel, on the tensor cores.
+template <int D, bool DKV>
+cudaError_t launch_tc(const Params& p, int bh, int device,
+                      cudaStream_t stream) {
   static std::atomic<bool> opted_in[kMaxDevices];
-  return launch_kernel(flash_bwd_dkv_tc<D>, NT_TC, dkv_tc_smem_bytes<D>(),
-                       (p.Sk + BK - 1) / BK, bh, device, stream, opted_in,
-                       p);
+  if constexpr (DKV)
+    return launch_kernel(flash_bwd_dkv_tc<D>, NT_TC, dkv_tc_smem_bytes<D>(),
+                         (p.Sk + BK - 1) / BK, bh, device, stream, opted_in,
+                         p);
+  else
+    return launch_kernel(flash_bwd_dq_tc<D>, NT_TC, dq_tc_smem_bytes<D>(),
+                         (p.Sq + BQ - 1) / BQ, bh, device, stream, opted_in,
+                         p);
 }
 
 template <bool DKV>
 cudaError_t launch_any(const Params& p, int bh, int D, int bf16, int device,
                        cudaStream_t s) {
-  if constexpr (DKV) {
-    if (bf16)
-      return D == 64 ? launch_dkv_tc<64>(p, bh, device, s)
-                     : launch_dkv_tc<128>(p, bh, device, s);
-  } else {
-    if (bf16)
-      return D == 64 ? launch<__nv_bfloat16, 64, false>(p, bh, device, s)
-                     : launch<__nv_bfloat16, 128, false>(p, bh, device, s);
-  }
-  return D == 64 ? launch<float, 64, DKV>(p, bh, device, s)
-                 : launch<float, 128, DKV>(p, bh, device, s);
+  if (bf16)
+    return D == 64 ? launch_tc<64, DKV>(p, bh, device, s)
+                   : launch_tc<128, DKV>(p, bh, device, s);
+  return D == 64 ? launch<64, DKV>(p, bh, device, s)
+                 : launch<128, DKV>(p, bh, device, s);
 }
 
-// bf16 operands of the dK/dV kernel are read by 16-byte copies: the base
-// pointer and every stride of a dimension longer than 1 must be a
-// multiple of 16 bytes
+// bf16 operands of the tensor-core kernels are read by 16-byte copies and
+// loads: the base pointer and every stride of a dimension longer than 1
+// must be a multiple of 16 bytes
 bool rows_aligned(const void* ptr, const long long* st, int B, int H,
                   int S) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
@@ -718,8 +974,9 @@ bool rows_aligned(const void* ptr, const long long* st, int B, int H,
 }
 
 int run(bool dkv, int device, const void* q, const void* k, const void* v,
-        const void* mask, const void* m, const void* l, const void* delta,
-        const void* dout, void* dq, void* dk, void* dv, int B, int H, int Sq,
+        const void* mask, const void* m, const void* l, void* delta,
+        const void* dout, const void* o, void* dq, void* dk, void* dv, int B,
+        int H, int Sq,
         int Sk, int D, const long long* strides, int mask_mode, int mb,
         int mh, float scale, int causal, int bf16, int dropout,
         unsigned threshold, unsigned seed0, unsigned seed1, float keep_div,
@@ -736,14 +993,15 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
   p.mask = static_cast<const float*>(mask);
   p.m = static_cast<const float*>(m);
   p.l = static_cast<const float*>(l);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
+  p.o = o;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
-  for (int i = 0; i < 7; ++i)
+  for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.mask_mode = mask_mode;
   p.mb = mb;
@@ -755,11 +1013,12 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
   p.seed0 = seed0;
   p.seed1 = seed1;
   p.keep_div = keep_div;
-  if (dkv && bf16 &&
+  if (bf16 &&
       !(rows_aligned(q, strides + 3 * Q, B, H, Sq) &&
         rows_aligned(k, strides + 3 * K, B, H, Sk) &&
         rows_aligned(v, strides + 3 * V, B, H, Sk) &&
-        rows_aligned(dout, strides + 3 * DO, B, H, Sq)))
+        rows_aligned(dout, strides + 3 * DO, B, H, Sq) &&
+        (dkv || rows_aligned(o, strides + 3 * O, B, H, Sq))))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
@@ -770,30 +1029,31 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Both entry points take the same arguments. q, dO, dq (B,H,Sq,D) and k,
-// v, dk, dv (B,H,Sk,D): any batch, head and sequence strides (in
-// elements), the head dim contiguous; `strides` holds 21 of them, three
-// each for q, k, v, dO, dq, dk, dv. mask: contiguous f32 (mb*mh, 1 or Sq,
-// Sk) for mask_mode 1 or 2, else null. m, l, delta: contiguous f32
-// (B*H, Sq). D must be 64 or 128. The dropout arguments are the
-// forward's. bf16 q, k, v and dO must start on 16 bytes and have strides
-// that are multiples of 8 elements for `flash_attention_bwd_dkv`
-// (cudaErrorMisalignedAddress otherwise). `flash_attention_bwd_dq`
-// writes dq and ignores dk, dv;
-// `flash_attention_bwd_dkv` writes dk and dv and ignores dq. Each
-// launches on `stream` and returns a CUDA error code; allocates nothing.
+// Both entry points take the same arguments. q, dO, O (the forward's
+// output), dq (B,H,Sq,D) and k, v, dk, dv (B,H,Sk,D): any batch, head and
+// sequence strides (in elements), the head dim contiguous; `strides`
+// holds 24 of them, three each for q, k, v, dO, dq, dk, dv, O. mask:
+// contiguous f32 (mb*mh, 1 or Sq, Sk) for mask_mode 1 or 2, else null.
+// m, l, delta: contiguous f32 (B*H, Sq). D must be 64 or 128. The dropout
+// arguments are the forward's. bf16 q, k, v, dO (and O for dQ) must start
+// on 16 bytes and have strides that are multiples of 8 elements
+// (cudaErrorMisalignedAddress otherwise). `flash_attention_bwd_dq` writes
+// dq and delta = rowsum(dO * O), and ignores dk, dv;
+// `flash_attention_bwd_dkv` reads that delta, writes dk and dv and
+// ignores dq and O: it runs after dQ. Each launches on `stream` and
+// returns a CUDA error code; allocates nothing.
 #define PTK_BWD_ARGS                                                        \
   int device, const void *q, const void *k, const void *v,                 \
-      const void *mask, const void *m, const void *l, const void *delta,   \
-      const void *dout, void *dq, void *dk, void *dv, int B, int H,        \
-      int Sq, int Sk, int D, const long long *strides, int mask_mode,      \
-      int mb, int mh, float scale, int causal, int bf16, int dropout,      \
-      unsigned threshold, unsigned seed0, unsigned seed1, float keep_div,  \
-      void *stream
+      const void *mask, const void *m, const void *l, void *delta,         \
+      const void *dout, const void *o, void *dq, void *dk, void *dv,       \
+      int B, int H, int Sq, int Sk, int D, const long long *strides,       \
+      int mask_mode, int mb, int mh, float scale, int causal, int bf16,    \
+      int dropout, unsigned threshold, unsigned seed0, unsigned seed1,     \
+      float keep_div, void *stream
 #define PTK_BWD_PASS                                                        \
-  device, q, k, v, mask, m, l, delta, dout, dq, dk, dv, B, H, Sq, Sk, D,   \
-      strides, mask_mode, mb, mh, scale, causal, bf16, dropout, threshold, \
-      seed0, seed1, keep_div, stream
+  device, q, k, v, mask, m, l, delta, dout, o, dq, dk, dv, B, H, Sq, Sk,   \
+      D, strides, mask_mode, mb, mh, scale, causal, bf16, dropout,         \
+      threshold, seed0, seed1, keep_div, stream
 
 extern "C" int flash_attention_bwd_dq(PTK_BWD_ARGS) {
   return run(false, PTK_BWD_PASS);

@@ -1,8 +1,10 @@
-// bf16 tensor-core building blocks for the flash-attention kernels:
-// 16-byte cp.async copies into XOR-swizzled shared tiles, ldmatrix
-// fragment loads, and mma.sync m16n8k16 (bf16 operands, f32 sums).
+// Tensor-core building blocks for the flash-attention kernels: 16-byte
+// cp.async copies into XOR-swizzled shared tiles, ldmatrix fragment loads,
+// and mma.sync m16n8k16 (bf16 operands, f32 sums); and for float32,
+// mma.sync m16n8k8 on TF32 operands with each product split in three
+// ("3xTF32", below).
 //
-// A shared tile holds rows of D bf16 values, cut into 16-byte chunks of 8
+// A shared bf16 tile holds rows of D values, cut into 16-byte chunks of 8
 // values. Chunk c of row r is stored at chunk c ^ (r & 7) of that row, so
 // the eight rows one ldmatrix phase reads at one logical chunk fall in
 // eight different bank groups, and neither the copies nor the fragment
@@ -144,6 +146,88 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[KS][4],
     a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// -- float32 in split TF32 ----------------------------------------------------
+//
+// mma.m16n8k8 with .tf32 operands (PTX ISA, "Matrix Fragments for
+// mma.m16n8k8"), for lane = 4 * g + t:
+//   A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8, K x N): b0 (k t, n g), b1 (k t+4, n g)
+//   C as for m16n8k16.
+// A product sums over k, so any order of k that A and B share gives the
+// same product: the kernels map k = t and t + 4 to two neighbouring
+// columns, which a thread then reads with one 8- or 16-byte load.
+//
+// TF32 keeps 10 of float32's 23 mantissa bits, about three decimal
+// digits. To keep float32's accuracy each operand x is split into hi =
+// tf32(x) and lo = tf32(x - hi), and a b is formed as lo b_hi + hi b_lo
+// + hi b_hi with f32 sums: the lo lo term dropped and the two cuts leave
+// about 2^-20 of each product, against 2^-10 for one TF32 product
+// (tests/test_torch_flash_f32_split.py emulates both). tf32() here cuts
+// the 13 bits below TF32's mantissa (rounds toward zero): one logic
+// instruction, where rounding to nearest takes two, and the split's
+// integer work is what the float32 kernel spends most instructions on.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a b on the tensor cores: a 16 x 8, b 8 x 8, TF32; c f32
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32, the small terms first: a as (hi, lo) fragments,
+// b as (hi, lo) pairs of its two registers
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// A float32 tile holds rows of D values in 16-byte chunks of 4. Chunk c of
+// row r is stored at chunk c ^ f32_swz(r) (the low three bits of c
+// change), which keeps both float32 fragment reads free of bank
+// conflicts: eight lanes reading rows 2i and 2i + 1 at the chunks 4 kk ..
+// 4 kk + 3 (k as the B operand of q k^T: bit 2 of the swizzle differs
+// between the two rows), and eight lanes reading rows e, 2 + e, 4 + e,
+// 6 + e at chunks 2i and 2i + 1 (v as the B operand of p v: bits 1 and 2
+// differ among the four rows). D >= 32.
+__device__ __forceinline__ int f32_swz(int r) {
+  return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2);
+}
+
+template <int D>
+__device__ __forceinline__ int f32_off(int r, int c) {
+  return r * D + ((c ^ f32_swz(r)) << 2);
+}
+
+// Copy rows row0 .. row0+ROWS-1 of a (n, D) float32 matrix whose rows are
+// `ss` elements apart (16-byte aligned) into a swizzled f32 tile, zero
+// past row n. Every thread of the block takes part; NT threads.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
+                                              int64_t ss, int row0, int n,
+                                              int tid) {
+  constexpr int CH = D / 4;  // chunks per row
+#pragma unroll
+  for (int e = tid; e < ROWS * CH; e += NT) {
+    const int r = e / CH, c = e % CH;
+    const bool in = row0 + r < n;
+    const float* s = in ? src + (row0 + r) * ss + c * 4 : src;
+    cp_async16(tile + f32_off<D>(r, c), s, in);
   }
 }
 

@@ -10,10 +10,17 @@ custom-vjp ``_flash``). The semantics are the Pallas kernels', not plain
 sdpa's: a bool mask becomes an additive ``-1e30`` bias, and a query row
 whose every key is masked that way gets probability 0 everywhere and
 output 0 (plain sdpa's ``-1e9`` would give a uniform average instead).
+A mask the Pallas module hands to plain sdpa because it cannot tile it
+(key dim 1 where Sk > 1) gets sdpa's semantics on the kernel path: an
+additive one is expanded over the keys, and a bool one, which masks whole
+query rows, zeroes those rows of q (see :func:`_masked_rows`).
 
-In bf16 the forward and the dK/dV kernel run their products on the
-tensor cores (``csrc/tensor_core.cuh``); float32 stays in full float32 on
-the CUDA cores, and dQ runs there in both types.
+The kernels run their products on the tensor cores
+(``csrc/tensor_core.cuh``): bf16 on ``mma.sync`` m16n8k16 (the forward,
+dQ and dK/dV), the float32 forward on m16n8k8 in split TF32, which keeps
+float32's accuracy. The float32 dQ and dK/dV stay in full float32 on the
+CUDA cores. The dQ kernel also computes ``delta = rowsum(dO * O)``, which
+dK/dV reads.
 
 Attention dropout is drawn inside the kernels. The TPU's random bits
 cannot be reproduced, so the keep decision is a counter hash of ``(seed0,
@@ -47,7 +54,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
              [ctypes.c_longlong] * 12 +
              [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 +
              _DROPOUT_ARGTYPES + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 11 +
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 +
                  [ctypes.c_int] * 5 + [ctypes.c_void_p] +
                  [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 +
                  _DROPOUT_ARGTYPES + [ctypes.c_void_p])
@@ -97,29 +104,69 @@ def dropout_keep_mask(seed, bh, sq, sk, dropout_p, device="cpu"):
 
 # -- shapes and masks ----------------------------------------------------------
 
+def _mask_dims(attn_mask, b, h, sq, sk):
+    """The mask's shape padded to rank 4, and whether it is one that the
+    Pallas module's ``_mask_mode`` sends to plain sdpa (``"fallback"``)
+    although it broadcasts to ``(B, H, Sq, Sk)``: a key dim of 1 where
+    ``Sk > 1``. A mask of rank above 4, or one that does not broadcast,
+    raises."""
+    if attn_mask.dim() > 4:
+        raise ValueError(f"flash_attention: mask of rank {attn_mask.dim()}")
+    mb, mh, msq, msk = (1,) * (4 - attn_mask.dim()) + tuple(attn_mask.shape)
+    if mb not in (1, b) or mh not in (1, h) or msq not in (1, sq) or \
+            msk not in (1, sk):
+        raise ValueError(
+            f"flash_attention: mask shape {tuple(attn_mask.shape)} does not "
+            f"broadcast to {(b, h, sq, sk)}")
+    return (mb, mh, msq, msk), msk != sk
+
+
 def _canon_mask(attn_mask, b, h, sq, sk):
     """The additive f32 bias as ``(mask3, mode, mb, mh)``: ``mask3`` is
     contiguous ``(mb*mh, 1 or Sq, Sk)``; ``mode`` is None, "key" (one
-    row broadcast over queries) or "full". Shapes that do not broadcast
-    to ``(B, H, Sq, Sk)`` that way raise."""
+    row broadcast over queries) or "full". A bool mask that tiles becomes
+    the kernels' ``-1e30``. A mask the reference hands to plain sdpa
+    (key dim 1, see :func:`_mask_dims`) is expanded over the keys if it
+    is additive, and is no bias at all if it is bool: such a mask masks
+    whole query rows, which :func:`_masked_rows` takes care of."""
     if attn_mask is None:
         return None, None, 1, 1
-    m = attn_mask.detach()
+    (mb, mh, msq, _), sdpa_only = _mask_dims(attn_mask, b, h, sq, sk)
+    m = attn_mask.detach().reshape(mb, mh, msq, -1)
     if m.dtype == torch.bool:
+        if sdpa_only:
+            return None, None, 1, 1
         m = torch.where(m, 0.0, NEG_INF)
-    m = m.to(torch.float32)
-    if m.dim() > 4:
-        raise ValueError(f"flash_attention: mask of rank {m.dim()}")
-    while m.dim() < 4:
-        m = m.unsqueeze(0)
-    mb, mh, msq, msk = m.shape
-    if msk != sk or mb not in (1, b) or mh not in (1, h) or \
-            msq not in (1, sq):
-        raise ValueError(
-            f"flash_attention: mask shape {tuple(attn_mask.shape)} does not "
-            f"broadcast as a key or full mask to {(b, h, sq, sk)}")
+    m = m.to(torch.float32).expand(mb, mh, msq, sk)
     mode = "key" if msq == 1 else "full"
     return m.reshape(mb * mh, msq, sk).contiguous(), mode, mb, mh
+
+
+def _masked_rows(attn_mask, b, h, sq, sk):
+    """For a bool mask that the reference hands to plain sdpa (key dim 1),
+    the rows it keeps as a bool ``(mb, mh, 1 or Sq, 1)``; else None.
+
+    sdpa writes ``-1e9`` over every score of a masked row
+    (``paddle_tpu/ops/nn_ops.py``, ``scaled_dot_product_attention``), so
+    the row's probabilities are uniform and ``where`` passes no gradient
+    from it to q or k. A zero row of q gives the same: its scores are all
+    0, a constant, and its gradient is cut where q is zeroed. The kernels
+    then run on that q with no bias. Under ``causal`` the two differ: sdpa
+    writes ``-1e9`` over the causally forbidden keys too and averages a
+    masked row over all Sk keys, the kernels over the keys it may see
+    (ROADMAP.md Queue C)."""
+    if attn_mask is None or attn_mask.dtype != torch.bool:
+        return None
+    dims, sdpa_only = _mask_dims(attn_mask, b, h, sq, sk)
+    return attn_mask.reshape(dims) if sdpa_only else None
+
+
+def _zero_rows(x, rows):
+    """``x`` with the rows that ``rows`` does not keep set to 0 (as a
+    differentiable ``where``, so their gradient is 0 too)."""
+    if rows is None:
+        return x
+    return torch.where(rows.to(x.device), x, x.new_zeros(()))
 
 
 def _check(q, k, v):
@@ -172,13 +219,13 @@ def _aligned16(t):
 
 
 def _kernel_operand(t):
-    """``t`` as the kernels read it: the head dim contiguous, and a bf16
-    tensor's rows on 16-byte boundaries (the tensor-core kernels copy
-    them 16 bytes at a time). Anything else is copied, never routed to
-    the plain version."""
+    """``t`` as the kernels read it: the head dim contiguous, and its rows
+    on 16-byte boundaries (the kernels copy q, k, v, dO and O 16 bytes at
+    a time). Anything else is copied, never routed to the plain
+    version."""
     if t.stride(-1) != 1:
         return t.contiguous()
-    if t.dtype == torch.bfloat16 and not _aligned16(t):
+    if not _aligned16(t):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 
@@ -279,6 +326,7 @@ def flash_attention_fwd_plain(q, k, v, attn_mask=None, causal=False,
     _check(q, k, v)
     b, h, sq, _ = q.shape
     cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
+    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
     return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, keep)
 
 
@@ -295,6 +343,7 @@ def flash_attention_fwd(q, k, v, attn_mask=None, causal=False, scale=None,
     _check(q, k, v)
     b, h, sq, _ = q.shape
     cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
+    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
     return _fwd(q, k, v, cm, causal, scale, dropout_p, seed)
 
 
@@ -326,25 +375,26 @@ def _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed,
 
 
 def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
-    """The CUDA backward up to its launches: checks, ``delta = rowsum(g *
-    out)`` (one reduction before the kernels, as the Pallas module
-    computes it outside its kernels), the gradients' storage and the C
-    arguments. Returns ``(dq, dk, dv, launch)``; ``launch(name)`` launches
-    the kernel ``BWD_DQ`` (fills dq) or ``BWD_DKV`` (fills dk and dv) and
-    counts it."""
+    """The CUDA backward up to its launches: checks, the gradients' and
+    delta's storage and the C arguments. Returns ``(dq, dk, dv, launch)``;
+    ``launch(name)`` launches the kernel ``BWD_DQ`` (fills dq, and ``delta
+    = rowsum(g * out)`` for its rows, which the Pallas module computes
+    outside its kernels) or ``BWD_DKV`` (fills dk and dv from that delta,
+    so it runs after ``BWD_DQ``) and counts it."""
     _check_cuda(q, k, v, cm, out, m, l, g)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
-    q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g.to(q.dtype)))
-    delta = (g.float() * out.float()).sum(dim=-1).reshape(b * h, sq)
+    q, k, v, g, out = (_kernel_operand(t.to(q.dtype))
+                       for t in (q, k, v, g, out))
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     m, l = m.contiguous(), l.contiguous()
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 21)(
+    strides = (ctypes.c_longlong * 24)(
         *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-        *_strides(dq), *_strides(dk), *_strides(dv))
+        *_strides(dq), *_strides(dk), *_strides(dv), *_strides(out))
     dims = (b, h, sq, sk, d, strides, _MODES[mode], mb, mh,
             float(_scale(scale, d)), int(bool(causal)),
             int(q.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed))
@@ -360,8 +410,8 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
         fn = function(name, _BWD_ARGTYPES)
         code = fn(device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if mask3 is None else mask3.data_ptr(), m.data_ptr(),
-                  l.data_ptr(), delta.data_ptr(), g.data_ptr(), *outs, *dims,
-                  stream_of(q))
+                  l.data_ptr(), delta.data_ptr(), g.data_ptr(),
+                  out.data_ptr(), *outs, *dims, stream_of(q))
         check(name, fn, code)
         count_launch(name)
 
@@ -394,21 +444,27 @@ def flash_attention_bwd_plain(q, k, v, attn_mask, out, m, l, g,
     _check(q, k, v)
     b, h, sq, _ = q.shape
     cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    return _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale, dropout_p,
-                      seed, keep)
+    rows = _masked_rows(attn_mask, b, h, sq, k.shape[2])
+    dq, dk, dv = _bwd_plain(_zero_rows(q, rows), k, v, cm, out, m, l, g,
+                            causal, scale, dropout_p, seed, keep)
+    return _zero_rows(dq, rows), dk, dv
 
 
 def flash_attention_bwd(q, k, v, attn_mask, out, m, l, g, causal=False,
                         scale=None, dropout_p=0.0, seed=(0, 0)):
     """Flash attention's gradients ``(dq, dk, dv)``. On a CUDA tensor it
-    computes ``delta = rowsum(g * out)`` and launches the dQ kernel and the
-    dK/dV kernel (what the forward kernel takes, plus ``g`` in any strides
-    with a contiguous head dim); on a CPU tensor it computes
-    :func:`flash_attention_bwd_plain`. The mask gets no gradient."""
+    launches the dQ kernel, which also computes ``delta = rowsum(g *
+    out)``, then the dK/dV kernel (what the forward kernel takes, plus
+    ``g`` and ``out`` in any strides with a contiguous head dim); on a CPU
+    tensor it computes :func:`flash_attention_bwd_plain`. The mask gets
+    no gradient."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
     cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    return _bwd(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed)
+    rows = _masked_rows(attn_mask, b, h, sq, k.shape[2])
+    dq, dk, dv = _bwd(_zero_rows(q, rows), k, v, cm, out, m, l, g, causal,
+                      scale, dropout_p, seed)
+    return _zero_rows(dq, rows), dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -455,6 +511,7 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, scale=None,
                          f"got {dropout_p}")
     seed = prandom.next_seed_pair() if p_drop > 0.0 else (0, 0)
     cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
+    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, *cm, causal, scale,

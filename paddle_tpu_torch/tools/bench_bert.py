@@ -3,7 +3,8 @@
 
     python -m paddle_tpu_torch.tools.bench_bert [--batch 64] [--seq 128]
         [--steps 32] [--inner 8] [--kernels NAME,...] [--use-fused]
-        [--use-multi-tensor] [--flat-arena] [--profile] [--out PATH]
+        [--use-multi-tensor] [--flat-arena] [--profile [--top 15]]
+        [--out PATH]
 
 The same model, data and step as the reference: ``BertForPretraining(
 BertConfig.base())`` with its default dropouts of 0.1, seeded with 0;
@@ -26,8 +27,8 @@ It runs on the CUDA card (``device=None``) and raises where there is
 none; ``device="cpu"`` runs the same steps on the CPU. The command line
 prints one JSON line with the step time, tokens/s, the loss and the
 card's name and power limit (with ``--profile``, also the device time of
-one step by kernel group, and the step's idle share, from
-``torch.profiler``).
+one step by kernel group, the step's idle share and its ``--top``
+kernels by device time, from ``torch.profiler``).
 """
 from __future__ import annotations
 
@@ -173,6 +174,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also split one step's device time by kernel "
                          "group")
+    ap.add_argument("--top", type=int, default=15,
+                    help="with --profile: how many kernels to list by "
+                         "device time")
     ap.add_argument("--out", help="also write the record to this file")
     args = ap.parse_args(argv)
     smi = subprocess.run(
@@ -192,7 +196,7 @@ def main(argv=None):
                card=smi)
     if args.profile:
         rec["profile"] = profile_step(Trainer(args.batch, args.seq, 1,
-                                              opt_kw=opt_kw))
+                                              opt_kw=opt_kw), top=args.top)
     print(json.dumps(rec), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -134,6 +134,40 @@ def test_flash_attention_rejects_other_head_dims(cuda_device):
     q = torch.zeros(1, 1, 8, 32, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(q, q, q)
+    h = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention_fwd(h, h, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_give_sdpa_uniform_row_for_a_row_mask(cuda_device,
+                                                           dtype):
+    """A (B, 1, Sq, 1) bool mask, which the reference hands to plain sdpa:
+    the kernels run on q with the masked rows zeroed, so a masked row is
+    sdpa's uniform average over the keys and gets dq = 0, and every output
+    matches the plain versions."""
+    dt = getattr(torch, dtype)
+    b, h, s, d = 2, 3, 70, 64
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = torch.randn(4, b, h, s, d, device=cuda_device,
+                              generator=g).to(dt)
+    mask = torch.ones(b, 1, s, 1, dtype=torch.bool, device=cuda_device)
+    mask[1, 0, 3, 0] = False
+    before = dict(kernels.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, mask)
+    grads = FA.flash_attention_bwd(q, k, v, mask, out, m, l, do)
+    torch.cuda.synchronize()
+    for name in (FA.NAME, FA.BWD_DQ, FA.BWD_DKV):
+        assert kernels.launches[name] == before[name] + 1
+    want = [FA.flash_attention_fwd_plain(q, k, v, mask)[0]]
+    want += FA.flash_attention_bwd_plain(q, k, v, mask, out, m, l, do)
+    for got, ref in zip([out, *grads], want):
+        assert _scaled_err(got, ref) <= TOL[dt]
+    torch.testing.assert_close(out[1, :, 3].float(),
+                               v[1].float().mean(dim=1), rtol=TOL[dt],
+                               atol=TOL[dt])
+    assert not grads[0][1, :, 3].any()
 
 
 @pytest.mark.cuda
@@ -345,22 +379,25 @@ def test_flash_fwd_and_dkv_kernels_draw_the_same_dropout_mask(cuda_device,
 
 
 @pytest.mark.cuda
-def test_flash_kernels_copy_inputs_off_16_byte_rows(cuda_device):
-    """bf16 q, k, v, dO whose storage starts 2 bytes off a 16-byte
-    boundary, or whose rows are 68 elements apart: the wrappers copy them
-    for the tensor-core kernels, and the results equal those from
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_copy_inputs_off_16_byte_rows(cuda_device, dtype):
+    """q, k, v, dO and O whose storage starts one element off a 16-byte
+    boundary, or whose rows are 66 elements apart: the wrappers copy them
+    for the kernels' 16-byte copies, and the results equal those from
     contiguous copies."""
+    dt = getattr(torch, dtype)
+    es = torch.empty((), dtype=dt).element_size()
     g = torch.Generator(device=cuda_device).manual_seed(3)
     b, h, s, d = 2, 3, 70, 64
     n = b * h * s * d
-    flat = torch.randn(n + 1, device=cuda_device, generator=g).bfloat16()
-    q = flat[1:].view(b, h, s, d)                 # 2 bytes off
-    assert q.data_ptr() % 16 == 2
-    wide = torch.randn(b, h, s, d + 4, device=cuda_device,
-                       generator=g).bfloat16()
-    k = wide[..., :d]                             # rows 68 elements apart
-    v = wide[..., 4:]                             # and 8 bytes off
-    do = torch.randn(n + 3, device=cuda_device, generator=g).bfloat16()[3:]
+    flat = torch.randn(n + 1, device=cuda_device, generator=g).to(dt)
+    q = flat[1:].view(b, h, s, d)                 # one element off
+    assert q.data_ptr() % 16 == es
+    wide = torch.randn(b, h, s, d + 2, device=cuda_device,
+                       generator=g).to(dt)
+    k = wide[..., :d]                             # rows 66 elements apart
+    v = wide[..., 2:]                             # and 2 elements off
+    do = torch.randn(n + 3, device=cuda_device, generator=g).to(dt)[3:]
     do = do.view(b, h, s, d)
     for t in (q, k, v, do):
         assert not FA._aligned16(t)
@@ -369,13 +406,16 @@ def test_flash_kernels_copy_inputs_off_16_byte_rows(cuda_device):
     want = FA.flash_attention_fwd(*(t.contiguous().clone()
                                     for t in (q, k, v)))
     assert torch.equal(out, want[0])
-    grads = FA.flash_attention_bwd(q, k, v, None, out, m, l, do)
+    flat_o = torch.empty(out.numel() + 1, device=cuda_device, dtype=dt)
+    out_off = flat_o[1:].view(out.shape).copy_(out)   # O one element off
+    assert not FA._aligned16(out_off)
+    grads = FA.flash_attention_bwd(q, k, v, None, out_off, m, l, do)
     ref = FA.flash_attention_bwd(*(t.clone() for t in (q, k, v)), None,
                                  out, m, l, do.clone())
     for a, r in zip(grads, ref):
         assert torch.equal(a, r)
     assert _scaled_err(grads[2], FA.flash_attention_bwd_plain(
-        q, k, v, None, out, m, l, do)[2]) <= TOL[torch.bfloat16]
+        q, k, v, None, out, m, l, do)[2]) <= TOL[dt]
 
 
 def _grad_fns(model, x):
