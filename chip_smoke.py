@@ -12,13 +12,16 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    built from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and ``-Xptxas -v``'s registers, shared memory and spills shown,
    with each kernel instance's count of tensor-core (HMMA) instructions
-   from ``cuobjdump -sass``: the flash forward (bf16, and float32 in split
-   TF32), dQ and dK/dV kernels on the tensor cores must have some, and no
+   from ``cuobjdump -sass``: the flash forward, dQ and dK/dV kernels, bf16
+   and float32 (split TF32), on the tensor cores must have some, and no
    spill at head dim 64.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the serving path gives it (flash attention also
    causal at S = 512, a full bias, S = 200, 77 queries over 200 keys, and
-   head dim 128 causal with dropout, in bf16), with the tolerance
+   head dim 128 causal with dropout, in bf16; head dims 16 and 96, which
+   run zero-padded, in float32 and bf16; float16 through the float32
+   kernels; and (B, 1, S, 1) bool and additive masks, which the
+   reference hands to sdpa, under causal), with the tolerance
    stated; CUDA-event times of the kernel, the plain version and one
    PyTorch library call computing the same function (a yardstick the port
    never calls), replayed from a CUDA graph so that they are the card's
@@ -43,8 +46,11 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    dQ and dK/dV kernels, each against its plain version on the card at
    the training path's shapes, in bf16 and float32 (and causal, unaligned
    and head-dim-128 cases, and in bf16 the causal, full-bias, S = 200,
-   77-over-200 and head-dim-128 causal dropout cases of phase 2), timed
-   as in phase 2 (dK/dV alone, from the delta a dQ launch wrote);
+   77-over-200 and head-dim-128 causal dropout cases of phase 2, in
+   float32 head dim 128 causal, dropout and a full bias, and phase 2's
+   padded head dims, float16 and sdpa masks under causal), timed as in
+   phase 2 (dK/dV alone, from the delta a dQ launch wrote, on the
+   operands the wrapper hands it);
    the library yardsticks are
    ``aten.native_layer_norm_backward`` and the backward of
    ``scaled_dot_product_attention``.
@@ -85,7 +91,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    token types, must launch ``fused_adam_flat`` no time (its mask route).
 9. f32 step check: one BERT-base pretraining step in float32 (TF32 off,
    dropout 0, batch 4, seq 128) on the card and on the CPU from the same
-   weights: the loss, every gradient and every parameter after AdamW.
+   weights: the loss, every gradient and every parameter after AdamW; the
+   counters, zeroed just before the card's step, must show the path's
+   launches (12 of each float32 flash kernel).
 10. batch-norm kernels: ``batch_norm_stats``, ``batch_norm_normalize``,
    ``batch_norm_bwd_reduce`` and ``batch_norm_bwd_dx`` against their plain
    versions at the five shapes ResNet-50 gives them at batch 128 (rows by
@@ -132,14 +140,16 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 # H100 SXM, dense (NVIDIA's data sheet): HBM bandwidth, and the peak rate
-# for each input type: bf16 on the tensor cores, float32 on the CUDA cores
-# (the port's float32 arithmetic is full float32, not TF32).
+# for each input type: bf16 on the tensor cores, float32 on the CUDA cores,
+# and TF32 on the tensor cores, where the float32 flash kernels run each
+# product as three TF32 products (float32 accuracy).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12}
 # kernel vs plain version, as |diff| / max(1, |plain|): float32 sums in
 # another order; bf16 rounds the f32 result once, one step being 2^-8
-# relative, so 2e-2 allows a few steps
-KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# relative, so 2e-2 allows a few steps; float16 runs the float32 kernels
+# and rounds once, one step being 2^-11 relative
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}
 # the served f32 model on the card vs the same model on the CPU: 12
 # layers of float32 matmuls in another summation order, and attention
 # products in split TF32 (the gap measured on an H100 is about 2e-5)
@@ -204,6 +214,21 @@ RESNET_F32_LOSS_TOL = 1e-4
 RESNET_F32_GRAD_TOL = 5e-2
 RESNET_F32_FC_GRAD_TOL = 1e-3     # the classifier's: downstream of them all
 RESNET_F32_STAT_TOL = 1e-4      # running statistics: the forward alone
+# flash cases of phases 2 and 5 beyond the path's widths and dtypes: head
+# dims run zero-padded to 64 or 128, float16 through the float32 kernels,
+# and (B, 1, S, 1) masks, which the reference hands to sdpa, under causal
+FLASH_OTHER = (
+    ("head_dim_16", "float32", 4, 12, 128, 16, "key", False),
+    ("head_dim_16", "bfloat16", 4, 12, 128, 16, "key", False),
+    ("head_dim_96", "float32", 4, 12, 128, 96, "key", False),
+    ("head_dim_96", "bfloat16", 4, 12, 128, 96, "key", False),
+    ("float16", "float16", 4, 12, 128, 64, "key", False),
+    ("row_bool_causal", "float32", 4, 12, 128, 64, "row_bool", True),
+    ("row_additive_causal", "float32", 4, 12, 128, 64, "row_additive",
+     True),
+    ("row_bool_causal", "bfloat16", 4, 12, 128, 64, "row_bool", True),
+    ("row_additive_causal", "bfloat16", 4, 12, 128, 64, "row_additive",
+     True))
 TIMED_ITERS = 50             # launches per timed run (median of 5 runs)
 XENT_ITERS = 20              # the same for the (8192, 30522) loss kernels
 ADAM_ITERS = 10              # the same for the whole-model Adam cases
@@ -337,9 +362,15 @@ def abs_err(a, b):
 TENSOR_CORE_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tc<128>",
                        "flash_fwd_tf32<64>", "flash_fwd_tf32<128>",
                        "flash_bwd_dq_tc<64>", "flash_bwd_dq_tc<128>",
-                       "flash_bwd_dkv_tc<64>", "flash_bwd_dkv_tc<128>")
+                       "flash_bwd_dkv_tc<64, false>",
+                       "flash_bwd_dkv_tc<128, false>",
+                       "flash_bwd_dkv_tc<64, true>",
+                       "flash_bwd_dkv_tc<128, true>",
+                       "flash_bwd_dq_tf32<64>", "flash_bwd_dq_tf32<128>",
+                       "flash_bwd_dkv_tf32<64>", "flash_bwd_dkv_tf32<128>")
 NO_SPILL_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tf32<64>",
-                    "flash_bwd_dq_tc<64>", "flash_bwd_dkv_tc<64>")
+                    "flash_bwd_dq_tc<64>", "flash_bwd_dkv_tc<64, false>",
+                    "flash_bwd_dq_tf32<64>", "flash_bwd_dkv_tf32<64>")
 
 
 def demangle(names, tool_dir):
@@ -398,10 +429,13 @@ def build_report(kernels, logs):
     report = {names[n]: v for n, v in info.items()}
 
     def entry(name):
-        # "flash_fwd_tc<64>" is "...12flash_fwd_tcILi64EE..." mangled
-        base, arg = name[:-1].split("<")
+        # "flash_fwd_tc<64>" is "...12flash_fwd_tcILi64EE..." mangled,
+        # "flash_bwd_dkv_tc<64, true>" "...16flash_bwd_dkv_tcILi64ELb1EE..."
+        base, args = name[:-1].split("<")
+        code = "".join({"false": "Lb0E", "true": "Lb1E"}.get(a, f"Li{a}E")
+                       for a in args.split(", "))
         hits = [v for k, v in info.items()
-                if f"{len(base)}{base}ILi{arg}E" in k]
+                if f"{len(base)}{base}I{code}E" in k]
         check(len(hits) == 1, f"{name}: {len(hits)} kernels of that name "
                               f"in the build")
         return hits[0]
@@ -484,9 +518,7 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                tol=KERNEL_TOL[dtype])
     check(err <= KERNEL_TOL[dtype],
           f"flash_attention_fwd {label}: error {err} > tolerance")
-    if mask_kind == "bool":
-        check(bool((out[0, :, 5] == 0).all()),
-              "flash_attention_fwd: a fully masked row must give 0")
+    check_masked_rows(label, mask_kind, out, v)
     if dropout_p > 0:
         kept = FA.dropout_keep_mask(seed, b * h, s, sk, dropout_p,
                                     "cuda").float().mean().item()
@@ -503,10 +535,11 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                                               is_causal=causal,
                                               dropout_p=dropout_p)
 
+    # sdpa takes no mask beside is_causal: no yardstick for those cases
     rec.update(timings(
         torch, lambda *a: FA.flash_attention_fwd(*a, **kw),
         lambda *a: FA.flash_attention_fwd_plain(*a, **kw),
-        library, sets, iters))
+        None if causal and mask is not None else library, sets, iters))
     # q, k, v read and O written once, the mask read as given, m and l
     # written; two products of 2*D operations per (query, key) pair the
     # function needs (the lower triangle when causal). float32 runs them
@@ -516,15 +549,29 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     ops = 4 * b * h * pairs * d
     nbytes = (2 * b * h * (s + sk) * d * es + 2 * b * h * s * 4 +
               (0 if mask is None else mask.numel() * mask.element_size()))
-    if dtype == "float32":
+    if dtype == "bfloat16":
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
+    else:
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * ops,
                                                  "tfloat32")
-        rec["bound_cuda_cores_ms"] = bound(nbytes, ops, dtype)[0]
-    else:
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
+        rec["bound_cuda_cores_ms"] = bound(nbytes, ops, "float32")[0]
     rec["bytes"] = nbytes
     emit(rec)
     return rec
+
+
+def check_masked_rows(label, mask_kind, out, v):
+    """A bool mask's row with no key gives 0; a row that a (B, 1, Sq, 1)
+    mask masks everywhere (row 5 of batch 0) is sdpa's average of all the
+    keys, also under causal."""
+    if mask_kind == "bool":
+        check(bool((out[0, :, 5] == 0).all()),
+              f"flash {label}: a fully masked row must give 0")
+    elif mask_kind in ("row_bool", "row_additive"):
+        err = scaled_err(out[0, :, 5], v[0].float().mean(dim=1))
+        check(err <= KERNEL_TOL[str(out.dtype).split(".")[-1]],
+              f"flash {label}: a masked row must average the keys, error "
+              f"{err}")
 
 
 # -- phase 5: the training kernels against their plain versions --------------
@@ -585,8 +632,10 @@ def flash_sets(torch, dtype, b, h, s, d, mask_kind, gen, count, sk=None):
     ``sk`` keys other than s: q from a (B, S, H, D) projection, k and v
     from a fused (B, Sk, 2, H, D) one); a key padding mask of real lengths
     16..Sk, a full f32 bias, a bool mask with one query row that sees no
-    key, or none; and dO in the (B, S, H, D) memory order the model hands
-    the backward."""
+    key, or none; masks the reference hands to sdpa, (B, 1, S, 1) bool
+    (``row_bool``) or additive (``row_additive``: 2 N(0, 1), and -1e9),
+    with row 5 of batch 0 masked everywhere; and dO in the (B, S, H, D)
+    memory order the model hands the backward."""
     dt = getattr(torch, dtype)
     sk = sk or s
     sets = []
@@ -610,6 +659,12 @@ def flash_sets(torch, dtype, b, h, s, d, mask_kind, gen, count, sk=None):
         elif mask_kind == "bool":
             mask = torch.rand(b, 1, s, sk, device="cuda", generator=gen) > 0.3
             mask[0, 0, 5, :] = False       # one query row sees no key
+        elif mask_kind == "row_bool":
+            mask = torch.ones(b, 1, s, 1, dtype=torch.bool, device="cuda")
+            mask[0, 0, 5, 0] = False
+        elif mask_kind == "row_additive":
+            mask = torch.randn(b, 1, s, 1, device="cuda", generator=gen) * 2
+            mask[0, 0, 5, 0] = -1e9
         do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dt)
         sets.append((q, k, v, mask, do.transpose(1, 2)))
     return sets
@@ -651,11 +706,21 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
           f"flash_attention_bwd {label}: error {err} > tolerance")
     check(all(bool(torch.isfinite(a).all()) for a in got),
           f"flash_attention_bwd {label}: non-finite gradient")
+    if mask_kind == "row_bool":
+        check(not got[0][0, :, 5].any(),
+              f"flash_attention_bwd {label}: a masked row gets no dq")
     F = torch.nn.functional
-    cms = [FA._canon_mask(a[3], b, h, s, sk) for a in full]
-    launchers = [(FA._bwd_setup(q, k, v, cm, out, m, l, do, causal, None,
-                                dropout_p, seed)[3],)
-                 for (q, k, v, _, out, m, l, do), cm in zip(full, cms)]
+    # each kernel alone, on the operands the wrapper hands it: padded to
+    # the kernels' head dim and in their dtype, the mask canonical
+    w, kdt = FA._kernel_head_dim(d), FA._kernel_dtype(dt)
+    launchers = []
+    for q, k, v, mask, out, m, l, do in full:
+        cm, rows, causal_k = FA._kernel_mask(mask, b, h, s, sk, causal)
+        ops = [FA._to_kernel(t, w, kdt)
+               for t in (FA._zero_rows(q, rows), k, v, out, do)]
+        launchers.append((FA._bwd_setup(
+            *ops[:3], cm, ops[3], m, l, ops[4], causal_k, 1 / math.sqrt(d),
+            dropout_p, seed)[3],))
     rec["dq_ms"] = graph_ms(torch, lambda L: L(FA.BWD_DQ), launchers, iters)
     for (L,) in launchers:      # each dK/dV reads the delta its dQ wrote
         L(FA.BWD_DQ)
@@ -673,6 +738,8 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
         return F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal, dropout_p=dropout_p)
 
+    no_library = causal and sets[0][3] is not None    # sdpa refuses both
+
     def library_fwd_bwd(q, k, v, mask, do):
         return torch.autograd.grad(library_fwd(q, k, v, mask, do),
                                    (q, k, v), do)
@@ -686,23 +753,30 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                                                 dropout_p=dropout_p,
                                                 seed=seed),
         None, full, iters))
-    with torch.no_grad():
-        rec["library_fwd_ms"] = graph_ms(torch, library_fwd, lib_sets, iters)
-    rec["library_fwd_bwd_ms"] = graph_ms(torch, library_fwd_bwd, lib_sets,
-                                         iters)
-    rec["library_ms"] = rec["library_fwd_bwd_ms"] - rec["library_fwd_ms"]
+    rec["library_ms"] = None
+    if not no_library:
+        with torch.no_grad():
+            rec["library_fwd_ms"] = graph_ms(torch, library_fwd, lib_sets,
+                                             iters)
+        rec["library_fwd_bwd_ms"] = graph_ms(torch, library_fwd_bwd,
+                                             lib_sets, iters)
+        rec["library_ms"] = rec["library_fwd_bwd_ms"] - rec["library_fwd_ms"]
     # each kernel's own work: dQ reads q, k, v, dO, O, m, l (and the mask)
     # and writes dq and delta, three products of 2 D operations a (query,
     # key) pair and D for delta a query; dK/dV reads q, k, v, dO, m, l,
-    # delta (and the mask) and writes dk and dv, four products
+    # delta (and the mask) and writes dk and dv, four products. In float32
+    # (and float16, which runs the float32 kernels) each product is three
+    # TF32 products at the TF32 rate
     pairs = causal_pairs(s, sk) if causal else s * sk
     mask_bytes = 0 if sets[0][3] is None else sets[0][3].numel() * 4
     rd = 2 * b * h * (s + sk) * d * es + 3 * b * h * s * 4 + mask_bytes
+    ops_dq = 6 * b * h * pairs * d + 2 * b * h * s * d
+    ops_dkv = 8 * b * h * pairs * d
+    rate, split = ("bfloat16", 1) if dtype == "bfloat16" else ("tfloat32", 3)
     rec["bound_dq_ms"], rec["bound_dq_by"] = bound(
-        rd + 2 * b * h * s * d * es, 6 * b * h * pairs * d + 2 * b * h * s * d,
-        dtype)
+        rd + 2 * b * h * s * d * es, split * ops_dq, rate)
     rec["bound_dkv_ms"], rec["bound_dkv_by"] = bound(
-        rd + 2 * b * h * sk * d * es, 8 * b * h * pairs * d, dtype)
+        rd + 2 * b * h * sk * d * es, split * ops_dkv, rate)
     emit(rec)
     return rec
 
@@ -1217,10 +1291,12 @@ def optimizer_routes(np, seed):
 
 def f32_step_check(np, seed):
     """One float32 pretraining step of BERT-base (dropout 0) on the card
-    and on the CPU from the same weights."""
+    and on the CPU from the same weights; on the card the float32 flash
+    kernels launch once a layer each, counted."""
     import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.models import BertConfig, BertForPretraining
     from paddle_tpu_torch.tools.bench_bert import make_data
     ptt.seed(seed)
@@ -1250,7 +1326,10 @@ def f32_step_check(np, seed):
                                     model.named_parameters()}
 
     t0 = time.perf_counter()
+    kernels.reset_launches()
     l_card, g_card, p_card = step(card, "cuda")
+    torch.cuda.synchronize()
+    launches = {n: kernels.launches[n] for n in TRAIN_LAUNCHES_PER_STEP}
     l_cpu, g_cpu, p_cpu = step(cpu, "cpu")
     check(set(g_card) == set(g_cpu) == set(p0),
           f"f32 step: gradients for {len(g_card)} and {len(g_cpu)} of "
@@ -1268,8 +1347,11 @@ def f32_step_check(np, seed):
                max_grad_err_rel_to_max=grad_err, grad_tol=F32_GRAD_TOL,
                update_rel_l2=upd_err, update_tol=F32_UPDATE_TOL,
                max_param_abs_err=param_err, param_tol=2e-4,
-               params_checked=len(p0), seconds=time.perf_counter() - t0)
+               params_checked=len(p0), launches=launches,
+               seconds=time.perf_counter() - t0)
     emit(rec)
+    check(launches == TRAIN_LAUNCHES_PER_STEP,
+          f"f32 step: launches {launches}, want {TRAIN_LAUNCHES_PER_STEP}")
     check(loss_err <= F32_LOSS_TOL, f"f32 step: loss {l_card} vs {l_cpu}")
     check(grad_err <= F32_GRAD_TOL, f"f32 step: gradient error {grad_err}")
     check(upd_err <= F32_UPDATE_TOL and param_err <= 2e-4,
@@ -1617,6 +1699,9 @@ def main(argv=None):
            flash_case(torch, FA, "head_dim_128_causal_dropout", "bfloat16",
                       4, 8, 256, 128, None, True, TIMED_ITERS, gen,
                       dropout_p=DROPOUT_P)]
+    # head dims the kernels run zero-padded, float16 through the float32
+    # kernels, and masks the reference hands to sdpa under causal
+    fa += [flash_case(torch, FA, *c, TIMED_ITERS, gen) for c in FLASH_OTHER]
 
     # 3. serving, f32
     ptt.seed(args.seed)
@@ -1676,6 +1761,13 @@ def main(argv=None):
     fab.append(flash_bwd_case(torch, FA, "q77_k200", "bfloat16", 4, 12, 77,
                               64, "key", False, 0.0, TIMED_ITERS, gen,
                               sk=200))
+    fab += [flash_bwd_case(torch, FA, *c, TIMED_ITERS, gen) for c in (
+        ("head_dim_128_causal", "float32", 4, 8, 256, 128, None, True, 0.0),
+        ("bert_s128_dropout", "float32", 64, 12, 128, 64, "key", False,
+         DROPOUT_P),
+        ("full_mask", "float32", 4, 12, 128, 64, "full", False, 0.0))]
+    fab += [flash_bwd_case(torch, FA, *c, 0.0, TIMED_ITERS, gen)
+            for c in FLASH_OTHER]
 
     # 6. the loss and optimizer kernels against their plain versions
     del model, cpu_model

@@ -24,52 +24,76 @@
 // dropout keep mask is regenerated from the counter hash of common.cuh at
 // the same (bh, row, col) as the forward; it is never stored. A fully
 // masked row (bool mask, -1e30) has m = 0 and gets p = 0 everywhere.
+// With causal 2 the caller has folded sdpa's -1e9 causal edge into a full
+// bias (a mask the reference hands to sdpa): no edge here, and ds = 0
+// above the diagonal, where sdpa's `where` passes no gradient.
 //
-// What bounds it on the H100: at BERT's shapes (S = 128, head dim 64,
-// bf16) the bytes of q, k, v, dO and the gradients: dK/dV's four
+// What bounds it on the H100: at BERT's shapes (S = 128, head dim 64)
+// the bytes of q, k, v, dO, O and the gradients. bf16: dK/dV's four
 // products need 6.5 us at (64, 12, 128, 64) on the tensor cores against a
-// 23 us byte bound, dQ's three 4.9 us against 19 us. In float32 the
-// products run on CUDA cores in f32, so their own arithmetic limits them
-// (PERF.md has the times against the bound).
+// 23 us byte bound, dQ's three 4.9 us against 19 us. float32: each
+// product runs as three TF32 products (below), 29 us for dQ and 39 us
+// for dK/dV at 495 TFLOP/s against a 45 us byte bound each; and the
+// integer work of splitting every operand, which the tensor cores do not
+// do (PERF.md has the times against the bound).
 //
-// What the design does about it. bf16, both kernels on the tensor cores
-// (mma.sync m16n8k16, f32 sums), tiles copied by 16-byte cp.async into
-// XOR-swizzled bf16 tiles (csrc/tensor_core.cuh), p and ds computed in
-// registers from the accumulators and rounded to bf16 straight from them
-// as the A operand of the next product (the one rounding the reference
-// does not make, 2^-9 relative), the scale multiplying the f32 scores and,
-// once, the gradient at the end. No two blocks write the same rows, so
-// nothing needs atomics and the bits are the same every run.
-// dK/dV (`flash_bwd_dkv_tc`): one block per (bh, 64-key tile), 4 warps of
-// 16 keys; k and v are copied once (their A fragments read from shared
-// memory at each use, which leaves the registers for three blocks an SM),
-// and the loop over 64-row query tiles, in halves of 32, from the causal
-// start, double-buffers q and dO, the tile's m, 1/l, delta and dropout
-// row hashes beside them. Every product runs in transposed form, so that
-// each takes its A operand from registers: s^T = k q^T and dp^T = v dO^T
-// (q and dO the B operands through ldmatrix), then p^T, pd^T and ds^T in
-// registers, and dv += pd^T dO, dk += ds^T q with dO, q through
-// ldmatrix.trans.
-// dQ (`flash_bwd_dq_tc`): one block per (bh, 64-query tile), 4 warps of
-// 16 rows; q and dO copied once (their A fragments read from shared
-// memory at each use, which leaves the registers for four blocks an SM);
-// k and v tiles double-buffered with the key-bias row. Per key tile, in
-// chunks of 16 keys: s = q k^T and dp = dO v^T (k and v the B operands
-// through ldmatrix), p and ds in registers, dq += ds k (k through
-// ldmatrix.trans). Its prologue computes delta from dO's tile and
-// O's rows (read while the first copies are in flight), in f32, and
-// writes it for dK/dV: no PyTorch pass over float32 copies of dO and O.
-// The f32 kernels stage their tiles in shared memory as f32, transposed
-// with an odd row stride so that both the score loops (along the head
-// dim) and the accumulation loops (along the tile) are free of bank
-// conflicts; each of 256 threads keeps a 4 x 4 tile of scores and of dp,
-// and a 4 x (D/16) tile of each accumulator in registers, and ds and pd
-// pass through shared memory; the f32 dQ computes delta in the same
-// prologue, four threads a row. All read q, k, v, dO and O in place
-// through their strides (the head-split views of BERT's fused QKV
-// projection, and dO and O in the forward output's (B, S, H, D) memory
-// order; the bf16 kernels want 16-byte aligned rows, which the wrapper
-// ensures), and write the gradients through strides.
+// What the design does about it. Both dtypes on the tensor cores with f32
+// sums, tiles copied by 16-byte cp.async into XOR-swizzled shared tiles
+// (csrc/tensor_core.cuh), p and ds computed in registers from the
+// accumulators and handed to the next product as its A operand straight
+// from them, the scale multiplying the f32 scores and, once, the
+// gradient at the end. No two blocks write the same rows, so nothing
+// needs atomics and the bits are the same every run.
+// dK/dV: one block per (bh, 64-key tile), 4 warps of 16 keys; k and v
+// are copied once (their A fragments read from shared memory at each
+// use), and the loop over 64-row query tiles, in halves of 32, from the
+// causal start, double-buffers q and dO, the tile's m, 1/l, delta and
+// dropout row hashes beside them. Every product runs in transposed form,
+// so that each takes its A operand from registers: s^T = k q^T and dp^T
+// = v dO^T (q and dO the B operands), then p^T, pd^T and ds^T in
+// registers, and dv += pd^T dO, dk += ds^T q with dO, q read down their
+// columns.
+// dQ: one block per (bh, 64-query tile), 4 warps of 16 rows; q and dO
+// copied once (their A fragments read from shared memory at each use);
+// k and v tiles with the key-bias row (double-buffered in bf16, below for
+// float32). Per key tile, in chunks of keys: s = q k^T and dp = dO v^T
+// (k and v the B operands), p and ds in registers, dq += ds k (k read
+// down its columns). Its prologue
+// computes delta from dO's tile and O's rows (read while the first copies
+// are in flight), in f32, and writes it for dK/dV: no PyTorch pass over
+// float32 copies of dO and O.
+// bf16 (`flash_bwd_dq_tc`, `flash_bwd_dkv_tc`): mma.sync m16n8k16,
+// fragments through ldmatrix(.trans), p and ds rounded to bf16 as A
+// operands (the one rounding the reference does not make, 2^-9
+// relative); dK/dV three blocks an SM, dQ four, 16-key chunks (faster on
+// the H100 than keeping fragments in registers at fewer blocks, PERF.md).
+// float32 (`flash_bwd_dq_tf32`, `flash_bwd_dkv_tf32`): mma.sync m16n8k8
+// on TF32 operands, each product split in three (lo hi + hi lo + hi hi,
+// "3xTF32", tc::mma_3xtf32), which keeps about 2^-20 of each product
+// where one TF32 product keeps 2^-10: float32 accuracy (within 1e-5 in
+// the CPU emulation, tests/test_torch_flash_f32_split.py). Every operand
+// is split as it is read from shared memory, with 16-byte loads: the
+// products order their k index so that a thread's two k values are
+// neighbours (tc::load_a_f32, tc::load_b_rows_f32), and the products that
+// take a C tile as A (ds k, pd^T dO, ds^T q) order the output's columns
+// so that a thread's four n-tiles read four neighbouring columns of the
+// B tile (tc::load_b_cols_f32) and write four neighbouring gradient
+// columns. At D = 64 dK/dV double-buffers q and dO at two blocks an SM
+// (96 KB of f32 tiles each); dQ single-buffers k and v at three (64 KB),
+// in chunks of 16 keys. Measured on the H100 at BERT's (64, 12, 128, 64)
+// beside the parent's CUDA-core kernels (dQ 0.247 ms, dK/dV 0.285):
+// double-buffered at two blocks, dQ 0.172 (32-key chunks), dK/dV 0.214;
+// with q, dO (dK/dV) and k, v (dQ) split once a block into hi and lo
+// tiles in shared memory as they land, 0.172 and 0.216: the split's
+// integer work is not what bounds them; fully unrolled passes, 0.171 and
+// 0.217; single-buffered at three blocks, dQ 0.145 (32-key chunks, 44
+// bytes spilled) and 0.152 (16-key chunks, no spill), dK/dV 0.182 to
+// 0.200 but with 4 to 16 bytes spilled, and at causal S = 512 0.134 to
+// 0.147 against 0.112 double-buffered (PERF.md, PR 7).
+// All read q, k, v, dO and O in place through their strides (the
+// head-split views of BERT's fused QKV projection, and dO and O in the
+// forward output's (B, S, H, D) memory order; 16-byte aligned rows, which
+// the wrapper ensures), and write the gradients through strides.
 
 #include <atomic>
 
@@ -80,17 +104,6 @@ namespace {
 
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr int NT = 256;        // threads per block
-constexpr int CG = 16;         // threads sharing one row group
-constexpr int TM = 4;          // tile rows per thread
-constexpr int TN = 64 / CG;    // tile columns per thread
-constexpr int QS = BQ + 1;     // row stride of the transposed q, dO tiles
-constexpr int KS = BK + 1;     // row stride of the transposed k, v tiles
-constexpr int PS = 64 + 2;     // row stride of the ds / pd tiles
-constexpr float NEG_INF = -1e30f;
-
-static_assert(NT == (64 / TM) * CG, "thread layout");
-static_assert(BQ == 64 && BK == 64, "both tiles are 64 wide");
 
 struct Params {
   const void* q;
@@ -111,7 +124,8 @@ struct Params {
   int mask_mode;       // 0 none, 1 key row, 2 full
   int mb, mh;
   float scale;
-  int causal;
+  int causal;          // 0 none; 1 the diagonal edge; 2 the edge is in the
+                       // bias, and ds is 0 above the diagonal
   int dropout;
   uint32_t threshold;
   uint32_t seed0, seed1;
@@ -146,212 +160,47 @@ __device__ __forceinline__ const float* mask_group(const Params& p, int b,
   return p.mask + g * rows * p.Sk;
 }
 
-// the masked, scaled score of (qi, kj), or -1e30 where it is not valid;
-// `valid` says which
-__device__ __forceinline__ float masked_score(const Params& p,
-                                              const float* mg, float s,
-                                              int qi, int kj, bool& valid) {
-  valid = qi < p.Sq && kj < p.Sk;
-  if (p.causal) valid = valid && qi >= kj;
-  if (!valid) return NEG_INF;
-  if (p.mask_mode == 1) s += mg[kj];
-  if (p.mask_mode == 2) s += mg[(int64_t)qi * p.Sk + kj];
-  return s;
+// -- float32 on the tensor cores, in split TF32 ---------------------------------
+
+namespace tc = ptk::tc;
+
+constexpr int NT_TC = 128;  // 4 warps, 16 rows (dQ) or keys (dK/dV) each
+
+template <int D>
+constexpr int dkv_tf32_smem_bytes() {
+  // k and v tiles; two q and two dO tiles (f32); two sets of the query
+  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row
+  return (2 * BK * D + 4 * BQ * D) * 4 + 2 * 4 * BQ * 4 + BK * 4;
 }
 
 template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * D * QS + 2 * D * KS + BQ * PS + BQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq(const Params p) {
-  constexpr int DC = D / CG;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  float* Qt = smem;            // [D][QS]  q^T, pre-scaled
-  float* Ot = Qt + D * QS;     // [D][QS]  dO^T
-  float* Kt = Ot + D * QS;     // [D][KS]  k^T
-  float* Vt = Kt + D * KS;     // [D][KS]  v^T
-  float* Ps = Vt + D * KS;     // [BQ][PS] ds
-  float* Dl = Ps + BQ * PS;    // [BQ] delta
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid / CG;
-  const int cg = tid % CG;
-
-  const float* qb = at<float>(p, p.q, Q, b, h);
-  const float* kb = at<float>(p, p.k, K, b, h);
-  const float* vb = at<float>(p, p.v, V, b, h);
-  const float* dob = at<float>(p, p.dout, DO, b, h);
-  float* dqb = at<float>(p, p.dq, DQ, b, h);
-  const float* ob = at<float>(p, p.o, O, b, h);
-  const float* mg = mask_group(p, b, h, bh);
-
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e % D;
-    const int qi = q0 + r;
-    const bool in = qi < p.Sq;
-    Qt[d * QS + r] = in ? qb[qi * p.st[Q][2] + d] * p.scale : 0.f;
-    Ot[d * QS + r] = in ? dob[qi * p.st[DO][2] + d] : 0.f;
-  }
-  // delta = rowsum(dO * O) of the tile's rows, four threads a row, for
-  // this kernel and for the dK/dV kernel after it
-  {
-    static_assert(NT == 4 * BQ, "four threads a row");
-    const int r = tid >> 2, qi = q0 + r;
-    float acc = 0.f;
-    if (qi < p.Sq)
-#pragma unroll
-      for (int d = tid & 3; d < D; d += 4)
-        acc += dob[qi * p.st[DO][2] + d] *
-               ob[qi * p.st[O][2] + d];
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if ((tid & 3) == 0) {
-      Dl[r] = acc;
-      if (qi < p.Sq) p.delta[(int64_t)bh * p.Sq + qi] = acc;
-    }
-  }
-  __syncthreads();
-
-  float mrow[TM], linv[TM], dl[TM];
-  uint32_t hrow[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qi = q0 + rg * TM + i;
-    const bool in = qi < p.Sq;
-    const int64_t row = (int64_t)bh * p.Sq + qi;
-    mrow[i] = in ? p.m[row] : 0.f;
-    linv[i] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
-    dl[i] = Dl[rg * TM + i];
-    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
-  }
-
-  float acc[TM][DC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  int nk = (p.Sk + BK - 1) / BK;
-  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
-
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, d = e % D;
-      const int kj = k0 + r;
-      const bool in = kj < p.Sk;
-      Kt[d * KS + r] = in ? kb[kj * p.st[K][2] + d] : 0.f;
-      Vt[d * KS + r] = in ? vb[kj * p.st[V][2] + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[TM][TN], dp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int t = 0; t < TN; ++t) s[i][t] = dp[i][t] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[TM], o[TM], bk[TN], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        a[i] = Qt[d * QS + rg * TM + i];
-        o[i] = Ot[d * QS + rg * TM + i];
-      }
-#pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        bk[t] = Kt[d * KS + cg + CG * t];
-        bv[t] = Vt[d * KS + cg + CG * t];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) {
-          s[i][t] = fmaf(a[i], bk[t], s[i][t]);
-          dp[i][t] = fmaf(o[i], bv[t], dp[i][t]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = rg * TM + i;
-      const int qi = q0 + r;
-#pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        const int kj = k0 + cg + CG * t;
-        bool valid;
-        const float sv = masked_score(p, mg, s[i][t], qi, kj, valid);
-        const float pv = valid ? expf(sv - mrow[i]) * linv[i] : 0.f;
-        float dpv = dp[i][t];
-        if (p.dropout)
-          dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
-                    ? dpv / p.keep_div
-                    : 0.f;
-        Ps[r * PS + cg + CG * t] = pv * (dpv - dl[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsv[TM], kv[DC];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) dsv[i] = Ps[(rg * TM + i) * PS + c];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) kv[cc] = Kt[(cg + CG * cc) * KS + c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          acc[i][cc] = fmaf(dsv[i], kv[cc], acc[i][cc]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qi = q0 + rg * TM + i;
-    if (qi >= p.Sq) continue;
-#pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      dqb[qi * p.st[DQ][2] + cg + CG * cc] =
-          acc[i][cc] * p.scale;
-  }
-}
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 2 * D * KS + 2 * D * QS + 2 * BK * PS + 4 * BQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
-  constexpr int DC = D / CG;
-  extern __shared__ float smem[];
-  float* Kt = smem;            // [D][KS]  k^T
-  float* Vt = Kt + D * KS;     // [D][KS]  v^T
-  float* Qt = Vt + D * KS;     // [D][QS]  q^T, pre-scaled
-  float* Ot = Qt + D * QS;     // [D][QS]  dO^T
-  float* Pd = Ot + D * QS;     // [BK][PS] pd^T
-  float* Ds = Pd + BK * PS;    // [BK][PS] ds^T
-  float* Mr = Ds + BK * PS;    // [BQ] m of the query tile
-  float* Li = Mr + BQ;         // [BQ] 1 / max(l, 1e-20)
-  float* Dl = Li + BQ;         // [BQ] delta
-  uint32_t* Hr = reinterpret_cast<uint32_t*>(Dl + BQ);  // [BQ] row hashes
+// two blocks an SM at D = 64, whose tiles take 96 KB; one at D = 128
+__global__ void __launch_bounds__(NT_TC, D == 64 ? 2 : 1)
+    flash_bwd_dkv_tf32(const Params p) {
+  constexpr int KD = D / 16;  // 16-wide slices of the head dim
+  constexpr int NG = D / 32;  // 32-wide column groups of dk and dv
+  constexpr int QC = 32;      // queries a pass
+  constexpr int NT8 = QC / 8;  // 8-query n-tiles a pass
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BK][D]
+  float* Vs = Ks + BK * D;                         // [BK][D]
+  float* Qs = Vs + BK * D;                         // [2][BQ][D]
+  float* Os = Qs + 2 * BQ * D;                     // [2][BQ][D]  dO
+  float* Mr = Os + 2 * BQ * D;                     // [2][BQ] m
+  float* Li = Mr + 2 * BQ;                     // [2][BQ] 1 / max(l, 1e-20)
+  float* Dl = Li + 2 * BQ;                         // [2][BQ] delta
+  uint32_t* Hr = reinterpret_cast<uint32_t*>(Dl + 2 * BQ);  // [2][BQ]
+  float* Bk = reinterpret_cast<float*>(Hr + 2 * BQ);        // [BK]
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int k0 = blockIdx.y * BK;
   const int tid = threadIdx.x;
-  const int rg = tid / CG;  // key rows rg*TM .. rg*TM+TM-1
-  const int cg = tid % CG;  // query columns cg + CG*t
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;  // the warp's first key in the tile
+  const int keys[2] = {k0 + wrow + g, k0 + wrow + g + 8};
 
   const float* qb = at<float>(p, p.q, Q, b, h);
   const float* kb = at<float>(p, p.k, K, b, h);
@@ -361,136 +210,389 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params p) {
   float* dvb = at<float>(p, p.dv, DV, b, h);
   const float* mg = mask_group(p, b, h, bh);
 
-  for (int e = tid; e < BK * D; e += NT) {
-    const int r = e / D, d = e % D;
-    const int kj = k0 + r;
-    const bool in = kj < p.Sk;
-    Kt[d * KS + r] = in ? kb[kj * p.st[K][2] + d] : 0.f;
-    Vt[d * KS + r] = in ? vb[kj * p.st[V][2] + d] : 0.f;
-  }
-
-  float dk[TM][DC], dv[TM][DC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
+  const bool causal = p.causal == 1, fold = p.causal == 2;
   const int nq = (p.Sq + BQ - 1) / BQ;
-  const int q_first = p.causal ? k0 / BQ : 0;
-
-  for (int qt = q_first; qt < nq; ++qt) {
+  const int q_first = causal ? k0 / BQ : 0;
+  auto load_q_tile = [&](int buf, int qt) {
     const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BQ * D; e += NT) {
-      const int r = e / D, d = e % D;
-      const int qi = q0 + r;
-      const bool in = qi < p.Sq;
-      Qt[d * QS + r] = in ? qb[qi * p.st[Q][2] + d] * p.scale : 0.f;
-      Ot[d * QS + r] = in ? dob[qi * p.st[DO][2] + d] : 0.f;
-    }
-    for (int r = tid; r < BQ; r += NT) {
+    tc::load_tile_f32<D, BQ, NT_TC>(Qs + buf * BQ * D, qb, p.st[Q][2], q0,
+                                    p.Sq, tid);
+    tc::load_tile_f32<D, BQ, NT_TC>(Os + buf * BQ * D, dob, p.st[DO][2], q0,
+                                    p.Sq, tid);
+    tc::cp_async_commit();
+    for (int r = tid; r < BQ; r += NT_TC) {
       const int qi = q0 + r;
       const bool in = qi < p.Sq;
       const int64_t row = (int64_t)bh * p.Sq + qi;
-      Mr[r] = in ? p.m[row] : 0.f;
-      Li[r] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
-      Dl[r] = in ? p.delta[row] : 0.f;
-      Hr[r] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
+      Mr[buf * BQ + r] = in ? p.m[row] : 0.f;
+      Li[buf * BQ + r] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
+      Dl[buf * BQ + r] = in ? p.delta[row] : 0.f;
+      Hr[buf * BQ + r] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
     }
-    __syncthreads();
+  };
 
-    float s[TM][TN], dp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int t = 0; t < TN; ++t) s[i][t] = dp[i][t] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[TM], av[TM], bq[TN], bo[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        a[i] = Kt[d * KS + rg * TM + i];
-        av[i] = Vt[d * KS + rg * TM + i];
-      }
-#pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        bq[t] = Qt[d * QS + cg + CG * t];
-        bo[t] = Ot[d * QS + cg + CG * t];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) {
-          s[i][t] = fmaf(a[i], bq[t], s[i][t]);
-          dp[i][t] = fmaf(av[i], bo[t], dp[i][t]);
-        }
-    }
+  tc::load_tile_f32<D, BK, NT_TC>(Ks, kb, p.st[K][2], k0, p.Sk, tid);
+  tc::load_tile_f32<D, BK, NT_TC>(Vs, vb, p.st[V][2], k0, p.Sk, tid);
+  if (p.mask_mode == 1)
+    for (int c = tid; c < BK; c += NT_TC)
+      Bk[c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  load_q_tile(0, q_first);
+  const float inv_keep = 1.f / p.keep_div;
 
+  // dk[G][n], dv[G][n]: the C tile of n-tile n of column group G, whose
+  // C column 2 t4 + c is column 32 G + 8 t4 + 4 c + n (tc::load_b_cols_f32)
+  float dk[NG][4][4], dv[NG][4][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = rg * TM + i;
-      const int kj = k0 + r;
+  for (int G = 0; G < NG; ++G)
 #pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        const int c = cg + CG * t;
-        const int qi = q0 + c;
-        bool valid;
-        const float sv = masked_score(p, mg, s[i][t], qi, kj, valid);
-        const float pv = valid ? expf(sv - Mr[c]) * Li[c] : 0.f;
-        float pd = pv, dpv = dp[i][t];
-        if (p.dropout) {
-          const bool keep = ptk::dropout_keep(Hr[c], p.seed0, kj, p.threshold);
-          pd = keep ? pv / p.keep_div : 0.f;
-          dpv = keep ? dpv / p.keep_div : 0.f;
-        }
-        Pd[r * PS + c] = pd;
-        Ds[r * PS + c] = pv * (dpv - Dl[c]);
-      }
-    }
-    __syncthreads();
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[G][n][e] = dv[G][n][e] = 0.f;
 
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float pdv[TM], dsv[TM], ov[DC], qv[DC];
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int buf = (qt - q_first) & 1;
+    const int q0 = qt * BQ;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile qt is in; every reader of tile qt-1 is done
+    if (qt + 1 < nq) load_q_tile(buf ^ 1, qt + 1);
+    const float* Qt = Qs + buf * BQ * D;
+    const float* Ot = Os + buf * BQ * D;
+    const float* mr = Mr + buf * BQ;
+    const float* li = Li + buf * BQ;
+    const float* dl = Dl + buf * BQ;
+    const uint32_t* hr = Hr + buf * BQ;
+
+    // the query tile in passes of QC, so that s^T and dp^T of one pass
+    // are live at a time beside the two accumulators
+    const bool edge = q0 + BQ > p.Sq || k0 + BK > p.Sk ||
+                      (causal && q0 < k0 + wrow + 15);
+#pragma unroll 1
+    for (int hq = 0; hq < BQ / QC; ++hq) {
+      // s^T = k q^T and dp^T = v dO^T: 16 keys x QC queries a warp, the
+      // warp's k and v rows (A) read from shared memory and split anew at
+      // each slice, q's and dO's rows the B operands
+      float s[NT8][4], dp[NT8][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        pdv[i] = Pd[(rg * TM + i) * PS + c];
-        dsv[i] = Ds[(rg * TM + i) * PS + c];
-      }
+      for (int t = 0; t < NT8; ++t)
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        ov[cc] = Ot[(cg + CG * cc) * QS + c];
-        qv[cc] = Qt[(cg + CG * cc) * QS + c];
-      }
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[2][4], al[2][4], fh[4], fl[4];
+        tc::load_a_f32<D>(ah, al, Ks, wrow, kk, lane);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          dv[i][cc] = fmaf(pdv[i], ov[cc], dv[i][cc]);
-          dk[i][cc] = fmaf(dsv[i], qv[cc], dk[i][cc]);
+        for (int t = 0; t < NT8; ++t) {
+          tc::load_b_rows_f32<D>(fh, fl, Qt, hq * QC + t * 8, kk, lane);
+          tc::mma_3xtf32(s[t], ah[0], al[0], fh[0], fh[1], fl[0], fl[1]);
+          tc::mma_3xtf32(s[t], ah[1], al[1], fh[2], fh[3], fl[2], fl[3]);
         }
+        tc::load_a_f32<D>(ah, al, Vs, wrow, kk, lane);
+#pragma unroll
+        for (int t = 0; t < NT8; ++t) {
+          tc::load_b_rows_f32<D>(fh, fl, Ot, hq * QC + t * 8, kk, lane);
+          tc::mma_3xtf32(dp[t], ah[0], al[0], fh[0], fh[1], fl[0], fl[1]);
+          tc::mma_3xtf32(dp[t], ah[1], al[1], fh[2], fh[3], fl[2], fl[3]);
+        }
+      }
+
+      // p^T, pd^T (in s) and ds^T (in dp), masked per element only on an
+      // edge tile: queries past Sq, keys past Sk, or the causal diagonal
+#pragma unroll
+      for (int t = 0; t < NT8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = keys[e >> 1];
+          const int c = (hq * NT8 + t) * 8 + t4 * 2 + (e & 1);
+          const int qi = q0 + c;
+          float x = s[t][e] * p.scale;
+          if (p.mask_mode == 1) x += Bk[wrow + g + ((e >> 1) << 3)];
+          else if (p.mask_mode == 2)
+            x += qi < p.Sq && kj < p.Sk ? mg[(int64_t)qi * p.Sk + kj] : 0.f;
+          const bool valid =
+              !edge || (qi < p.Sq && kj < p.Sk && (!causal || qi >= kj));
+          const float pv = valid ? expf(x - mr[c]) * li[c] : 0.f;
+          float pd = pv, dpv = dp[t][e];
+          if (p.dropout) {
+            const bool keep =
+                ptk::dropout_keep(hr[c], p.seed0, kj, p.threshold);
+            pd = keep ? pv * inv_keep : 0.f;
+            dpv = keep ? dpv * inv_keep : 0.f;
+          }
+          s[t][e] = pd;
+          dp[t][e] = fold && qi < kj ? 0.f : pv * (dpv - dl[c]);
+        }
+
+      // dv += pd^T dO and dk += ds^T q, 8 queries a step: each C tile is
+      // the split A fragment, dO's and q's rows 2 t4 and 2 t4 + 1 the B
+#pragma unroll
+      for (int t = 0; t < NT8; ++t) {
+        uint32_t ph[4], pl[4], dh[4], dlo[4];
+        tc::c_to_a_f32(ph, pl, s[t]);
+        tc::c_to_a_f32(dh, dlo, dp[t]);
+        const int r0 = hq * QC + t * 8;
+#pragma unroll
+        for (int G = 0; G < NG; ++G) {
+          uint32_t fh[2][4], fl[2][4];
+          tc::load_b_cols_f32<D>(fh, fl, Ot, r0, G, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            tc::mma_3xtf32(dv[G][n], ph, pl, fh[0][n], fh[1][n], fl[0][n],
+                           fl[1][n]);
+          tc::load_b_cols_f32<D>(fh, fl, Qt, r0, G, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            tc::mma_3xtf32(dk[G][n], dh, dlo, fh[0][n], fh[1][n], fl[0][n],
+                           fl[1][n]);
+        }
+      }
     }
   }
+  tc::cp_async_wait_all();  // no copy outlives the block
 
-  // q was pre-scaled, so ds^T (q * scale) is already dk
+  // dk sums ds^T q: the scale once, here; two 16-byte stores a group
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int kj = k0 + rg * TM + i;
+  for (int i = 0; i < 2; ++i) {
+    const int kj = keys[i];
     if (kj >= p.Sk) continue;
+    float* dkr = dkb + kj * p.st[DK][2] + 8 * t4;
+    float* dvr = dvb + kj * p.st[DV][2] + 8 * t4;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      dkb[kj * p.st[DK][2] + cg + CG * cc] = dk[i][cc];
-      dvb[kj * p.st[DV][2] + cg + CG * cc] = dv[i][cc];
-    }
+    for (int G = 0; G < NG; ++G)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * i + c;
+        *reinterpret_cast<float4*>(dkr + 32 * G + 4 * c) = make_float4(
+            dk[G][0][e] * p.scale, dk[G][1][e] * p.scale,
+            dk[G][2][e] * p.scale, dk[G][3][e] * p.scale);
+        *reinterpret_cast<float4*>(dvr + 32 * G + 4 * c) = make_float4(
+            dv[G][0][e], dv[G][1][e], dv[G][2][e], dv[G][3][e]);
+      }
   }
 }
 
+template <int D>
+constexpr int dq_tf32_smem_bytes() {
+  // q, dO, k and v tiles (f32); the key-bias row and the query tile's
+  // delta
+  return (2 * BQ * D + 2 * BK * D) * 4 + BK * 4 + BQ * 4;
+}
+
+template <int D>
+// three blocks an SM at D = 64, whose tiles take 64 KB (single-buffered
+// k and v: faster on the H100 than double-buffered at two, PERF.md); one
+// at D = 128
+__global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 1)
+    flash_bwd_dq_tf32(const Params p) {
+  constexpr int KD = D / 16;  // 16-wide slices of the head dim
+  constexpr int NG = D / 32;  // 32-wide column groups of dq
+  constexpr int CH = D / 4;   // 16-byte chunks of a row
+  constexpr int KC = 16;      // keys a warp takes at a time
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][D]
+  float* Os = Qs + BQ * D;                         // [BQ][D]  dO
+  float* Ks = Os + BQ * D;                         // [BK][D]
+  float* Vs = Ks + BK * D;                         // [BK][D]
+  float* Bs = Vs + BK * D;                         // [BK]
+  float* Dl = Bs + BK;                             // [BQ] delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;  // the warp's first row in the tile
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+
+  const float* qb = at<float>(p, p.q, Q, b, h);
+  const float* kb = at<float>(p, p.k, K, b, h);
+  const float* vb = at<float>(p, p.v, V, b, h);
+  const float* dob = at<float>(p, p.dout, DO, b, h);
+  const float* ob = at<float>(p, p.o, O, b, h);
+  float* dqb = at<float>(p, p.dq, DQ, b, h);
+  const float* mg = mask_group(p, b, h, bh);
+  auto load_kv_tile = [&](int k0) {
+    tc::load_tile_f32<D, BK, NT_TC>(Ks, kb, p.st[K][2], k0, p.Sk, tid);
+    tc::load_tile_f32<D, BK, NT_TC>(Vs, vb, p.st[V][2], k0, p.Sk, tid);
+    tc::cp_async_commit();
+    if (p.mask_mode == 1)
+      for (int c = tid; c < BK; c += NT_TC)
+        Bs[c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  };
+
+  const bool causal = p.causal == 1, fold = p.causal == 2;
+  int nk = (p.Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  tc::load_tile_f32<D, BQ, NT_TC>(Qs, qb, p.st[Q][2], q0, p.Sq, tid);
+  tc::load_tile_f32<D, BQ, NT_TC>(Os, dob, p.st[DO][2], q0, p.Sq, tid);
+  load_kv_tile(0);
+
+  // delta's operands: two lanes a row of the warp's 16, this lane's half
+  // of O's row read from device memory while the copies are in flight
+  const int drow = wrow + (lane >> 1);
+  float4 orow[CH / 2];
+#pragma unroll
+  for (int i = 0; i < CH / 2; ++i)
+    orow[i] = q0 + drow < p.Sq
+                  ? *reinterpret_cast<const float4*>(
+                        ob + (q0 + drow) * p.st[O][2] +
+                        ((lane & 1) + 2 * i) * 4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float mrow[2], linv[2], dl[2];
+  uint32_t hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = rows[i] < p.Sq;
+    const int64_t r = (int64_t)bh * p.Sq + rows[i];
+    mrow[i] = in ? p.m[r] : 0.f;
+    linv[i] = in ? 1.f / fmaxf(p.l[r], 1e-20f) : 0.f;
+    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+  }
+  const float inv_keep = 1.f / p.keep_div;
+
+  tc::cp_async_wait_all();
+  __syncthreads();  // q, dO and the first k and v tiles are in
+  // delta = rowsum(dO * O) (zero past Sq), written for the dK/dV kernel,
+  // which runs after this one
+  {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          Os + tc::f32_off<D>(drow, (lane & 1) + 2 * i));
+      acc = fmaf(x.x, orow[i].x, acc);
+      acc = fmaf(x.y, orow[i].y, acc);
+      acc = fmaf(x.z, orow[i].z, acc);
+      acc = fmaf(x.w, orow[i].w, acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((lane & 1) == 0) {
+      Dl[drow] = acc;
+      if (q0 + drow < p.Sq) p.delta[(int64_t)bh * p.Sq + q0 + drow] = acc;
+    }
+    __syncwarp();
+    dl[0] = Dl[wrow + g];
+    dl[1] = Dl[wrow + g + 8];
+  }
+
+  // dq[G][n]: the C tile of n-tile n of column group G, whose C column
+  // 2 t4 + c is column 32 G + 8 t4 + 4 c + n (tc::load_b_cols_f32)
+  float dq[NG][4][4];
+#pragma unroll
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[G][n][e] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    if (j > 0) {
+      __syncthreads();  // every reader of tile j-1 is done
+      load_kv_tile(k0);
+      tc::cp_async_wait_all();
+      __syncthreads();  // tile j is in
+    }
+    const bool edge = k0 + BK > p.Sk ||
+                      (causal && k0 + BK - 1 > q0 + wrow);
+
+    // the key tile in chunks of KC keys, so that s and dp of one chunk
+    // are live at a time beside the accumulator; q's and dO's rows (A)
+    // read from shared memory and split anew at each slice
+#pragma unroll 1
+    for (int hk = 0; hk < BK / KC; ++hk) {
+      // s = q k^T and dp = dO v^T: 16 rows x KC keys a warp
+      float s[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int t = 0; t < KC / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[2][4], al[2][4], fh[4], fl[4];
+        tc::load_a_f32<D>(ah, al, Qs, wrow, kk, lane);
+#pragma unroll
+        for (int t = 0; t < KC / 8; ++t) {
+          tc::load_b_rows_f32<D>(fh, fl, Ks, hk * KC + t * 8, kk, lane);
+          tc::mma_3xtf32(s[t], ah[0], al[0], fh[0], fh[1], fl[0], fl[1]);
+          tc::mma_3xtf32(s[t], ah[1], al[1], fh[2], fh[3], fl[2], fl[3]);
+        }
+        tc::load_a_f32<D>(ah, al, Os, wrow, kk, lane);
+#pragma unroll
+        for (int t = 0; t < KC / 8; ++t) {
+          tc::load_b_rows_f32<D>(fh, fl, Vs, hk * KC + t * 8, kk, lane);
+          tc::mma_3xtf32(dp[t], ah[0], al[0], fh[0], fh[1], fl[0], fl[1]);
+          tc::mma_3xtf32(dp[t], ah[1], al[1], fh[2], fh[3], fl[2], fl[3]);
+        }
+      }
+
+      // p and ds = p (dp - delta) in s, masked per element only on an
+      // edge tile: keys past Sk, or the causal diagonal
+#pragma unroll
+      for (int t = 0; t < KC / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int row = rows[i];
+          const int cl = hk * KC + t * 8 + t4 * 2 + (e & 1);
+          const int kj = k0 + cl;
+          float x = s[t][e] * p.scale;
+          if (p.mask_mode == 1) x += Bs[cl];
+          else if (p.mask_mode == 2)
+            x += row < p.Sq && kj < p.Sk ? mg[(int64_t)row * p.Sk + kj] : 0.f;
+          const bool valid =
+              !edge || (kj < p.Sk && (!causal || row >= kj));
+          const float pv = valid ? expf(x - mrow[i]) * linv[i] : 0.f;
+          float dpv = dp[t][e];
+          if (p.dropout)
+            dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
+                      ? dpv * inv_keep
+                      : 0.f;
+          s[t][e] = fold && row < kj ? 0.f : pv * (dpv - dl[i]);
+        }
+
+      // dq += ds k, 8 keys a step: each C tile of ds is the split A
+      // fragment, k's rows 2 t4 and 2 t4 + 1 the B
+#pragma unroll
+      for (int t = 0; t < KC / 8; ++t) {
+        uint32_t dh[4], dlo[4];
+        tc::c_to_a_f32(dh, dlo, s[t]);
+#pragma unroll
+        for (int G = 0; G < NG; ++G) {
+          uint32_t fh[2][4], fl[2][4];
+          tc::load_b_cols_f32<D>(fh, fl, Ks, hk * KC + t * 8, G, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            tc::mma_3xtf32(dq[G][n], dh, dlo, fh[0][n], fh[1][n], fl[0][n],
+                           fl[1][n]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait_all();  // no copy outlives the block
+
+  // dq sums ds k: the scale once, here; two 16-byte stores a group
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
+    if (row >= p.Sq) continue;
+    float* dqr = dqb + row * p.st[DQ][2] + 8 * t4;
+#pragma unroll
+    for (int G = 0; G < NG; ++G)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * i + c;
+        *reinterpret_cast<float4*>(dqr + 32 * G + 4 * c) = make_float4(
+            dq[G][0][e] * p.scale, dq[G][1][e] * p.scale,
+            dq[G][2][e] * p.scale, dq[G][3][e] * p.scale);
+      }
+  }
+}
 
 // -- dK/dV in bf16 on the tensor cores ----------------------------------------
-
-namespace tc = ptk::tc;
-
-constexpr int NT_TC = 128;  // 4 warps, 16 keys each
 
 template <int D>
 constexpr int dkv_tc_smem_bytes() {
@@ -499,7 +601,10 @@ constexpr int dkv_tc_smem_bytes() {
   return (2 * BK * D + 4 * BQ * D) * 2 + 2 * 4 * BQ * 4 + BK * 4;
 }
 
-template <int D>
+// FOLD: causal 2, the edge in the bias (ds^T zeroed above the diagonal),
+// an instance of its own: at D = 64 the kernel sits at its register cap,
+// and the extra pass would make the path's instance spill
+template <int D, bool FOLD>
 // three blocks an SM at D = 64 (168 registers, no spill); two at D = 128
 __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
     flash_bwd_dkv_tc(const Params p) {
@@ -536,7 +641,7 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
   const float* mg = mask_group(p, b, h, bh);
 
   const int nq = (p.Sq + BQ - 1) / BQ;
-  const int q_first = p.causal ? k0 / BQ : 0;
+  const int q_first = !FOLD && p.causal ? k0 / BQ : 0;
   auto load_q_tile = [&](int buf, int qt) {
     const int q0 = qt * BQ;
     tc::load_tile<D, BQ, NT_TC>(Qs + buf * BQ * D, qb, p.st[Q][2], q0, p.Sq,
@@ -588,7 +693,7 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
     // leaves registers for three blocks an SM (faster on the H100 than
     // keeping them in registers at two blocks, PERF.md)
     const bool edge = q0 + BQ > p.Sq || k0 + BK > p.Sk ||
-                      (p.causal && q0 < k0 + wrow + 15);
+                      (!FOLD && p.causal && q0 < k0 + wrow + 15);
 #pragma unroll
     for (int hq = 0; hq < 2; ++hq) {
       // s^T = k q^T and dp^T = v dO^T: 16 keys x 32 queries a warp
@@ -629,7 +734,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
           else if (p.mask_mode == 2)
             x += qi < p.Sq && kj < p.Sk ? mg[(int64_t)qi * p.Sk + kj] : 0.f;
           const bool valid =
-              !edge || (qi < p.Sq && kj < p.Sk && (!p.causal || qi >= kj));
+              !edge ||
+              (qi < p.Sq && kj < p.Sk && (FOLD || !p.causal || qi >= kj));
           const float pv = valid ? __expf(x - mr[c]) * li[c] : 0.f;
           float pd = pv, dpv = dp[t][e];
           if (p.dropout) {
@@ -641,6 +747,15 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
           s[t][e] = pd;
           dp[t][e] = pv * (dpv - dl[c]);
         }
+      if constexpr (FOLD) {  // no ds^T above the diagonal
+        if (q0 + hq * 32 < k0 + wrow + 16)
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (q0 + (hq * 4 + t) * 8 + t4 * 2 + (e & 1) < keys[e >> 1])
+                dp[t][e] = 0.f;
+      }
       uint32_t pa[2][4], da[2][4];
       tc::c_to_a<2>(pa, s);
       tc::c_to_a<2>(da, dp);
@@ -729,7 +844,7 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
   };
 
   int nk = (p.Sk + BK - 1) / BK;
-  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  if (p.causal == 1) nk = min(nk, (q0 + BQ + BK - 1) / BK);
 
   tc::load_tile<D, BQ, NT_TC>(Qs, qb, p.st[Q][2], q0, p.Sq, tid);
   tc::load_tile<D, BQ, NT_TC>(Os, dob, p.st[DO][2], q0, p.Sq, tid);
@@ -817,7 +932,7 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
     const bf16* Kt = Ks + buf * BK * D;
     const bf16* Vt = Vs + buf * BK * D;
     const bool edge = k0 + BK > p.Sk ||
-                      (p.causal && k0 + BK - 1 > q0 + wrow);
+                      (p.causal == 1 && k0 + BK - 1 > q0 + wrow);
 
     // the key tile in chunks of KC keys, so that s and dp of one chunk
     // are live at a time beside the accumulator; q's and dO's A fragments
@@ -865,14 +980,14 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
           else if (p.mask_mode == 2)
             x += row < p.Sq && kj < p.Sk ? mg[(int64_t)row * p.Sk + kj] : 0.f;
           const bool valid =
-              !edge || (kj < p.Sk && (!p.causal || row >= kj));
+              !edge || (kj < p.Sk && (p.causal != 1 || row >= kj));
           const float pv = valid ? __expf(x - mrow[i]) * linv[i] : 0.f;
           float dpv = dp[t][e];
           if (p.dropout)
             dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
                       ? dpv * inv_keep
                       : 0.f;
-          s[t][e] = pv * (dpv - dl[i]);
+          s[t][e] = p.causal == 2 && row < kj ? 0.f : pv * (dpv - dl[i]);
         }
       uint32_t da[KC / 16][4];
       tc::c_to_a<KC / 16>(da, s);
@@ -924,29 +1039,35 @@ cudaError_t launch_kernel(Kern kernel, int threads, int bytes, int tiles,
   return cudaGetLastError();
 }
 
-// The f32 dQ (DKV false) or dK/dV kernel, on the CUDA cores.
+// The f32 dK/dV (DKV true) or dQ kernel, in split TF32.
 template <int D, bool DKV>
-cudaError_t launch(const Params& p, int bh, int device, cudaStream_t stream) {
+cudaError_t launch_tf32(const Params& p, int bh, int device,
+                        cudaStream_t stream) {
   static std::atomic<bool> opted_in[kMaxDevices];
   if constexpr (DKV)
-    return launch_kernel(flash_bwd_dkv<D>, NT,
-                         dkv_smem_floats<D>() * 4, (p.Sk + BK - 1) / BK,
-                         bh, device, stream, opted_in, p);
+    return launch_kernel(flash_bwd_dkv_tf32<D>, NT_TC,
+                         dkv_tf32_smem_bytes<D>(), (p.Sk + BK - 1) / BK, bh,
+                         device, stream, opted_in, p);
   else
-    return launch_kernel(flash_bwd_dq<D>, NT, dq_smem_floats<D>() * 4,
+    return launch_kernel(flash_bwd_dq_tf32<D>, NT_TC, dq_tf32_smem_bytes<D>(),
                          (p.Sq + BQ - 1) / BQ, bh, device, stream, opted_in,
                          p);
 }
 
-// The bf16 dK/dV (DKV true) or dQ kernel, on the tensor cores.
+// The bf16 dK/dV (DKV true; its FOLD instance opts in on the second half
+// of `opted_in`) or dQ kernel.
 template <int D, bool DKV>
 cudaError_t launch_tc(const Params& p, int bh, int device,
                       cudaStream_t stream) {
-  static std::atomic<bool> opted_in[kMaxDevices];
+  static std::atomic<bool> opted_in[2 * kMaxDevices];
   if constexpr (DKV)
-    return launch_kernel(flash_bwd_dkv_tc<D>, NT_TC, dkv_tc_smem_bytes<D>(),
-                         (p.Sk + BK - 1) / BK, bh, device, stream, opted_in,
-                         p);
+    return p.causal == 2
+               ? launch_kernel(flash_bwd_dkv_tc<D, true>, NT_TC,
+                               dkv_tc_smem_bytes<D>(), (p.Sk + BK - 1) / BK,
+                               bh, device, stream, opted_in + kMaxDevices, p)
+               : launch_kernel(flash_bwd_dkv_tc<D, false>, NT_TC,
+                               dkv_tc_smem_bytes<D>(), (p.Sk + BK - 1) / BK,
+                               bh, device, stream, opted_in, p);
   else
     return launch_kernel(flash_bwd_dq_tc<D>, NT_TC, dq_tc_smem_bytes<D>(),
                          (p.Sq + BQ - 1) / BQ, bh, device, stream, opted_in,
@@ -959,18 +1080,18 @@ cudaError_t launch_any(const Params& p, int bh, int D, int bf16, int device,
   if (bf16)
     return D == 64 ? launch_tc<64, DKV>(p, bh, device, s)
                    : launch_tc<128, DKV>(p, bh, device, s);
-  return D == 64 ? launch<64, DKV>(p, bh, device, s)
-                 : launch<128, DKV>(p, bh, device, s);
+  return D == 64 ? launch_tf32<64, DKV>(p, bh, device, s)
+                 : launch_tf32<128, DKV>(p, bh, device, s);
 }
 
-// bf16 operands of the tensor-core kernels are read by 16-byte copies and
-// loads: the base pointer and every stride of a dimension longer than 1
-// must be a multiple of 16 bytes
-bool rows_aligned(const void* ptr, const long long* st, int B, int H,
-                  int S) {
+// q, k, v, dO and O are read by 16-byte copies and loads: the base
+// pointer and every stride of a dimension longer than 1 must be a
+// multiple of 16 bytes (`per16` elements)
+bool rows_aligned(const void* ptr, const long long* st, int B, int H, int S,
+                  int per16) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
-         (B == 1 || st[0] % 8 == 0) && (H == 1 || st[1] % 8 == 0) &&
-         (S == 1 || st[2] % 8 == 0);
+         (B == 1 || st[0] % per16 == 0) && (H == 1 || st[1] % per16 == 0) &&
+         (S == 1 || st[2] % per16 == 0);
 }
 
 int run(bool dkv, int device, const void* q, const void* k, const void* v,
@@ -1013,12 +1134,12 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
   p.seed0 = seed0;
   p.seed1 = seed1;
   p.keep_div = keep_div;
-  if (bf16 &&
-      !(rows_aligned(q, strides + 3 * Q, B, H, Sq) &&
-        rows_aligned(k, strides + 3 * K, B, H, Sk) &&
-        rows_aligned(v, strides + 3 * V, B, H, Sk) &&
-        rows_aligned(dout, strides + 3 * DO, B, H, Sq) &&
-        (dkv || rows_aligned(o, strides + 3 * O, B, H, Sq))))
+  const int per16 = bf16 ? 8 : 4;
+  if (!(rows_aligned(q, strides + 3 * Q, B, H, Sq, per16) &&
+        rows_aligned(k, strides + 3 * K, B, H, Sk, per16) &&
+        rows_aligned(v, strides + 3 * V, B, H, Sk, per16) &&
+        rows_aligned(dout, strides + 3 * DO, B, H, Sq, per16) &&
+        (dkv || rows_aligned(o, strides + 3 * O, B, H, Sq, per16))))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;
@@ -1034,10 +1155,13 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
 // sequence strides (in elements), the head dim contiguous; `strides`
 // holds 24 of them, three each for q, k, v, dO, dq, dk, dv, O. mask:
 // contiguous f32 (mb*mh, 1 or Sq, Sk) for mask_mode 1 or 2, else null.
-// m, l, delta: contiguous f32 (B*H, Sq). D must be 64 or 128. The dropout
-// arguments are the forward's. bf16 q, k, v, dO (and O for dQ) must start
-// on 16 bytes and have strides that are multiples of 8 elements
-// (cudaErrorMisalignedAddress otherwise). `flash_attention_bwd_dq` writes
+// m, l, delta: contiguous f32 (B*H, Sq). D must be 64 or 128. causal: 0,
+// 1 (the diagonal edge), or 2 (the caller folded the edge into a full
+// bias: no edge, and ds = 0 above the diagonal). The dropout arguments
+// are the forward's. q, k, v, dO (and O for dQ) must start on 16 bytes
+// and have strides that are multiples of 16 bytes
+// (cudaErrorMisalignedAddress otherwise); dq, dk and dv rows too, which
+// are written 16 bytes at a time in f32. `flash_attention_bwd_dq` writes
 // dq and delta = rowsum(dO * O), and ignores dk, dv;
 // `flash_attention_bwd_dkv` reads that delta, writes dk and dv and
 // ignores dq and O: it runs after dQ. Each launches on `stream` and

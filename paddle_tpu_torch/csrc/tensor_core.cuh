@@ -231,5 +231,78 @@ __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
   }
 }
 
+// The split A fragments of rows r0 + g and r0 + g + 8, columns 16 kk ..
+// 16 kk + 15, of a swizzled f32 tile, for the slice's two k-steps: step u
+// takes columns 4 t4 + 2u (as k = t4) and 4 t4 + 2u + 1 (as k = t4 + 4),
+// so a row's four columns come in one 16-byte load
+template <int D>
+__device__ __forceinline__ void load_a_f32(uint32_t (&ah)[2][4],
+                                           uint32_t (&al)[2][4],
+                                           const float* tile, int r0,
+                                           int kk, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const float4 x0 = *reinterpret_cast<const float4*>(
+      tile + f32_off<D>(r0 + g, kk * 4 + t4));
+  const float4 x1 = *reinterpret_cast<const float4*>(
+      tile + f32_off<D>(r0 + g + 8, kk * 4 + t4));
+  tf32_split(x0.x, ah[0][0], al[0][0]);
+  tf32_split(x1.x, ah[0][1], al[0][1]);
+  tf32_split(x0.y, ah[0][2], al[0][2]);
+  tf32_split(x1.y, ah[0][3], al[0][3]);
+  tf32_split(x0.z, ah[1][0], al[1][0]);
+  tf32_split(x1.z, ah[1][1], al[1][1]);
+  tf32_split(x0.w, ah[1][2], al[1][2]);
+  tf32_split(x1.w, ah[1][3], al[1][3]);
+}
+
+// The split B fragments where B(k, n) = tile[n0 + n][...] (the tile's
+// rows are B's columns) in load_a_f32's k order: bh[2u] and bh[2u + 1]
+// are b0 and b1 of step u
+template <int D>
+__device__ __forceinline__ void load_b_rows_f32(uint32_t (&bh)[4],
+                                                uint32_t (&bl)[4],
+                                                const float* tile, int n0,
+                                                int kk, int lane) {
+  const float4 x = *reinterpret_cast<const float4*>(
+      tile + f32_off<D>(n0 + (lane >> 2), kk * 4 + (lane & 3)));
+  tf32_split(x.x, bh[0], bl[0]);
+  tf32_split(x.y, bh[1], bl[1]);
+  tf32_split(x.z, bh[2], bl[2]);
+  tf32_split(x.w, bh[3], bl[3]);
+}
+
+// A C tile (16 x 8) as the split A fragment of the next product, k = t4
+// standing for the tile's column 2 t4 and k = t4 + 4 for column 2 t4 + 1
+__device__ __forceinline__ void c_to_a_f32(uint32_t (&ah)[4],
+                                           uint32_t (&al)[4],
+                                           const float (&c)[4]) {
+  tf32_split(c[0], ah[0], al[0]);
+  tf32_split(c[2], ah[1], al[1]);
+  tf32_split(c[1], ah[2], al[2]);
+  tf32_split(c[3], ah[3], al[3]);
+}
+
+// The B fragments, split, for that A: rows k0 + 2 t4 (b0) and k0 + 2 t4 +
+// 1 (b1) of a swizzled f32 tile, at its columns 32 G + 4 g .. 32 G + 4 g
+// + 3, one 16-byte load each; n-tile n takes column 32 G + 4 g + n as its
+// column g, so its C column 2 t4 + c is the product's column 32 G + 8 t4
+// + 4 c + n
+template <int D>
+__device__ __forceinline__ void load_b_cols_f32(uint32_t (&bh)[2][4],
+                                                uint32_t (&bl)[2][4],
+                                                const float* tile, int k0,
+                                                int G, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        tile + f32_off<D>(k0 + 2 * t4 + i, G * 8 + g));
+    tf32_split(x.x, bh[i][0], bl[i][0]);
+    tf32_split(x.y, bh[i][1], bl[i][1]);
+    tf32_split(x.z, bh[i][2], bl[i][2]);
+    tf32_split(x.w, bh[i][3], bl[i][3]);
+  }
+}
+
 }  // namespace tc
 }  // namespace ptk

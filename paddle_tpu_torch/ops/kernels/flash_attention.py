@@ -13,14 +13,20 @@ output 0 (plain sdpa's ``-1e9`` would give a uniform average instead).
 A mask the Pallas module hands to plain sdpa because it cannot tile it
 (key dim 1 where Sk > 1) gets sdpa's semantics on the kernel path: an
 additive one is expanded over the keys, and a bool one, which masks whole
-query rows, zeroes those rows of q (see :func:`_masked_rows`).
+query rows, zeroes those rows of q (see :func:`_masked_rows`). Under
+``causal`` such a mask takes sdpa's causal edge too: ``-1e9`` folded into
+a full bias (:func:`_kernel_mask`), so a row masked everywhere averages
+all Sk keys as sdpa's does.
 
 The kernels run their products on the tensor cores
-(``csrc/tensor_core.cuh``): bf16 on ``mma.sync`` m16n8k16 (the forward,
-dQ and dK/dV), the float32 forward on m16n8k8 in split TF32, which keeps
-float32's accuracy. The float32 dQ and dK/dV stay in full float32 on the
-CUDA cores. The dQ kernel also computes ``delta = rowsum(dO * O)``, which
-dK/dV reads.
+(``csrc/tensor_core.cuh``): bf16 on ``mma.sync`` m16n8k16, float32 on
+m16n8k8 in split TF32, which keeps float32's accuracy (the forward, dQ
+and dK/dV in both). The dQ kernel also computes ``delta = rowsum(dO *
+O)``, which dK/dV reads. They are built for head dims 64 and 128 and for
+float32 and bf16: any other head dim up to 128 is zero-padded to the next
+of the two, and any other float dtype computed in float32 and returned in
+its own, as the reference casts to float32 (:func:`_padded_fwd`,
+:func:`_padded_bwd`). Head dims above 128 raise.
 
 Attention dropout is drawn inside the kernels. The TPU's random bits
 cannot be reproduced, so the keep decision is a counter hash of ``(seed0,
@@ -46,7 +52,12 @@ NAME = "flash_attention_fwd"
 BWD_DQ = "flash_attention_bwd_dq"
 BWD_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+SDPA_NEG = -1e9        # what sdpa writes over masked and forbidden scores
+HEAD_DIMS = (64, 128)  # the kernels' instantiated head dims
+# ``causal`` inside this module: 0 none; 1 the kernels' -1e30 edge; 2 the
+# edge folded into a full bias by :func:`_kernel_mask`, where the backward
+# zeroes ds above the diagonal (sdpa's ``where`` passes no gradient there)
+CAUSAL_IN_BIAS = 2
 
 _DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
                      ctypes.c_uint, ctypes.c_float]
@@ -151,10 +162,8 @@ def _masked_rows(attn_mask, b, h, sq, sk):
     the row's probabilities are uniform and ``where`` passes no gradient
     from it to q or k. A zero row of q gives the same: its scores are all
     0, a constant, and its gradient is cut where q is zeroed. The kernels
-    then run on that q with no bias. Under ``causal`` the two differ: sdpa
-    writes ``-1e9`` over the causally forbidden keys too and averages a
-    masked row over all Sk keys, the kernels over the keys it may see
-    (ROADMAP.md Queue C)."""
+    then run on that q with no bias (under ``causal``, with the bias of
+    :func:`_kernel_mask`)."""
     if attn_mask is None or attn_mask.dtype != torch.bool:
         return None
     dims, sdpa_only = _mask_dims(attn_mask, b, h, sq, sk)
@@ -167,6 +176,39 @@ def _zero_rows(x, rows):
     if rows is None:
         return x
     return torch.where(rows.to(x.device), x, x.new_zeros(()))
+
+
+def _kernel_mask(attn_mask, b, h, sq, sk, causal):
+    """``(cm, rows, causal)`` as the kernels and plain versions take
+    ``attn_mask`` under ``causal``: the canonical mask
+    (:func:`_canon_mask`), the rows to zero (:func:`_masked_rows`) and
+    this module's ``causal`` (0, 1 or :data:`CAUSAL_IN_BIAS`).
+
+    A mask the reference hands to sdpa (key dim 1) meets sdpa's causal
+    edge there: ``-1e9`` written over the forbidden keys by ``where``
+    (``paddle_tpu/ops/nn_ops.py``, ``scaled_dot_product_attention``), so
+    a row masked everywhere averages all Sk keys. Here that edge is folded
+    into a full ``(mb*mh, Sq, Sk)`` bias, ``where(allowed, m, -1e9)`` for
+    an additive mask ``m`` and ``where(allowed & row kept, 0, -1e9)`` for
+    a bool one, and the kernels run without their ``-1e30`` edge; in a row
+    that is not masked a forbidden key gets ``exp(-1e9 - m) = 0``. The
+    backward zeroes ds above the diagonal, where sdpa's ``where`` passes
+    no gradient. Masks that tile keep the kernels' edge."""
+    cm = _canon_mask(attn_mask, b, h, sq, sk)
+    rows = _masked_rows(attn_mask, b, h, sq, sk)
+    if not causal or attn_mask is None:
+        return cm, rows, int(bool(causal))
+    (mb, mh, msq, _), sdpa_only = _mask_dims(attn_mask, b, h, sq, sk)
+    if not sdpa_only:
+        return cm, rows, 1
+    m = attn_mask.detach().reshape(mb, mh, msq, 1)
+    allowed = torch.ones(sq, sk, dtype=torch.bool, device=m.device).tril()
+    if m.dtype == torch.bool:
+        bias = torch.where(allowed & m, 0.0, SDPA_NEG)
+    else:
+        bias = torch.where(allowed, m.to(torch.float32), SDPA_NEG)
+    bias = bias.expand(mb, mh, sq, sk).reshape(mb * mh, sq, sk).contiguous()
+    return (bias, "full", mb, mh), rows, CAUSAL_IN_BIAS
 
 
 def _check(q, k, v):
@@ -190,14 +232,73 @@ def _check_cuda(q, k, v, cm, *others):
         raise ValueError(f"flash_attention: q, k, v and the saved tensors "
                          f"must share one CUDA device, got {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head dim "
-                         f"{HEAD_DIMS}, got {q.shape[3]}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: q, k, v must be float32 or "
-                        f"bfloat16, got {q.dtype}")
     if cm[0] is not None and cm[0].device != q.device:
         raise ValueError("flash_attention: mask on another device than q")
+
+
+def _kernel_head_dim(d):
+    """The instantiated head dim a head dim ``d`` runs at: the least of
+    :data:`HEAD_DIMS` that is not below it. Above 128 it raises: a stated
+    restriction (no model of the repository uses one)."""
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"flash_attention: the kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d}")
+
+
+def _kernel_dtype(dtype):
+    """float32 and bf16 run as they are; any other float dtype runs in
+    float32, as the reference casts every operand to float32."""
+    if dtype in (torch.float32, torch.bfloat16):
+        return dtype
+    if not dtype.is_floating_point:
+        raise TypeError(f"flash_attention: q, k, v must be a float dtype, "
+                        f"got {dtype}")
+    return torch.float32
+
+
+def _to_kernel(t, width, dtype):
+    """``t`` in the kernels' dtype, its head dim zero-padded to ``width``.
+    Zero columns add nothing to q kᵀ, leave O's extra columns 0 and delta
+    as it was, and the dropout hash depends on (bh, row, col) alone: the
+    padded result, sliced back, is the unpadded one."""
+    d = t.shape[-1]
+    if d == width:
+        return t.to(dtype)
+    out = t.new_zeros(t.shape[:-1] + (width,), dtype=dtype)
+    out[..., :d] = t
+    return out
+
+
+def _from_kernel(t, d, dtype):
+    return t[..., :d].to(dtype)
+
+
+def _padded_fwd(fwd, q, k, v, cm, causal, scale, dropout_p, seed):
+    """``fwd`` (a forward on kernel widths: the kernel's launcher, or in
+    the tests a plain version) run on q, k, v padded to the kernels' head
+    dim and cast to their dtype, with the scale of the true head dim;
+    returns ``(out, m, l)``, ``out`` sliced back in q's dtype."""
+    d, dtype = q.shape[3], q.dtype
+    w, kdt = _kernel_head_dim(d), _kernel_dtype(dtype)
+    out, m, l = fwd(*(_to_kernel(t, w, kdt) for t in (q, k, v)), cm, causal,
+                    _scale(scale, d), dropout_p, seed)
+    return _from_kernel(out, d, dtype), m, l
+
+
+def _padded_bwd(bwd, q, k, v, cm, out, m, l, g, causal, scale, dropout_p,
+                seed):
+    """The backward's counterpart of :func:`_padded_fwd`: q, k, v, ``out``
+    and ``g`` padded and cast, the gradients sliced back, each in its
+    input's dtype."""
+    d = q.shape[3]
+    w, kdt = _kernel_head_dim(d), _kernel_dtype(q.dtype)
+    q_, k_, v_, out_, g_ = (_to_kernel(t, w, kdt) for t in (q, k, v, out, g))
+    grads = bwd(q_, k_, v_, cm, out_, m, l, g_, causal, _scale(scale, d),
+                dropout_p, seed)
+    return tuple(_from_kernel(t, d, x.dtype)
+                 for t, x in zip(grads, (q, k, v)))
 
 
 def _scale(scale, d):
@@ -251,7 +352,8 @@ def _plain_keep(keep, seed, b, h, sq, sk, dropout_p, device):
 
 def _plain_scores(q, k, cm, causal, scale):
     """(s, valid): the scaled, masked scores in f32 with -1e30 where the
-    causal mask forbids, and the positions it allows (None: all)."""
+    kernels' causal edge (``causal`` 1) forbids, and the positions it
+    allows (None: all)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
@@ -260,7 +362,7 @@ def _plain_scores(q, k, cm, causal, scale):
     if mode is not None:
         s = s + mask3.reshape(mb, mh, mask3.shape[1], sk)
     valid = None
-    if causal:
+    if causal == 1:
         valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
         s = torch.where(valid, s, NEG_INF)
     return s, valid
@@ -284,12 +386,9 @@ def _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, keep):
             l.reshape(b * h, sq))
 
 
-def _fwd(q, k, v, cm, causal, scale, dropout_p, seed):
-    """The forward on canonical mask ``cm``: the kernel on a CUDA tensor,
-    the plain version on a CPU one."""
-    if q.device.type == "cpu":
-        return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, None)
-    _check_cuda(q, k, v, cm)
+def _fwd_kernel(q, k, v, cm, causal, scale, dropout_p, seed):
+    """The forward kernel's launch on q, k, v of an instantiated head dim
+    and dtype; ``scale`` given."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
@@ -305,12 +404,22 @@ def _fwd(q, k, v, cm, causal, scale, dropout_p, seed):
               None if mask3 is None else mask3.data_ptr(), out.data_ptr(),
               m.data_ptr(), l.data_ptr(), b, h, sq, sk, d,
               *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-              _MODES[mode], mb, mh, float(_scale(scale, d)),
-              int(bool(causal)), int(q.dtype == torch.bfloat16),
+              _MODES[mode], mb, mh, float(scale), int(causal == 1),
+              int(q.dtype == torch.bfloat16),
               *_dropout_args(dropout_p, seed), stream_of(q))
     check(NAME, fn, code)
     count_launch(NAME)
     return out, m, l
+
+
+def _fwd(q, k, v, cm, causal, scale, dropout_p, seed):
+    """The forward on canonical mask ``cm``: the kernel on a CUDA tensor
+    (through :func:`_padded_fwd`), the plain version on a CPU one."""
+    if q.device.type == "cpu":
+        return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, None)
+    _check_cuda(q, k, v, cm)
+    return _padded_fwd(_fwd_kernel, q, k, v, cm, causal, scale, dropout_p,
+                       seed)
 
 
 def flash_attention_fwd_plain(q, k, v, attn_mask=None, causal=False,
@@ -325,26 +434,27 @@ def flash_attention_fwd_plain(q, k, v, attn_mask=None, causal=False,
     0/1) where it is given."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
-    cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
-    return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, keep)
+    cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
+    return _fwd_plain(_zero_rows(q, rows), k, v, cm, causal, scale,
+                      dropout_p, seed, keep)
 
 
 def flash_attention_fwd(q, k, v, attn_mask=None, causal=False, scale=None,
                         dropout_p=0.0, seed=(0, 0)):
     """Flash attention forward over (B, H, S, D). On a CUDA tensor it
-    launches the kernel (head dim 64 or 128, f32 or bf16 q/k/v, any
-    strides with a contiguous head dim, copied first where a bf16 row is
-    off a 16-byte boundary, an f32 mask, dropout at rate
-    ``dropout_p`` from the two 32-bit words of ``seed``); on a CPU tensor
-    it computes :func:`flash_attention_fwd_plain`. Returns ``(out, m,
-    l)`` as the plain version does; the kernel's ``out`` is laid out as
-    (B, Sq, H, D) in memory, so merging the heads back is a view."""
+    launches the kernel (any head dim up to 128 and any float dtype, as
+    :func:`_padded_fwd` takes them, any strides with a contiguous head
+    dim, copied first where a row is off a 16-byte boundary, an f32 mask,
+    dropout at rate ``dropout_p`` from the two 32-bit words of ``seed``);
+    on a CPU tensor it computes :func:`flash_attention_fwd_plain`. Returns
+    ``(out, m, l)`` as the plain version does; the kernel's ``out`` is
+    laid out as (B, Sq, H, D) in memory, so merging the heads back is a
+    view."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
-    cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
-    return _fwd(q, k, v, cm, causal, scale, dropout_p, seed)
+    cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
+    return _fwd(_zero_rows(q, rows), k, v, cm, causal, scale, dropout_p,
+                seed)
 
 
 # -- backward ------------------------------------------------------------------
@@ -368,6 +478,8 @@ def _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed,
         pd = torch.where(kp, p / (1.0 - dropout_p), 0.0)
         dp = torch.where(kp, dp / (1.0 - dropout_p), 0.0)
     ds = p * (dp - delta)
+    if causal == CAUSAL_IN_BIAS:
+        ds = ds.tril()
     dq = torch.matmul(ds, k.float()) * s_
     dk = torch.matmul(ds.transpose(-1, -2), q.float() * s_)
     dv = torch.matmul(pd.transpose(-1, -2), do)
@@ -375,18 +487,21 @@ def _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed,
 
 
 def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
-    """The CUDA backward up to its launches: checks, the gradients' and
-    delta's storage and the C arguments. Returns ``(dq, dk, dv, launch)``;
-    ``launch(name)`` launches the kernel ``BWD_DQ`` (fills dq, and ``delta
-    = rowsum(g * out)`` for its rows, which the Pallas module computes
-    outside its kernels) or ``BWD_DKV`` (fills dk and dv from that delta,
-    so it runs after ``BWD_DQ``) and counts it."""
+    """The CUDA backward up to its launches, on q, k, v of an instantiated
+    head dim and dtype (``causal`` 0, 1 or :data:`CAUSAL_IN_BIAS`):
+    checks, the gradients' and delta's storage and the C arguments.
+    Returns ``(dq, dk, dv, launch)``; ``launch(name)`` launches the kernel
+    ``BWD_DQ`` (fills dq, and ``delta = rowsum(g * out)`` for its rows,
+    which the Pallas module computes outside its kernels) or ``BWD_DKV``
+    (fills dk and dv from that delta, so it runs after ``BWD_DQ``) and
+    counts it."""
     _check_cuda(q, k, v, cm, out, m, l, g)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
     q, k, v, g, out = (_kernel_operand(t.to(q.dtype))
                        for t in (q, k, v, g, out))
+    causal = int(causal)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     m, l = m.contiguous(), l.contiguous()
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
@@ -396,7 +511,7 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
         *_strides(q), *_strides(k), *_strides(v), *_strides(g),
         *_strides(dq), *_strides(dk), *_strides(dv), *_strides(out))
     dims = (b, h, sq, sk, d, strides, _MODES[mode], mb, mh,
-            float(_scale(scale, d)), int(bool(causal)),
+            float(_scale(scale, d)), causal,
             int(q.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed))
 
     def launch(name):
@@ -418,12 +533,10 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
     return dq, dk, dv, launch
 
 
-def _bwd(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
-    """The backward on canonical mask ``cm``: the dQ and dK/dV kernels on a
-    CUDA tensor, the plain version on a CPU one."""
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale,
-                          dropout_p, seed, None)
+def _bwd_kernels(q, k, v, cm, out, m, l, g, causal, scale, dropout_p,
+                 seed):
+    """The dQ and dK/dV launches on tensors of an instantiated head dim
+    and dtype."""
     dq, dk, dv, launch = _bwd_setup(q, k, v, cm, out, m, l, g, causal,
                                     scale, dropout_p, seed)
     if q.shape[0] * q.shape[1] * q.shape[2] == 0:
@@ -431,6 +544,17 @@ def _bwd(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
     launch(BWD_DQ)
     launch(BWD_DKV)
     return dq, dk, dv
+
+
+def _bwd(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
+    """The backward on canonical mask ``cm``: the dQ and dK/dV kernels on a
+    CUDA tensor (through :func:`_padded_bwd`), the plain version on a CPU
+    one."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, cm, out, m, l, g, causal, scale,
+                          dropout_p, seed, None)
+    return _padded_bwd(_bwd_kernels, q, k, v, cm, out, m, l, g, causal,
+                       scale, dropout_p, seed)
 
 
 def flash_attention_bwd_plain(q, k, v, attn_mask, out, m, l, g,
@@ -443,8 +567,7 @@ def flash_attention_bwd_plain(q, k, v, attn_mask, out, m, l, g,
     ``seed`` and ``keep`` as in :func:`flash_attention_fwd_plain`."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
-    cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    rows = _masked_rows(attn_mask, b, h, sq, k.shape[2])
+    cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
     dq, dk, dv = _bwd_plain(_zero_rows(q, rows), k, v, cm, out, m, l, g,
                             causal, scale, dropout_p, seed, keep)
     return _zero_rows(dq, rows), dk, dv
@@ -460,8 +583,7 @@ def flash_attention_bwd(q, k, v, attn_mask, out, m, l, g, causal=False,
     no gradient."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
-    cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    rows = _masked_rows(attn_mask, b, h, sq, k.shape[2])
+    cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
     dq, dk, dv = _bwd(_zero_rows(q, rows), k, v, cm, out, m, l, g, causal,
                       scale, dropout_p, seed)
     return _zero_rows(dq, rows), dk, dv
@@ -510,8 +632,8 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, scale=None,
         raise ValueError(f"flash_attention: dropout_p must be in [0, 1), "
                          f"got {dropout_p}")
     seed = prandom.next_seed_pair() if p_drop > 0.0 else (0, 0)
-    cm = _canon_mask(attn_mask, b, h, sq, k.shape[2])
-    q = _zero_rows(q, _masked_rows(attn_mask, b, h, sq, k.shape[2]))
+    cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
+    q = _zero_rows(q, rows)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, *cm, causal, scale,

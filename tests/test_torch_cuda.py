@@ -131,12 +131,88 @@ def test_flash_attention_dropout_in_training_raises(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_attention_rejects_other_head_dims(cuda_device):
-    q = torch.zeros(1, 1, 8, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention_fwd(q, q, q)
-    h = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        FA.flash_attention_fwd(h, h, h)
+    """Head dims above 128 are a stated restriction; integer inputs are
+    not attention."""
+    for d in (129, 192):
+        q = torch.zeros(1, 1, 8, d, device=cuda_device)
+        with pytest.raises(ValueError, match="head dims up to 128"):
+            FA.flash_attention_fwd(q, q, q)
+    i = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=torch.int32)
+    with pytest.raises(TypeError, match="float dtype"):
+        FA.flash_attention_fwd(i, i, i)
+
+
+# other head dims run zero-padded to 64 or 128, other float dtypes in
+# float32; float16's tolerance is one float16 step (2^-10 relative) above
+# float32's, as bf16's is one bf16 step
+PADDED_CASES = [(8, "float32"), (16, "float32"), (32, "float32"),
+                (96, "float32"), (16, "bfloat16"), (96, "bfloat16"),
+                (64, "float16"), (16, "float16")]
+PADDED_TOL = {**TOL, torch.float16: 2e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dtype", PADDED_CASES)
+def test_flash_kernels_take_other_head_dims_and_float16(cuda_device, d,
+                                                        dtype, causal):
+    dt = getattr(torch, dtype)
+    b, h, s = 2, 3, 70
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v, do = torch.randn(4, b, h, s, d, device=cuda_device,
+                              generator=g).to(dt)
+    mask = torch.where(torch.rand(b, 1, 1, s, device=cuda_device,
+                                  generator=g) < 0.3, -1e9, 0.0)
+    kw = dict(causal=causal, dropout_p=0.1, seed=(d, 3))
+    before = dict(kernels.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, mask, **kw)
+    grads = FA.flash_attention_bwd(q, k, v, mask, out, m, l, do, **kw)
+    torch.cuda.synchronize()
+    for name in (FA.NAME, FA.BWD_DQ, FA.BWD_DKV):
+        assert kernels.launches[name] == before[name] + 1
+    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, mask, **kw)
+    ref = FA.flash_attention_bwd_plain(q, k, v, mask, out, m, l, do, **kw)
+    assert _scaled_err(m, m0) <= 1e-4 and _scaled_err(l, l0) <= 1e-4
+    for got, want in zip((out, *grads), (out0, *ref)):
+        assert got.dtype == dt and got.shape == want.shape
+        assert _scaled_err(got, want) <= PADDED_TOL[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+def test_flash_kernels_fold_sdpa_causal_edge_for_row_masks(cuda_device,
+                                                           kind, dtype):
+    """A (B, 1, Sq, 1) mask, which the reference hands to sdpa, under
+    causal: sdpa's -1e9 edge folded into a full bias, so a row masked
+    everywhere is the average of all Sk keys; every output matches the
+    plain versions."""
+    dt = getattr(torch, dtype)
+    b, h, s, d = 2, 3, 70, 64
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v, do = torch.randn(4, b, h, s, d, device=cuda_device,
+                              generator=g).to(dt)
+    if kind == "bool":
+        mask = torch.ones(b, 1, s, 1, dtype=torch.bool, device=cuda_device)
+        mask[1, 0, 3, 0] = False
+    else:
+        mask = torch.randn(b, 1, s, 1, device=cuda_device, generator=g)
+        mask[1, 0, 3, 0] = -1e9
+    before = dict(kernels.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, mask, causal=True)
+    grads = FA.flash_attention_bwd(q, k, v, mask, out, m, l, do,
+                                   causal=True)
+    torch.cuda.synchronize()
+    for name in (FA.NAME, FA.BWD_DQ, FA.BWD_DKV):
+        assert kernels.launches[name] == before[name] + 1
+    want = [FA.flash_attention_fwd_plain(q, k, v, mask, causal=True)[0]]
+    want += FA.flash_attention_bwd_plain(q, k, v, mask, out, m, l, do,
+                                         causal=True)
+    for got, ref in zip([out, *grads], want):
+        assert _scaled_err(got, ref) <= TOL[dt]
+    torch.testing.assert_close(out[1, :, 3].float(),
+                               v[1].float().mean(dim=1), rtol=TOL[dt],
+                               atol=TOL[dt])
 
 
 @pytest.mark.cuda

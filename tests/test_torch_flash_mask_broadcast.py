@@ -16,10 +16,10 @@ Tolerance: float32 atol and rtol 2e-5, as in ``test_torch_kernels_bwd.py``
 (products summed in another order). Dropout is 0.
 
 Under ``causal`` a row masked everywhere (a bool row, or ``-1e9`` added
-over it) is the one place the two differ: sdpa writes ``-1e9`` over the
-causally forbidden keys too, so such a row averages all Sk keys; the
-port's causal edge is ``-1e30``, so it averages the keys the row may see
-(ROADMAP.md Queue C). A test shows it.
+over it) averages all Sk keys in sdpa, which writes ``-1e9`` over the
+causally forbidden keys too; the port folds that edge into a full bias
+for these masks and zeroes ds above the diagonal, and a test holds every
+row of it to the reference.
 """
 import jax
 import jax.numpy as jnp
@@ -121,22 +121,22 @@ def test_sdpa_only_mask_matches_reference(kind, causal, route):
 
 
 @pytest.mark.parametrize("kind", ["b1q1_bool_row", "bhq1_additive_row"])
-def test_masked_row_under_causal_averages_the_visible_keys(kind):
-    """The documented difference: under causal, sdpa averages a row masked
-    everywhere over all Sk keys, the port over the row's visible keys
-    0..i. Every other row agrees."""
+def test_masked_row_under_causal_matches_reference(kind):
+    """Under causal, a row masked everywhere is sdpa's average over all Sk
+    keys, in the port as in the reference, by both routes; every row,
+    output and gradient agrees."""
     q, k, v, g, mask = _inputs(kind)
-    want = _reference(q, k, v, g, mask, True)[0]
-    got = _port_autograd(q, k, v, g, mask, True)[0]
+    want = _reference(q, k, v, g, mask, True)
     b, i = MASKED_ROW
-    np.testing.assert_allclose(want[b, :, i], v[b].mean(axis=1), **TOL)
-    np.testing.assert_allclose(got[b, :, i], v[b, :, :i + 1].mean(axis=1),
-                               **TOL)
-    assert np.abs(got[b, :, i] - want[b, :, i]).max() > 1e-2
-    other = np.ones((B, S), bool)
-    other[b, i] = False
-    np.testing.assert_allclose(got.transpose(0, 2, 1, 3)[other],
-                               want.transpose(0, 2, 1, 3)[other], **TOL)
+    np.testing.assert_allclose(want[0][b, :, i], v[b].mean(axis=1), **TOL)
+    for run in (_port_autograd, _port_explicit):
+        kernels.reset_launches()
+        got = run(q, k, v, g, mask, True)
+        assert sum(kernels.launches.values()) == 0   # the plain versions
+        for name, a, r in zip(("out", "dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a, r, err_msg=name, **TOL)
+        if "bool" in kind:
+            assert not got[1][b, :, i].any()
 
 
 @pytest.mark.parametrize("shape", [(3, 1, 1, 1), (2, 1, 5, 1),

@@ -1,8 +1,8 @@
 """What the port may and may not depend on.
 
-``paddle_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and never
-``jax`` or the JAX package ``paddle_tpu`` (not even its JAX-free modules);
-the port's path calls no library attention or normalisation kernel
+``paddle_tpu_torch``, ``chip_smoke.py`` and ``bench_flash.py`` import
+``torch`` and never ``jax`` or the JAX package ``paddle_tpu`` (not even
+its JAX-free modules); the port's path calls no library attention or normalisation kernel
 (convolution and pooling, which are outside any kernel of the reference,
 are PyTorch's); and its entry points target the CUDA card unless the
 caller asks for the CPU.
@@ -18,7 +18,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "bench_flash.py"]
 
 
 def _forbidden(name):
