@@ -14,9 +14,15 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    with each kernel instance's count of tensor-core (HMMA) instructions
    from ``cuobjdump -sass``: the flash forward, dQ and dK/dV kernels, bf16
    and float32 (split TF32), on the tensor cores must have some, and no
-   spill at head dim 64.
+   spill at head dim 64; the layer-norm instances that run D = 768 with
+   16-byte accesses (forward f32, bf16 and bf16 with an f32 weight;
+   backward f32 and bf16 with an f32 weight) must spill nothing and load
+   x by 128-bit global loads (``LDG.E.128``, counted per instance).
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the shapes the serving path gives it (flash attention also
+   card, at the shapes the serving path gives it (layer norm also at the
+   training step's (8192, 768), and at rows the 16-byte instances do not
+   take, D = 770 and a view one element into its buffer, and at rows
+   wider than a warp holds, D = 9000 and 16384; flash attention also
    causal at S = 512, a full bias, S = 200, 77 queries over 200 keys, and
    head dim 128 causal with dropout, in bf16; head dims 16 and 96, which
    run zero-padded, in float32 and bf16; float16 through the float32
@@ -41,7 +47,8 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    layer-norm and 12 flash-attention launches per executed batch.
 4. serving bf16: the same requests through ``Config().enable_bf16()``,
    held against the f32 card outputs.
-5. training kernels: the layer-norm backward kernel, the flash forward
+5. training kernels: the layer-norm backward kernel (also at phase 2's
+   other layer-norm rows), the flash forward
    kernel with in-kernel dropout (and its kept fraction), and the flash
    dQ and dK/dV kernels, each against its plain version on the card at
    the training path's shapes, in bf16 and float32 (and causal, unaligned
@@ -229,6 +236,10 @@ FLASH_OTHER = (
     ("row_bool_causal", "bfloat16", 4, 12, 128, 64, "row_bool", True),
     ("row_additive_causal", "bfloat16", 4, 12, 128, 64, "row_additive",
      True))
+# layer-norm rows beyond the path's width, (n, d, offset): D = 770 and a
+# view one element into its buffer take the one-element-a-lane instances,
+# D = 9000 and 16384 the block-per-row instances
+LN_OTHER = ((8192, 770, 0), (8192, 768, 1), (512, 9000, 0), (512, 16384, 0))
 TIMED_ITERS = 50             # launches per timed run (median of 5 runs)
 XENT_ITERS = 20              # the same for the (8192, 30522) loss kernels
 ADAM_ITERS = 10              # the same for the whole-model Adam cases
@@ -371,6 +382,14 @@ TENSOR_CORE_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tc<128>",
 NO_SPILL_KERNELS = ("flash_fwd_tc<64>", "flash_fwd_tf32<64>",
                     "flash_bwd_dq_tc<64>", "flash_bwd_dkv_tc<64, false>",
                     "flash_bwd_dq_tf32<64>", "flash_bwd_dkv_tf32<64>")
+# the layer-norm instances the path runs at D = 768 with 16-byte accesses
+# (x's dtype, the weight's, elements an access, chunks a lane): no spill,
+# and 128-bit global loads
+LN_VECTOR_KERNELS = ("ln_fwd_warp<float, float, 4, 6>",
+                     "ln_fwd_warp<bf16, bf16, 8, 3>",
+                     "ln_fwd_warp<bf16, float, 8, 3>",
+                     "ln_bwd_warp<float, float, 4, 6>",
+                     "ln_bwd_warp<bf16, float, 8, 3>")
 
 
 def demangle(names, tool_dir):
@@ -394,8 +413,9 @@ def demangle(names, tool_dir):
 
 def build_report(kernels, logs):
     """Per kernel instance: registers and spill bytes from ``-Xptxas
-    -v``, and its tensor-core (HMMA) instructions in ``cuobjdump -sass``
-    of the built library (the toolkit's copy beside nvcc)."""
+    -v``, and its tensor-core (HMMA) instructions and 128-bit global loads
+    (``ldg128``) in ``cuobjdump -sass`` of the built library (the
+    toolkit's copy beside nvcc)."""
     tool_dir = Path(kernels._nvcc()).parent
     info = {}
     for log in logs.values():
@@ -422,9 +442,11 @@ def build_report(kernels, logs):
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 fn = m.group(1)
-                info.setdefault(fn, {})["hmma"] = 0
+                info.setdefault(fn, {}).update(hmma=0, ldg128=0)
             elif fn and "HMMA" in ln:
                 info[fn]["hmma"] += 1
+            elif fn and re.search(r"LDG\.E[.\w]*\.128", ln):
+                info[fn]["ldg128"] += 1
     names = demangle(sorted(info), tool_dir)
     report = {names[n]: v for n, v in info.items()}
 
@@ -447,19 +469,28 @@ def build_report(kernels, logs):
         check(entry(name).get("spill_bytes") == 0,
               f"{name}: ptxas reports {entry(name).get('spill_bytes')} "
               f"spill bytes")
+    for name in LN_VECTOR_KERNELS:
+        rec = report.get(name, {})
+        check(rec.get("spill_bytes") == 0 and rec.get("ldg128", 0) > 0,
+              f"{name}: want no spill and 128-bit global loads, the build "
+              f"has {rec or 'no such instance'}")
     return report
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
-def layer_norm_case(torch, LN, dtype, n, d, iters, gen):
+def layer_norm_case(torch, LN, dtype, n, d, iters, gen, offset=0):
+    """The forward kernel at (n, d), x a view ``offset`` elements into its
+    buffer."""
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
     eps = 1e-12
     set_bytes = n * d * es * 2
     sets = []
     for _ in range(n_sets(set_bytes)):
-        x = (torch.randn(n, d, device="cuda", generator=gen) * 3 + 1).to(dt)
+        x = offset_rows((torch.randn(n * d + offset, device="cuda",
+                                     generator=gen) * 3 + 1).to(dt),
+                        n, d, offset)
         w = (torch.rand(d, device="cuda", generator=gen) + 0.5).to(dt)
         b = torch.randn(d, device="cuda", generator=gen).to(dt)
         sets.append((x, w, b))
@@ -470,10 +501,12 @@ def layer_norm_case(torch, LN, dtype, n, d, iters, gen):
     err = max(scaled_err(y, y0), scaled_err(mu, mu0),
               scaled_err(rstd, rstd0))
     rec = dict(phase="kernel", name="layer_norm_fwd", dtype=dtype,
-               shape=[n, d], eps=eps, max_abs_err=abs_err(y, y0),
+               shape=[n, d], offset=offset, eps=eps,
+               max_abs_err=abs_err(y, y0),
                max_scaled_err=err, tol=KERNEL_TOL[dtype])
     check(err <= KERNEL_TOL[dtype],
-          f"layer_norm_fwd {dtype} {n}x{d}: error {err} > tolerance")
+          f"layer_norm_fwd {dtype} {n}x{d}+{offset}: error {err} > "
+          f"tolerance")
     F = torch.nn.functional
     rec.update(timings(
         torch, lambda *a: LN.layer_norm_fwd(*a, eps),
@@ -486,6 +519,12 @@ def layer_norm_case(torch, LN, dtype, n, d, iters, gen):
     rec["bytes"] = nbytes
     emit(rec)
     return rec
+
+
+def offset_rows(flat, n, d, offset):
+    """(n, d) rows of ``flat`` from element ``offset``: contiguous, but
+    16-byte aligned only at offset 0."""
+    return flat[offset:offset + n * d].view(n, d)
 
 
 def causal_pairs(sq, sk):
@@ -576,18 +615,22 @@ def check_masked_rows(label, mask_kind, out, v):
 
 # -- phase 5: the training kernels against their plain versions --------------
 
-def layer_norm_bwd_case(torch, LN, dtype, n, d, iters, gen):
+def layer_norm_bwd_case(torch, LN, dtype, n, d, iters, gen, offset=0):
     """The backward kernel at (n, d), x and g in ``dtype`` and the weight
-    f32, as on the training path."""
+    f32, as on the training path; x and g views ``offset`` elements into
+    their buffers."""
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
     eps = 1e-12
     sets = []
     for _ in range(n_sets(3 * n * d * es)):
-        x = (torch.randn(n, d, device="cuda", generator=gen) * 3 + 1).to(dt)
+        x = offset_rows((torch.randn(n * d + offset, device="cuda",
+                                     generator=gen) * 3 + 1).to(dt),
+                        n, d, offset)
         w = torch.rand(d, device="cuda", generator=gen) + 0.5
         b = torch.randn(d, device="cuda", generator=gen)
-        g = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+        g = offset_rows(torch.randn(n * d + offset, device="cuda",
+                                    generator=gen).to(dt), n, d, offset)
         _, mu, rstd = LN.layer_norm_fwd(x, w, b, eps)
         sets.append((x, w, mu, rstd, g, b))
     x, w, mu, rstd, g, b = sets[0]
@@ -599,11 +642,12 @@ def layer_norm_bwd_case(torch, LN, dtype, n, d, iters, gen):
     for a, r in zip(got[1:], ref[1:]):
         err = max(err, abs_err(a, r) / max(1.0, r.abs().max().item()))
     rec = dict(phase="train_kernel", name="layer_norm_bwd", dtype=dtype,
-               shape=[n, d], max_abs_err=max(abs_err(a, r)
-                                             for a, r in zip(got, ref)),
+               shape=[n, d], offset=offset,
+               max_abs_err=max(abs_err(a, r) for a, r in zip(got, ref)),
                max_scaled_err=err, tol=KERNEL_TOL[dtype])
     check(err <= KERNEL_TOL[dtype],
-          f"layer_norm_bwd {dtype} {n}x{d}: error {err} > tolerance")
+          f"layer_norm_bwd {dtype} {n}x{d}+{offset}: error {err} > "
+          f"tolerance")
     check(all(torch.equal(a, c) for a, c in
               zip(got, LN.layer_norm_bwd(x, w, mu, rstd, g))),
           "layer_norm_bwd: two runs differ (the reduction must be "
@@ -1679,8 +1723,11 @@ def main(argv=None):
     # 2. kernels against their plain versions, at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     warm_card(torch)
-    ln = [layer_norm_case(torch, LN, dt, 4096, 768, TIMED_ITERS, gen)
-          for dt in ("float32", "bfloat16")]
+    ln = [layer_norm_case(torch, LN, dt, n, 768, TIMED_ITERS, gen)
+          for n in (4096, 8192) for dt in ("float32", "bfloat16")]
+    for n, d, offset in LN_OTHER:
+        for dt in ("float32", "bfloat16"):
+            layer_norm_case(torch, LN, dt, n, d, TIMED_ITERS, gen, offset)
     fa = [flash_case(torch, FA, *c, TIMED_ITERS, gen) for c in (
         ("bert_s128", "float32", 32, 12, 128, 64, "key", False),
         ("bert_s128", "bfloat16", 32, 12, 128, 64, "key", False),
@@ -1742,6 +1789,10 @@ def main(argv=None):
     # 5. the training kernels against their plain versions
     lnb = [layer_norm_bwd_case(torch, LN, dt, 8192, 768, TIMED_ITERS, gen)
            for dt in ("float32", "bfloat16")]
+    for n, d, offset in LN_OTHER:
+        for dt in ("float32", "bfloat16"):
+            layer_norm_bwd_case(torch, LN, dt, n, d, TIMED_ITERS, gen,
+                                offset)
     flash_case(torch, FA, "bert_s128_dropout", "bfloat16", 64, 12, 128, 64,
                "key", False, TIMED_ITERS, gen, dropout_p=DROPOUT_P,
                phase="train_kernel")

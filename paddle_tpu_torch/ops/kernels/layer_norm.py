@@ -22,17 +22,31 @@ from . import check, count_launch, device_index, function, stream_of
 
 NAME = "layer_norm_fwd"
 BWD_NAME = "layer_norm_bwd"
-#: the backward kernel's limits: rows per block (one partial row of dw
-#: and db each) and the widest row it takes
-BWD_ROWS_PER_BLOCK = 16
-BWD_MAX_D = 8192
+#: the partial rows of dw and db the backward kernel may write (at most
+#: one a block; ``MAX_PARTS`` in ``csrc/layer_norm_bwd.cu``)
+BWD_MAX_PARTS = 1024
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
-    ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def vector_width(x2, *others):
+    """The elements a lane moves in one access in the kernels' instance for
+    rows ``x2`` (N, D) and the ``others`` they read or write beside it:
+    ``16 // x2.element_size()`` (one 16-byte access: 4 float32 or 8 bf16)
+    where D is a multiple of that and every tensor's pointer is 16-byte
+    aligned, else 1. A contiguous view at an offset (a slice, or
+    ``reshape`` of one) keeps its offset, so it can take the scalar
+    instance."""
+    v = 16 // x2.element_size()
+    if x2.shape[-1] % v == 0 and all(t.data_ptr() % 16 == 0
+                                     for t in (x2, *others)):
+        return v
+    return 1
 
 
 def layer_norm_fwd_plain(x2, w, b, eps):
@@ -90,7 +104,8 @@ def layer_norm_fwd(x2, w, b, eps):
     code = fn(device_index(x2), x2.data_ptr(), w.data_ptr(), b.data_ptr(),
               y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), n, d,
               float(eps), int(x2.dtype == torch.bfloat16),
-              int(w.dtype == torch.bfloat16), stream_of(x2))
+              int(w.dtype == torch.bfloat16), vector_width(x2, w, b, y),
+              stream_of(x2))
     check(NAME, fn, code)
     count_launch(NAME)
     return y, mu, rstd
@@ -115,8 +130,8 @@ def layer_norm_bwd(x2, w, mu, rstd, g):
     """Layer norm's gradients for ``x2`` (N, D), weight ``w`` (D,), the
     forward's ``mu`` and ``rstd`` (N, 1) f32, and the output gradient
     ``g`` (N, D). On a CUDA tensor it launches the backward kernel (f32 or
-    bf16, D up to 8192): ``dx`` per row, then ``dw`` and ``db`` summed
-    over per-block partials in a fixed order (deterministic). On a CPU
+    bf16, any D): ``dx`` per row, then ``dw`` and ``db`` summed over
+    per-block partials in a fixed order (deterministic). On a CPU
     tensor it computes :func:`layer_norm_bwd_plain`. Returns ``(dx, dw,
     db)`` as the plain version does."""
     if x2.dim() != 2 or g.shape != x2.shape:
@@ -141,9 +156,6 @@ def layer_norm_bwd(x2, w, mu, rstd, g):
             or rstd.dtype != torch.float32:
         raise TypeError("layer_norm_bwd: g must have x's dtype, mu and rstd "
                         "float32")
-    if d > BWD_MAX_D:
-        raise ValueError(f"layer_norm_bwd: the kernel takes rows of up to "
-                         f"{BWD_MAX_D}, got {d}")
     x2, w, g = x2.contiguous(), w.contiguous(), g.contiguous()
     mu, rstd = mu.contiguous(), rstd.contiguous()
     dx = torch.empty_like(x2)
@@ -151,14 +163,15 @@ def layer_norm_bwd(x2, w, mu, rstd, g):
     db = torch.empty_like(w)
     if n == 0 or d == 0:
         return dx, dw.zero_(), db.zero_()
-    nparts = -(-n // BWD_ROWS_PER_BLOCK)
-    part = torch.empty((nparts, 2, d), dtype=torch.float32, device=x2.device)
+    part = torch.empty((min(n, BWD_MAX_PARTS), 2, d), dtype=torch.float32,
+                       device=x2.device)
     fn = function(BWD_NAME, _BWD_ARGTYPES)
     code = fn(device_index(x2), x2.data_ptr(), w.data_ptr(), mu.data_ptr(),
               rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
               db.data_ptr(), part.data_ptr(), n, d,
               int(x2.dtype == torch.bfloat16),
-              int(w.dtype == torch.bfloat16), stream_of(x2))
+              int(w.dtype == torch.bfloat16),
+              vector_width(x2, w, g, dx, part), stream_of(x2))
     check(BWD_NAME, fn, code)
     count_launch(BWD_NAME)
     return dx, dw, db

@@ -52,7 +52,7 @@ def _scaled_err(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,d", [(37, 96), (4096, 768), (8, 5000),
-                                 (3, 9000)])
+                                 (3, 9000), (2, 16384)])
 def test_layer_norm_kernel_matches_plain(cuda_device, n, d, dtype):
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(n + d)
@@ -307,13 +307,63 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, n, d, dtype,
     assert torch.equal(dx, dx1)
 
 
+def _ln_rows(dev, n, d, dtype, offset, gen):
+    """(n, d) rows ``offset`` elements into their buffer: packed, but off
+    16 bytes unless offset is 0."""
+    flat = torch.randn(n * d + offset, device=dev, generator=gen)
+    return flat.to(getattr(torch, dtype))[offset:].view(n, d)
+
+
+def _ln_bwd_matches_plain(x, w, mu, rstd, gy):
+    """The backward kernel against its plain version (dw and db to the
+    tolerance scaled by the sums' size), and a second run bit-equal."""
+    got = LN.layer_norm_bwd(x, w, mu, rstd, gy)
+    torch.cuda.synchronize()
+    ref = LN.layer_norm_bwd_plain(x, w, mu, rstd, gy)
+    assert _scaled_err(got[0], ref[0]) <= TOL[x.dtype]
+    for a, r in zip(got[1:], ref[1:]):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= TOL[w.dtype] * max(1.0, r.float().abs().max().item())
+    again = LN.layer_norm_bwd(x, w, mu, rstd, gy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
-def test_layer_norm_bwd_rejects_wide_rows(cuda_device):
-    x = torch.zeros(2, 9000, device=cuda_device)
-    w = torch.ones(9000, device=cuda_device)
-    mu = torch.zeros(2, 1, device=cuda_device)
-    with pytest.raises(ValueError, match="8192"):
-        LN.layer_norm_bwd(x, w, mu, mu, x)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [9000, 16384])
+def test_layer_norm_bwd_takes_wide_rows(cuda_device, d, dtype):
+    """Rows of any width: above 1024 a block a row, re-reading the row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = _ln_rows(cuda_device, 3, d, dtype, 0, gen) * 3 + 1
+    w = torch.rand(d, device=cuda_device, generator=gen) + 0.5
+    b = torch.randn(d, device=cuda_device, generator=gen)
+    gy = _ln_rows(cuda_device, 3, d, dtype, 0, gen)
+    _, mu, rstd = LN.layer_norm_fwd(x, w, b, 1e-12)
+    before = kernels.launches["layer_norm_bwd"]
+    _ln_bwd_matches_plain(x, w, mu, rstd, gy)
+    assert kernels.launches["layer_norm_bwd"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,offset", [(64, 770, 0), (300, 768, 1),
+                                        (5, 9000, 1), (4, 16384, 1)])
+def test_layer_norm_kernels_take_unaligned_rows(cuda_device, n, d, offset,
+                                                dtype):
+    """Odd D and views off 16 bytes take the one-element-a-lane instances;
+    both kernels against their plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d + offset)
+    x = _ln_rows(cuda_device, n, d, dtype, offset, gen)
+    gy = _ln_rows(cuda_device, n, d, dtype, offset, gen)
+    assert LN.vector_width(x, gy) == 1
+    w = torch.rand(d, device=cuda_device, generator=gen) + 0.5
+    b = torch.randn(d, device=cuda_device, generator=gen)
+    y, mu, rstd = LN.layer_norm_fwd(x, w, b, 1e-12)
+    torch.cuda.synchronize()
+    y0, mu0, rstd0 = LN.layer_norm_fwd_plain(x, w, b, 1e-12)
+    assert _scaled_err(y, y0) <= TOL[x.dtype]
+    assert max(_scaled_err(mu, mu0), _scaled_err(rstd, rstd0)) <= 1e-4
+    _ln_bwd_matches_plain(x, w, mu, rstd, gy)
 
 
 @pytest.mark.cuda
