@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BERT-base serving and training paths and its
-ResNet-50 training path on one CUDA card.
+"""Drive the PyTorch port's BERT-base serving and training paths, its
+ResNet-50 training path and its generative serving on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -124,7 +124,26 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    off, batch 8, 224x224, NHWC, batch-norm kernels on) on the card and on
    the CPU from the same weights: the loss, every gradient, and every
    parameter and running statistic after the Momentum step.
-13. the ``kernels`` line (all 14), the card's name and power limit, and
+13. generative serving: kernel #3 in float32, causal, at the prefill's
+   shapes (1, 4, S, 64) for S = 1, 4, 16, 128, 256 and 512, and (1, 2, 16, 8)
+   zero-padded, against its plain version and timed as in phase 2; then
+   ``tools/decode_loadgen``'s traffic (96 requests from its seed) through
+   ``GenerateEngine(demo_model(vocab=64, dim=256, heads=4, layers=2,
+   seed=1), slots=8, page=32, max_len=96, prompt_buckets=(4, 16))`` with
+   ``refill="continuous"`` and ``"drain"``, greedy and sampled
+   (temperature 1, top-k 20, top-p 0.9, seed 1000 + i): every request
+   complete with its token count, no signature met after ``warmup()``,
+   the flash kernel launched once a layer a prefill and nothing else, and
+   each discipline's streams equal to the other's; the first 8 requests
+   again on the CPU with the same weights, the card's logits along the
+   CPU's greedy streams within 1e-4 scaled at every position and the
+   tokens equal wherever the CPU's top-2 margin exceeds that; 16 prompts
+   of 200-448 tokens through an engine at max_len 512 (prefill at 256 and
+   512, the arena grown to 512), one prompt of each bucket again on the
+   CPU and held to it as above, with one prefill's device time; and 10
+   decode ticks on the host clock, then 10 under ``torch.profiler``,
+   greedy and sampled: wall time a tick against the card's busy time.
+14. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -1666,6 +1685,214 @@ def resnet_f32_step_check(np, seed):
     return rec
 
 
+# -- phase 13: generative serving ---------------------------------------------
+
+# the decode load generator's model and engine (scripts/decode_loadgen.py:433
+# and :138-141): vocab 64, width 256, 4 heads (head dim 64), 2 layers,
+# float32, seeded weights; 8 lanes, pages of 32 doubling to max_len 96
+# (tools/decode_loadgen's PAGE and FACTOR), prompt buckets (4, 16); its
+# workload of 96 requests (:66-81)
+GEN_MODEL = dict(vocab=64, dim=256, heads=4, layers=2, seed=1)
+GEN_SLOTS, GEN_MAX_LEN = 8, 96
+GEN_PROMPT_BUCKETS = (4, 16)
+GEN_REQUESTS = 96
+GEN_SAMPLING = {"temperature": 1.0, "top_k": 20, "top_p": 0.9}
+GEN_SEED_BASE = 1000             # request i samples with seed 1000 + i
+GEN_CPU_PROMPTS = 8              # requests replayed on the CPU
+# the card's logits against the CPU's along the CPU's greedy streams, as
+# |diff| / max(1, |cpu|): two layers of float32 products summed in another
+# order, and the prefill's attention in split TF32
+GEN_CPU_TOL = 1e-4
+# long prompts: one engine at max_len 512 over the capacity family, 16
+# requests of 200-448 prompt tokens and 32 new ones (prefill at 256, 512)
+LONG_REQUESTS, LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 16, (200, 448), 32, 512
+# kernel #3 at the prefill's shapes: one prompt, 4 heads of 64, float32
+# causal, queries from one token to 512 (the loadgen's buckets 4 and 16,
+# the long prompts' 256 and 512)
+PREFILL_LENGTHS = (1, 4, 16, 128, 256, 512)
+
+
+def serve_generate(np, smi, model, workload, mode, sampling, label,
+                   max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS):
+    """The workload through ``tools/decode_loadgen``'s ``run_load`` (a
+    warmed ``GenerateEngine`` fed by ``submit``): every request must come
+    back with its token count, the traffic meet no signature that warmup
+    did not, and launch the flash kernel once a layer a prefill and no
+    other kernel (the launch counts are zeroed after warmup and read when
+    the last request is back)."""
+    from paddle_tpu_torch.tools.decode_loadgen import run_load
+    r = run_load(model, mode, workload, GEN_SLOTS, max_len, prompt_buckets,
+                 sampling=sampling,
+                 seed_base=GEN_SEED_BASE if sampling else None)
+    outs = [[int(t) for t in o] for o in r.pop("outputs")]
+    check(r["failed"] == 0 and [len(o) for o in outs] ==
+          [n for _, n in workload], f"generate {label}: a request did not "
+                                    f"complete with its token count")
+    check(all(0 <= t < model.vocab for o in outs for t in o),
+          f"generate {label}: a token outside the vocabulary")
+    check(r["post_warmup_signatures"] == 0,
+          f"generate {label}: traffic met {r['post_warmup_signatures']} "
+          f"signatures warmup did not")
+    want = {"flash_attention_fwd": model.layers * r["prefills"]}
+    check(r["prefills"] == len(workload) and r["launches"] == want,
+          f"generate {label}: launches {r['launches']}, want {want} "
+          f"({model.layers} a prefill, none a decode tick)")
+    r.update(phase="generate", case=label, card=smi, sampling=sampling)
+    emit(r)
+    return r, outs
+
+
+def held_to_cpu(np, cpu, model, workload, cpu_outs, card_outs):
+    """The card's logits along the CPU's greedy streams, teacher-forced,
+    against the CPU's: the largest scaled difference, the positions whose
+    CPU top-2 margin exceeds the tolerance, and for each request whether
+    the card's tokens equal the CPU's at every such position (its own
+    free-running stream up to the first position within the margin)."""
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    errs, sure_n, agree = [], 0, []
+    for (prompt, _), want, got in zip(workload, cpu_outs, card_outs):
+        ref = teacher_forced_logits(cpu, prompt, want)
+        card = teacher_forced_logits(model, prompt, want)
+        scale = np.maximum(1.0, np.abs(ref))
+        errs.append(float((np.abs(card - ref) / scale).max()))
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        sure = (top2[:, 1] - top2[:, 0]) > GEN_CPU_TOL * scale.max(axis=-1)
+        sure_n += int(sure.sum())
+        first = len(want) if sure.all() else int(np.argmin(sure))
+        agree.append(got[:first] == want[:first] and bool(
+            (np.argmax(card, axis=-1)[sure] == np.asarray(want)[sure]).all()))
+    return max(errs), sure_n, agree
+
+
+def generate_phase(np, torch, FA, smi, seed, gen):
+    """Phase 13: kernel #3 at the prefill's shapes, the decode load
+    generator's traffic in both refill disciplines, greedy and sampled,
+    the card against the CPU, and long prompts."""
+    from paddle_tpu_torch.io.bucketing import grow_buckets
+    from paddle_tpu_torch.serving import demo_model
+    from paddle_tpu_torch.serving.kv_cache import bytes_per_token
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    from paddle_tpu_torch.tools.decode_loadgen import (
+        make_workload, profile_decode, run_load)
+    t0 = time.perf_counter()
+    fa = [flash_case(torch, FA, f"prefill_s{s}", "float32", 1, 4, s, 64,
+                     None, True, TIMED_ITERS, gen, phase="generate_kernel")
+          for s in PREFILL_LENGTHS]
+    fa.append(flash_case(torch, FA, "prefill_head_dim_8", "float32", 1, 2,
+                         16, 8, None, True, TIMED_ITERS, gen,
+                         phase="generate_kernel"))
+
+    # the main path: each run zeroes the counts after its warmup and reads
+    # them when its last request is back
+    model = demo_model(**GEN_MODEL)
+    check(model.device.type == "cuda" and model.head_dim == 64,
+          f"the model is on {model.device}, head dim {model.head_dim}")
+    wl = make_workload(GEN_REQUESTS, GEN_PROMPT_BUCKETS, GEN_MAX_LEN,
+                       seed=seed)
+    runs, outs = {}, {}
+    for sampling in (None, GEN_SAMPLING):
+        kind = "sampled" if sampling else "greedy"
+        for mode in ("continuous", "drain"):
+            runs[kind, mode], outs[kind, mode] = serve_generate(
+                np, smi, model, wl, mode, sampling, f"{kind}_{mode}")
+        check(outs[kind, "continuous"] == outs[kind, "drain"],
+              f"generate {kind}: continuous and drain streams differ")
+    check(outs["sampled", "drain"] != outs["greedy", "drain"],
+          "generate: sampled streams equal the greedy ones")
+
+    # the card against the CPU, with the same weights, teacher-forced
+    cpu = demo_model(**GEN_MODEL, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    cpu_outs = [[int(t) for t in o] for o in run_load(
+        cpu, "continuous", wl[:GEN_CPU_PROMPTS], GEN_SLOTS, GEN_MAX_LEN,
+        GEN_PROMPT_BUCKETS)["outputs"]]
+    err, sure_n, agree = held_to_cpu(np, cpu, model, wl, cpu_outs,
+                                     outs["greedy", "continuous"])
+    rec = dict(phase="generate_vs_cpu", requests=GEN_CPU_PROMPTS,
+               positions=sum(len(o) for o in cpu_outs),
+               positions_beyond_margin=sure_n, max_scaled_err=err,
+               tol=GEN_CPU_TOL, tokens_agree=agree,
+               streams_equal=[a == b for a, b in
+                              zip(cpu_outs, outs["greedy", "continuous"])])
+    emit(rec)
+    check(err <= GEN_CPU_TOL,
+          f"generate: card vs CPU logits differ by {err}")
+    check(all(agree), f"generate: card and CPU tokens differ beyond the "
+                      f"margin: {agree}")
+
+    # long prompts over the capacity family
+    rng = np.random.RandomState(seed + 1)
+    long_wl = [(rng.randint(1, 31, size=int(rng.randint(
+        LONG_PROMPT[0], LONG_PROMPT[1] + 1))).tolist(), LONG_NEW)
+        for _ in range(LONG_REQUESTS)]
+    family = grow_buckets(LG.PAGE, LG.FACTOR, LONG_MAX_LEN)
+    long_run, long_outs = serve_generate(np, smi, model, long_wl,
+                                         "continuous", None, "long_prompts",
+                                         max_len=LONG_MAX_LEN,
+                                         prompt_buckets=family)
+    check(long_run["pool_bytes"] == GEN_SLOTS * LONG_MAX_LEN *
+          bytes_per_token(model.kv_spec()),
+          f"generate long prompts: the arena did not reach {LONG_MAX_LEN}")
+    # the first prompt of each of the buckets 256 and 512 again on the
+    # CPU, the card's logits held to the CPU's as above
+    picks = [next((i for i, (p, _) in enumerate(long_wl)
+                   if lo < len(p) <= hi), None)
+             for lo, hi in ((128, 256), (256, 512))]
+    check(None not in picks, f"generate long prompts: no prompt for the "
+                             f"buckets 256 and 512 ({picks})")
+    picked = [long_wl[i] for i in picks]
+    long_cpu = [[int(t) for t in o] for o in run_load(
+        cpu, "continuous", picked, GEN_SLOTS, LONG_MAX_LEN,
+        family)["outputs"]]
+    err, sure_n, agree = held_to_cpu(np, cpu, model, picked, long_cpu,
+                                     [long_outs[i] for i in picks])
+    emit(dict(phase="generate_long_vs_cpu",
+              prompt_lengths=[len(p) for p, _ in picked],
+              positions=sum(len(o) for o in long_cpu),
+              positions_beyond_margin=sure_n, max_scaled_err=err,
+              tol=GEN_CPU_TOL, tokens_agree=agree))
+    check(err <= GEN_CPU_TOL,
+          f"generate long prompts: card vs CPU logits differ by {err}")
+    check(all(agree), f"generate long prompts: card and CPU tokens differ "
+                      f"beyond the margin: {agree}")
+    # one prefill's device time (a CUDA graph of prefill_fn) and eager time
+    prefill = {}
+    for s in (256, 512):
+        toks = [(torch.randint(1, 31, (1, s), device="cuda", generator=gen),
+                 torch.tensor([s], device="cuda")) for _ in range(4)]
+
+        def run(t, n):
+            with torch.no_grad():
+                return model.prefill_fn(model.state, t, n)
+
+        prefill[s] = dict(ms=graph_ms(torch, run, toks, 10),
+                          call_ms=time_ms(torch, run, toks, 10))
+    emit(dict(phase="generate_prefill", card=smi, layers=model.layers,
+              prefill=prefill))
+
+    ticks = [profile_decode(model, wl, GEN_SLOTS, GEN_MAX_LEN,
+                            GEN_PROMPT_BUCKETS, sampling=sampling)
+             for sampling in (None, GEN_SAMPLING)]
+    for t in ticks:
+        emit(dict(t, phase="generate_tick", card=smi))
+    c, d = runs["greedy", "continuous"], runs["greedy", "drain"]
+    cs, ds = runs["sampled", "continuous"], runs["sampled", "drain"]
+    summary = dict(
+        phase="generate_summary", card=smi,
+        greedy_tokens_per_s=[c["tokens_per_s"], d["tokens_per_s"]],
+        greedy_speedup_x=c["tokens_per_s"] / d["tokens_per_s"],
+        sampled_tokens_per_s=[cs["tokens_per_s"], ds["tokens_per_s"]],
+        sampled_speedup_x=cs["tokens_per_s"] / ds["tokens_per_s"],
+        long_tokens_per_s=long_run["tokens_per_s"],
+        prefill_ms={s: v["ms"] for s, v in prefill.items()},
+        tick_ms=[t["tick_ms"] for t in ticks],
+        tick_busy_ms=[t["busy_ms_per_tick"] for t in ticks],
+        tick_idle_share=[t["idle_share"] for t in ticks],
+        seconds=time.perf_counter() - t0)
+    emit(summary)
+    return dict(kernel=fa, runs=runs, long=long_run, ticks=ticks)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -1888,7 +2115,11 @@ def main(argv=None):
     finally:
         kernels.configure(batch_norm=None)
 
-    # 13. the kernels line, the card, and the verdict
+    # 13. generative serving
+    torch.cuda.empty_cache()
+    generate_phase(np, torch, FA, smi, args.seed, gen)
+
+    # 14. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

@@ -7,6 +7,7 @@ machine without one raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _current = None
@@ -47,3 +48,18 @@ def resolve(device=None):
             "available; pass device='cpu' to run on the CPU")
     return dev
 
+
+
+def to_device(array, device, dtype=None):
+    """A host array as a tensor on ``device`` (in ``dtype`` where given).
+    To a CUDA card the copy leaves from pinned memory without blocking, so
+    the host does not wait for the work queued before it, as a copy from
+    pageable memory would make it wait; on the CPU the tensor shares the
+    array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

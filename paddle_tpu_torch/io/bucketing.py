@@ -1,9 +1,9 @@
 """paddle_tpu_torch.io.bucketing — pad ragged batches up to a closed set of
 sizes, and slice them back.
 
-Counterpart of ``next_bucket``, ``pad_to_bucket``, ``unpad`` and
-``split_rows`` in ``paddle_tpu/io/bucketing.py``, on numpy arrays and
-``torch.Tensor`` alike. Padding repeats the last real row by default
+Counterpart of ``next_bucket``, ``grow_buckets``, ``pad_to_bucket``,
+``unpad`` and ``split_rows`` in ``paddle_tpu/io/bucketing.py``, on numpy
+arrays and ``torch.Tensor`` alike. Padding repeats the last real row by default
 (``mode="zeros"`` zero-fills). On the card a fixed set of batch shapes
 means the warmed-up shapes are the only ones traffic meets.
 """
@@ -28,6 +28,31 @@ def next_bucket(n, buckets=None):
     while b < n:
         b <<= 1
     return b
+
+
+def grow_buckets(base, factor=2.0, cap=None):
+    """A geometric family of sequence-length buckets: ``base``, then each
+    next ``ceil(prev * factor)`` (strictly increasing), up to the first
+    bucket >= ``cap``. A tuple, so the family is a stable, hashable key:
+    the KV-cache pool's capacity moves only along it, and every shape it
+    can take is known before traffic arrives."""
+    base = int(base)
+    if base < 1:
+        raise ValueError(f"grow_buckets: base must be >= 1, got {base}")
+    factor = float(factor)
+    if factor <= 1.0:
+        raise ValueError(
+            f"grow_buckets: factor must be > 1, got {factor}")
+    if cap is None:
+        raise ValueError("grow_buckets: cap is required")
+    cap = int(cap)
+    if cap < base:
+        raise ValueError(
+            f"grow_buckets: cap {cap} is below base {base}")
+    out = [base]
+    while out[-1] < cap:
+        out.append(max(int(np.ceil(out[-1] * factor)), out[-1] + 1))
+    return tuple(out)
 
 
 def pad_to_bucket(array, target, axis=0, mode="repeat"):

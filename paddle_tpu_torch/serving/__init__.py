@@ -9,15 +9,27 @@ Counterpart of ``paddle_tpu/serving`` for this slice:
   ``submit()`` / ``run()`` / ``warmup()`` over one ``Predictor``
 * :mod:`~paddle_tpu_torch.serving.admission` — the shed ladder,
   deadlines dropped at dequeue, and failure triage
+* :mod:`~paddle_tpu_torch.serving.generate`  — :class:`GenerateEngine`,
+  continuous-batching autoregressive decode, and the reference decode
+  model :class:`DemoLM` (:func:`demo_model`)
+* :mod:`~paddle_tpu_torch.serving.kv_cache`  — :class:`KVCachePool`, the
+  fixed-slot KV arena on a closed capacity family
+* :mod:`~paddle_tpu_torch.serving.sampling`  — :class:`SamplingParams`,
+  the top-k / top-p filter and counter-keyed Gumbel-max draws
 
-Metrics, request tracing, the monitor's spans, fault injection and the
-multi-replica fleet are not ported yet (see ROADMAP.md).
+Metrics, request tracing, the monitor's spans, fault injection, the
+multi-replica fleet, speculative decoding and disaggregated serving are
+not ported yet (see ROADMAP.md).
 """
 from .admission import (AdmissionController, DeadlineExpired, PRIORITIES,
                         QueueFullError, ShedError)
 from .batcher import DynamicBatcher, Request
 from .engine import ServingEngine
+from .generate import DecodeRequest, DemoLM, GenerateEngine, demo_model
+from .kv_cache import KVCachePool
+from .sampling import SamplingParams
 
 __all__ = ["AdmissionController", "DeadlineExpired", "PRIORITIES",
            "QueueFullError", "ShedError", "DynamicBatcher", "Request",
-           "ServingEngine"]
+           "ServingEngine", "DecodeRequest", "DemoLM", "GenerateEngine",
+           "demo_model", "KVCachePool", "SamplingParams"]

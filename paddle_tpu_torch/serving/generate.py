@@ -1,0 +1,860 @@
+"""paddle_tpu_torch.serving.generate — continuous-batching autoregressive
+decode, and the reference decode model :class:`DemoLM`.
+
+Counterpart of ``paddle_tpu/serving/generate.py``'s ``GenerateEngine``
+and ``DemoLM``. A request is a sequence that holds a decode lane for as
+many steps as it generates, and sequences join and leave mid-flight:
+
+* a fixed-width batch of ``slots`` lanes advances every live sequence one
+  token a tick, in one decode step over the KV arena
+  (:class:`~paddle_tpu_torch.serving.kv_cache.KVCachePool`);
+* a finished sequence frees its lane at once (host bookkeeping), and a
+  queued request takes it at the next tick (``refill="continuous"``), or
+  only once every lane is free (``refill="drain"``, the run-to-completion
+  baseline the load generator measures against, on the same steps);
+* prefill is its own step per prompt bucket: the prompt runs through the
+  model with causal flash attention (kernel #3 on the card), its K/V rows
+  are written into the lane's arena rows, and its last logits give the
+  first token.
+
+Shapes come from closed families, so that warmup meets every one before
+traffic: one decode step per arena capacity, one prefill per prompt
+bucket, one insert per (bucket, capacity), one grow per step of the page
+schedule. The decode step always runs ``slots`` rows, whatever the
+occupancy: a row's logits then depend on its own inputs and the arena's
+capacity, never on the other rows, and the sampled streams, whose random
+draws are keyed by ``(seed, generation index)``
+(:mod:`~paddle_tpu_torch.serving.sampling`), come out the same under
+either refill discipline and any admission order.
+
+A tick synchronises with the card once, to read the next tokens; a
+prefill once, to read the first token. Lane state (lengths, last
+tokens, sampling knobs) lives on the host and goes to the device as a
+few small tensors a tick.
+
+Not ported (ROADMAP.md Queue A item 17): speculative decoding
+(``draft_model=``, ``verify_fn``), KV segments carried between engines
+(``kv_import=True``, a request's ``preset``), the fleet
+(``MultiDecodeEngine``) and the supervision surface (heartbeat, probe,
+failover hand-offs: item 2), and the metrics, request traces and monitor
+spans (item 1). Where the reference takes an argument for one of them,
+this engine raises ``NotImplementedError``.
+
+The model contract (duck-typed; :class:`DemoLM` implements it)::
+
+    model.state        # {name: tensor} on the model's device
+    model.vocab        # int
+    model.device       # torch.device the state lives on
+    model.kv_spec()    # {leaf: (tail_shape, dtype)} per cached token
+    model.prefill_fn(state, tokens[B, L], lengths[B])
+        -> (kv {leaf: [B, L, *tail]}, last_logits[B, V])
+    model.decode_fn(state, tokens[S], kv {leaf: [S, cap, *tail]},
+                    lengths[S])
+        -> (logits[S, V], entry {leaf: [S, *tail]})
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import itertools
+import math
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from ..io.bucketing import next_bucket
+from ..ops.kernels.flash_attention import flash_attention
+from ..resilience.deadline import Deadline
+from . import sampling as sampling_mod
+from .admission import AdmissionController, resolve_priority
+from .kv_cache import KVCachePool
+
+_seed_counter = itertools.count(1)
+_NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 17)"
+
+
+def _fresh_seed():
+    """Engine-assigned per-request seed (sampled requests that passed
+    none): unique per process and submit order, and recorded on the
+    request."""
+    return (os.getpid() * 2654435761 + next(_seed_counter)) & 0x7FFFFFFF
+
+
+class DecodeRequest:
+    """One sequence in flight: a prompt, a generation budget, and a future
+    resolving to the generated token ids (``np.int32``, EOS included when
+    hit). The first resolution wins."""
+
+    __slots__ = ("prompt", "max_new_tokens", "eos_token", "future",
+                 "deadline", "priority", "sampling", "preset")
+
+    def __init__(self, prompt, max_new_tokens, eos_token=None,
+                 deadline=None, priority=1, sampling=None):
+        self.prompt = prompt                    # 1-D int32 host array
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token = eos_token
+        # resolved SamplingParams with a concrete seed
+        self.sampling = (sampling if sampling is not None
+                         else sampling_mod.SamplingParams(seed=0))
+        self.future = concurrent.futures.Future()
+        self.deadline = deadline
+        self.priority = int(priority)
+        # the reference's KV segment for a sequence that arrives with its
+        # history (disaggregated hand-off): not ported, refused at seating
+        self.preset = None
+
+    def resolve_result(self, value):
+        try:
+            self.future.set_result(value)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+    def resolve_exception(self, exc):
+        try:
+            self.future.set_exception(exc)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+
+class _Slot:
+    """Host-side state of one decode-batch lane."""
+
+    __slots__ = ("req", "length", "tokens", "last_token")
+
+    def __init__(self):
+        self.req = None          # DecodeRequest occupying the lane
+        self.length = 0          # tokens resident in the KV arena
+        self.tokens = None       # generated so far (list of int)
+        self.last_token = 0      # next decode input
+
+
+def _signature(*tensors):
+    return tuple((tuple(t.shape), str(t.dtype)) for t in tensors)
+
+
+class GenerateEngine:
+    """Continuous-batching decode over one model.
+
+    Parameters
+    ----------
+    model : the decode-model contract above (see :func:`demo_model`); the
+        engine runs on ``model.device``.
+    slots : decode batch width, sequences served concurrently.
+    page / factor / max_len : the KV arena's capacity schedule
+        (``grow_buckets(page, factor, max_len)``); ``max_len``, and the
+        model's own ``max_len`` where it has one, cap prompt + generated
+        tokens per sequence (``seq_limit``).
+    prompt_buckets : prefill length buckets (default: the capacity
+        family), within ``seq_limit``; a prompt longer than the largest
+        is rejected at submit.
+    queue_depth / deadline_ms / shed : the admission ladder's knobs, as
+        in ``ServingEngine``.
+    refill : ``"continuous"`` (freed lanes refill at the next tick) or
+        ``"drain"`` (no admission until every lane is free).
+    sampling : engine-default :class:`~paddle_tpu_torch.serving.sampling.
+        SamplingParams` (or dict) for submits that pass none; None is
+        greedy.
+    draft_model, kv_import : the reference's speculative decoding and KV
+        import; not ported, and raise ``NotImplementedError``.
+    start : launch the tick thread now (False: tests call :meth:`tick`).
+    """
+
+    def __init__(self, model, slots=8, page=64, factor=2.0, max_len=512,
+                 prompt_buckets=None, queue_depth=256, deadline_ms=None,
+                 refill="continuous", shed=True, start=True, sampling=None,
+                 draft_model=None, kv_import=False):
+        if draft_model is not None:
+            raise NotImplementedError(f"speculative decoding: {_NOT_PORTED}")
+        if kv_import:
+            raise NotImplementedError(f"kv_import: {_NOT_PORTED}")
+        if refill not in ("continuous", "drain"):
+            raise ValueError(
+                f"refill must be 'continuous' or 'drain', got {refill!r}")
+        self.model = model
+        self.refill = refill
+        self.default_sampling = sampling_mod.resolve(sampling)
+        self.device = torch.device(getattr(model, "device", None)
+                                   or _device.resolve())
+        self.pool = KVCachePool(model.kv_spec(), slots, page=page,
+                                factor=factor, max_len=max_len,
+                                device=self.device)
+        self.slots = self.pool.slots
+        self.max_len = self.pool.max_len
+        # the arena's last bucket may pass the model's position table
+        # (grow_buckets(32, 2.0, 96) ends at 128): a request or a prefill
+        # bucket is bounded by both, since a position past the table
+        # would index out of it
+        model_len = getattr(model, "max_len", None)
+        self.seq_limit = (self.max_len if model_len is None
+                          else min(self.max_len, int(model_len)))
+        pb = tuple(sorted({int(b) for b in (
+            self.pool.seq_buckets if prompt_buckets is None
+            else prompt_buckets)}))
+        if not pb or pb[-1] > self.seq_limit:
+            raise ValueError(
+                f"prompt_buckets {pb} must be non-empty and within "
+                f"max_len={self.max_len} and the model's max_len="
+                f"{model_len}")
+        self.prompt_buckets = pb
+        self.admission = AdmissionController(
+            max_queue_depth=queue_depth, default_deadline_ms=deadline_ms,
+            shed=shed)
+        self.admission.on_event = self._admission_event
+        self._queue = collections.deque()
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._slots = [_Slot() for _ in range(self.slots)]
+        # (kind, *buckets) met so far, and each with its operands'
+        # shapes and dtypes: a new entry in either after warmup is a
+        # signature that traffic met first (a first-call cost on the card)
+        self._exec = set()
+        self._traces = set()
+        self._stats_lock = threading.Lock()
+        self._stats = {"submitted": 0, "completed": 0, "failed": 0,
+                       "rejected": 0, "expired": 0, "shed": 0,
+                       "ticks": 0, "tokens": 0, "prefills": 0,
+                       "prefill_tokens": 0, "compiles": 0, "grows": 0}
+        self._occupancy_sum = 0.0
+        self._running = False
+        self._closed = False
+        self._draining = False
+        self._thread = None
+        if start:
+            self.start()
+
+    # -- client surface ----------------------------------------------------
+
+    def make_request(self, prompt, max_new_tokens=32, eos_token=None,
+                     deadline_ms=None, priority=None, sampling=None,
+                     seed=None):
+        """Validate one submit into a :class:`DecodeRequest` (not yet
+        enqueued). ``sampling`` is None (the engine default), a dict of
+        knobs, or ``SamplingParams``; ``seed`` overrides its seed. A
+        sampled request with no seed gets a fresh one here, recorded on
+        the request."""
+        arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if arr.size < 1:
+            raise ValueError("empty prompt")
+        if arr.size > self.prompt_buckets[-1]:
+            raise ValueError(
+                f"prompt of {arr.size} tokens exceeds the largest prefill "
+                f"bucket {self.prompt_buckets[-1]} — raise max_len / "
+                f"prompt_buckets")
+        m = int(max_new_tokens)
+        if m < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {m}")
+        if arr.size + m > self.seq_limit:
+            raise ValueError(
+                f"prompt {arr.size} + max_new_tokens {m} exceeds "
+                f"{self.seq_limit}: the KV arena's max_len={self.max_len} "
+                f"or the model's max_len")
+        deadline = (Deadline.after_ms(deadline_ms)
+                    if deadline_ms is not None else None)
+        prio = resolve_priority(priority)
+        if sampling is None and seed is None:
+            params = sampling_mod.resolve(self.default_sampling)
+        else:
+            params = sampling_mod.resolve(sampling, seed=seed)
+        if params.seed is None:
+            params.seed = 0 if params.greedy else _fresh_seed()
+        return DecodeRequest(arr, m, eos_token=eos_token, deadline=deadline,
+                             priority=prio, sampling=params)
+
+    def submit_request(self, req):
+        """Admit and enqueue; returns the future. Raises ``ShedError`` /
+        ``QueueFullError`` from the admission ladder."""
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("decode engine is closed")
+            self.admission.admit(req, len(self._queue))
+            self._queue.append(req)
+            self._cond.notify()
+        with self._stats_lock:
+            self._stats["submitted"] += 1
+        return req.future
+
+    def submit(self, prompt, max_new_tokens=32, eos_token=None,
+               deadline_ms=None, priority=None, sampling=None, seed=None):
+        """Enqueue one sequence; the future resolves to the generated token
+        ids (``np.int32``; the first comes from the prefill, an EOS, when
+        given and hit, is included and ends the sequence)."""
+        return self.submit_request(self.make_request(
+            prompt, max_new_tokens=max_new_tokens, eos_token=eos_token,
+            deadline_ms=deadline_ms, priority=priority, sampling=sampling,
+            seed=seed))
+
+    def run(self, prompt, max_new_tokens=32, eos_token=None,
+            deadline_ms=None, timeout=None, priority=None, sampling=None,
+            seed=None):
+        return self.submit(prompt, max_new_tokens=max_new_tokens,
+                           eos_token=eos_token, deadline_ms=deadline_ms,
+                           priority=priority, sampling=sampling,
+                           seed=seed).result(timeout)
+
+    def depth(self):
+        with self._lock:
+            return len(self._queue)
+
+    # -- the steps ---------------------------------------------------------
+
+    def _note(self, key, *tensors):
+        """Record a step's signature; a first meeting counts as a
+        compile, as the reference counts its executables."""
+        if key not in self._exec:
+            self._exec.add(key)
+            with self._stats_lock:
+                self._stats["compiles"] += 1
+        self._traces.add((key, _signature(*tensors)))
+
+    def executables(self):
+        """(signatures met, signatures with their operand shapes and
+        dtypes met): both stay flat after :meth:`warmup` under any
+        join/leave churn."""
+        return len(self._exec), len(self._traces)
+
+    def _sample(self, logits, knobs):
+        """Next tokens from ``logits [n, V]`` under host knobs ``(temps,
+        top_ks, top_ps, seeds, positions)``. A batch with no sampled row
+        is its argmax: what the filter and the Gumbel draw give a greedy
+        row, whatever the noise."""
+        temps, top_ks, top_ps, seeds, positions = knobs
+        if not (temps > 0.0).any():
+            return torch.argmax(logits, dim=-1)
+        filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps)
+        return sampling_mod.sample_from_filtered(filt, seeds, positions)
+
+    def _decode_step(self, bufs, tokens, lengths, active, knobs):
+        """One token for every lane of arena ``bufs`` (written in place at
+        each active lane's ``length``); returns the next tokens on the
+        host. The lane arrays go to the device before any work is queued,
+        so that the tick waits for the card once, for its tokens."""
+        cap = next(iter(bufs.values())).shape[1]
+        tok, ln = _device.to_device(np.stack([tokens, lengths]),
+                                    self.device, torch.int64)
+        rows = _device.to_device(np.flatnonzero(active), self.device)
+        self._note(("decode", cap), tok, ln, *bufs.values())
+        with torch.no_grad():
+            logits, entry = self.model.decode_fn(self.model.state, tok,
+                                                 bufs, ln)
+            nxt = self._sample(logits, knobs)
+            if rows.numel():
+                # the masked write: only the active lanes' rows move
+                pos = ln.clamp(max=cap - 1)[rows]
+                for name, buf in bufs.items():
+                    buf.index_put_((rows, pos), entry[name][rows])
+            return nxt.cpu().numpy()
+
+    def _prefill(self, tokens, length, knobs):
+        """Prompt ingest at one bucket: ``(kv, first token)``."""
+        toks = _device.to_device(tokens, self.device, torch.int64)
+        lens = _device.to_device(np.array([length]), self.device,
+                                 torch.int64)
+        self._note(("prefill", tokens.shape[1]), toks, lens)
+        with torch.no_grad():
+            kv, last = self.model.prefill_fn(self.model.state, toks, lens)
+            first = self._sample(last, knobs)
+            return kv, int(first[0])
+
+    def _insert(self, bufs, chunk, slot):
+        """Write a prefill's ``chunk {leaf: [1, L, *tail]}`` into arena
+        rows ``[slot, :L]``, in place."""
+        lb = next(iter(chunk.values())).shape[1]
+        cap = next(iter(bufs.values())).shape[1]
+        self._note(("insert", lb, cap), *chunk.values(), *bufs.values())
+        for name, buf in bufs.items():
+            buf[slot, :lb].copy_(chunk[name][0])
+
+    def _grow(self, bufs, old, new):
+        """The arena at capacity ``new``: a zero arena with the old rows
+        copied in."""
+        self._note(("grow", old, new), *bufs.values())
+        out = self.pool.zeros(new)
+        for name, buf in bufs.items():
+            out[name][:, :old].copy_(buf)
+        return out
+
+    @staticmethod
+    def _knobs(n, sampled=False):
+        """Host sampling knobs of width ``n``: greedy, or sampled with
+        both filters on (warmup runs both branches)."""
+        temps = np.full((n,), 1.0 if sampled else 0.0, np.float32)
+        top_ks = np.full((n,), 1 if sampled else 0, np.int32)
+        top_ps = np.full((n,), 0.5 if sampled else 1.0, np.float32)
+        return (temps, top_ks, top_ps, np.zeros((n,), np.uint32),
+                np.zeros((n,), np.int32))
+
+    def warmup(self):
+        """Meet every signature the engine can need once: a decode step a
+        capacity (greedy and sampled), an insert per (prompt bucket,
+        capacity) that can co-occur, a grow per consecutive capacity
+        pair, and a prefill a prompt bucket (greedy and sampled), each on
+        zero operands that no request sees. On the card this builds the
+        flash kernel and meets each cuBLAS shape before traffic. Returns
+        the number of signatures met for the first time."""
+        before = len(self._exec)
+        family = self.pool.seq_buckets
+        zeros_i = np.zeros((self.slots,), np.int32)
+        ones_i = np.ones((self.slots,), np.int32)
+        inactive = np.zeros((self.slots,), bool)
+        for cap in family:
+            for sampled in (False, True):
+                self._decode_step(self.pool.zeros(cap), zeros_i, ones_i,
+                                  inactive, self._knobs(self.slots, sampled))
+            for lb in self.prompt_buckets:
+                if lb <= cap:
+                    self._insert(self.pool.zeros(cap),
+                                 self.pool.zeros(lb, rows=1), 0)
+        for old, new in zip(family, family[1:]):
+            self._grow(self.pool.zeros(old), old, new)
+        for lb in self.prompt_buckets:
+            for sampled in (False, True):
+                self._prefill(np.zeros((1, lb), np.int32), 1,
+                              self._knobs(1, sampled))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(self._exec) - before
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self):
+        with self._lock:
+            if self._running or self._closed:
+                return
+            self._running = True
+            self._draining = False
+            self._thread = threading.Thread(
+                target=self._worker, name="paddle_tpu_torch-decode",
+                daemon=True)
+            self._thread.start()
+
+    def close(self, drain=True, timeout=None):
+        """Stop the tick thread. ``drain=True`` keeps ticking until the
+        queue and every lane are empty (bounded join); anything left
+        after the join fails with RuntimeError, so no future is lost."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._running = False
+            self._draining = bool(drain)
+            self._cond.notify_all()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            if timeout is None:
+                timeout = 10.0 if drain else 5.0
+            t.join(timeout)
+        leftovers = []
+        with self._cond:
+            leftovers.extend(self._queue)
+            self._queue.clear()
+            for s, slot in enumerate(self._slots):
+                if slot.req is not None:
+                    leftovers.append(slot.req)
+                    slot.req = None
+                    self.pool.free(s)
+        for r in leftovers:
+            r.resolve_exception(RuntimeError("decode engine closed"))
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _admission_event(self, event):
+        key = {"rejected": "rejected", "expired": "expired",
+               "poisoned": "failed", "shed": "shed"}.get(event)
+        if key is not None:
+            with self._stats_lock:
+                self._stats[key] += 1
+
+    def stats(self):
+        with self._stats_lock:
+            s = dict(self._stats)
+            occ_sum = self._occupancy_sum
+        s["queue_depth"] = self.depth()
+        s["active_slots"] = self.pool.used_slots()
+        s["slots"] = self.slots
+        s["avg_occupancy"] = (occ_sum / s["ticks"]) if s["ticks"] else 0.0
+        s["executables"], s["traces"] = self.executables()
+        s.update({f"pool_{k}": v for k, v in self.pool.stats().items()
+                  if isinstance(v, (int, float))})
+        return s
+
+    # -- the tick loop -----------------------------------------------------
+
+    def _worker(self):
+        while True:
+            if self.tick():
+                continue
+            with self._cond:
+                if not self._running:
+                    if self._draining and (
+                            self._queue or self.pool.used_slots()):
+                        continue    # drain: keep ticking until empty
+                    return
+                if not self._queue and self.pool.used_slots() == 0:
+                    self._cond.wait(0.05)
+
+    def tick(self):
+        """One engine step: admit into free lanes (per the refill
+        discipline), then advance every live sequence one token. Returns
+        whether any work happened."""
+        admitted = self._admit()
+        stepped = self._decode_once()
+        return bool(admitted or stepped)
+
+    # -- admission into lanes ----------------------------------------------
+
+    def _pop_next_locked(self, now):
+        """Highest-priority (then FIFO) unexpired request; expired ones
+        met on the way are returned for resolution outside the lock."""
+        expired = []
+        while self._queue:
+            best_i, best_p = 0, self._queue[0].priority
+            for i, r in enumerate(self._queue):
+                if r.priority < best_p:
+                    best_i, best_p = i, r.priority
+            r = self._queue[best_i]
+            del self._queue[best_i]
+            if self.admission.is_expired(r, now):
+                expired.append(r)
+                continue
+            return r, expired
+        return None, expired
+
+    def _admit(self):
+        if self.refill == "drain" and self.pool.used_slots() != 0:
+            return 0            # run to completion: wait out the wave
+        admitted = 0
+        while self.pool.free_slots() > 0:
+            now = time.monotonic()
+            with self._cond:
+                req, expired = self._pop_next_locked(now)
+            for r in expired:
+                self.admission.expire(r)
+            if req is None:
+                break
+            try:
+                self._prefill_into_slot(req)
+                admitted += 1
+            except BaseException as e:   # noqa: BLE001 - to the future
+                with self._stats_lock:
+                    self._stats["failed"] += 1
+                req.resolve_exception(e)
+        return admitted
+
+    def _ensure_capacity(self, needed_len):
+        target = self.pool.capacity_for(needed_len)
+        while self.pool.capacity < target:
+            old = self.pool.capacity
+            new = next_bucket(old + 1, self.pool.seq_buckets)
+            self.pool.grow_to(new, self._grow)
+            with self._stats_lock:
+                self._stats["grows"] += 1
+
+    def _prefill_into_slot(self, req):
+        """Prompt ingest: the bucketed prefill, its K/V written into a
+        free lane's arena rows, the sequence seated. The first generated
+        token comes from the prefill."""
+        if req.preset is not None:
+            raise NotImplementedError(
+                f"a request carrying a KV segment: {_NOT_PORTED}")
+        p = int(req.prompt.size)
+        bucket = next_bucket(p, self.prompt_buckets)
+        # the arena must hold the prompt, the first decode write (position
+        # p) and the whole insert bucket
+        self._ensure_capacity(max(p + 1, bucket))
+        s = self.pool.alloc()
+        if s is None:
+            raise RuntimeError("no free slot after free_slots() > 0")
+        try:
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :p] = req.prompt
+            sp = req.sampling
+            # generation index 0: the prefill's token
+            kv, first = self._prefill(tokens, p, (
+                np.array([sp.temperature], np.float32),
+                np.array([sp.top_k], np.int32),
+                np.array([sp.top_p], np.float32),
+                np.array([sp.seed or 0], np.uint32),
+                np.zeros((1,), np.int32)))
+            self._insert(self.pool.buffers, kv, s)
+            self.pool.note_length(s, p)
+            with self._stats_lock:
+                self._stats["prefills"] += 1
+                self._stats["prefill_tokens"] += p
+        except BaseException:
+            self.pool.free(s)
+            raise
+        if (req.eos_token is not None and first == req.eos_token) \
+                or req.max_new_tokens == 1:
+            self.pool.free(s)
+            self._complete(req, [first])
+            return
+        slot = self._slots[s]
+        with self._lock:
+            slot.req = req
+            slot.length = p
+            slot.tokens = [first]
+            slot.last_token = first
+
+    # -- the decode tick ---------------------------------------------------
+
+    def _gather_batch(self):
+        """Snapshot the live lanes into the tick's host arrays: tokens,
+        lengths, active, the sampling knobs and each lane's generation
+        index (the counter its random draw is keyed by)."""
+        with self._lock:
+            assigned = [(s, slot.req) for s, slot in enumerate(self._slots)
+                        if slot.req is not None]
+            if not assigned:
+                return None
+            n = self.slots
+            tokens = np.zeros((n,), np.int32)
+            lengths = np.zeros((n,), np.int32)
+            active = np.zeros((n,), bool)
+            temps = np.zeros((n,), np.float32)
+            top_ks = np.zeros((n,), np.int32)
+            top_ps = np.ones((n,), np.float32)
+            seeds = np.zeros((n,), np.uint32)
+            positions = np.zeros((n,), np.int32)
+            max_needed = 0
+            for s, req in assigned:
+                slot = self._slots[s]
+                sp = req.sampling
+                tokens[s] = slot.last_token
+                lengths[s] = slot.length
+                active[s] = True
+                temps[s] = sp.temperature
+                top_ks[s] = sp.top_k
+                top_ps[s] = sp.top_p
+                seeds[s] = sp.seed or 0
+                positions[s] = len(slot.tokens)
+                max_needed = max(max_needed, slot.length + 1)
+        return (assigned, tokens, lengths, active,
+                (temps, top_ks, top_ps, seeds, positions), max_needed)
+
+    def _decode_once(self):
+        batch = self._gather_batch()
+        if batch is None:
+            return False
+        assigned, tokens, lengths, active, knobs, max_needed = batch
+        self._ensure_capacity(max_needed)
+        try:
+            nxt = self._decode_step(self.pool.buffers, tokens, lengths,
+                                    active, knobs)
+        except BaseException as e:   # noqa: BLE001 - fail the wave
+            self._fail_active(assigned, e)
+            return True
+        finished = []
+        with self._lock:
+            n_active = 0
+            for s, req in assigned:
+                slot = self._slots[s]
+                if slot.req is not req:
+                    continue
+                n_active += 1
+                tok = int(nxt[s])
+                slot.length += 1
+                slot.tokens.append(tok)
+                slot.last_token = tok
+                self.pool.note_length(s, slot.length)
+                if (req.eos_token is not None and tok == req.eos_token) \
+                        or len(slot.tokens) >= req.max_new_tokens:
+                    finished.append((req, slot.tokens))
+                    slot.req = None
+                    slot.tokens = None
+                    self.pool.free(s)
+        with self._stats_lock:
+            self._stats["ticks"] += 1
+            self._stats["tokens"] += n_active
+            self._occupancy_sum += n_active / self.slots
+        for req, toks in finished:
+            self._complete(req, toks)
+        return True
+
+    def _fail_active(self, assigned, exc):
+        with self._lock:
+            failed = []
+            for s, req in assigned:
+                slot = self._slots[s]
+                if slot.req is not req:
+                    continue
+                failed.append(req)
+                slot.req = None
+                slot.tokens = None
+                self.pool.free(s)
+        with self._stats_lock:
+            self._stats["failed"] += len(failed)
+        for r in failed:
+            r.resolve_exception(exc)
+
+    def _complete(self, req, tokens):
+        # count before resolving: a stats() read right after result()
+        # must already see this completion
+        with self._stats_lock:
+            self._stats["completed"] += 1
+        req.resolve_result(np.asarray(tokens, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the reference decode model
+
+
+class DemoLM(torch.nn.Module):
+    """A small causal LM that implements the decode-model contract:
+    tied-embedding transformer (RMSNorm, per-layer attention and a ReLU
+    MLP), sinusoidal positions, float32. Prefill attends through
+    :func:`~paddle_tpu_torch.ops.kernels.flash_attention.flash_attention`
+    (causal), which launches kernel #3 on a CUDA tensor; decode attends
+    over the KV arena in plain PyTorch, as the reference's einsums do.
+
+    Its parameters and buffer carry the reference state's names
+    (``embed``, ``pos``, ``wq0`` .. ``w2{L-1}``), so
+    ``convert.load_jax_state(lm, {k: np.asarray(v) for k, v in
+    ref.state.items()})`` carries the reference's weights across. The
+    weights here are drawn from ``torch.Generator().manual_seed(seed)``
+    (other numbers than the reference's threefry draws)."""
+
+    def __init__(self, vocab=64, dim=32, heads=2, layers=2, max_len=512,
+                 seed=0, device=None):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"dim {dim} not divisible by heads {heads}")
+        dev = _device.resolve(device)
+        self.vocab = int(vocab)
+        self.dim = int(dim)
+        self.heads = int(heads)
+        self.head_dim = self.dim // self.heads
+        self.layers = int(layers)
+        self.max_len = int(max_len)
+        gen = torch.Generator().manual_seed(int(seed))
+        scale = 1.0 / math.sqrt(self.dim)
+
+        def weight(*shape):
+            return torch.nn.Parameter(
+                torch.randn(*shape, generator=gen) * scale,
+                requires_grad=False)
+
+        self.embed = weight(self.vocab, self.dim)
+        # sinusoidal positions: deterministic, and identical between
+        # prefill and decode by construction
+        pos = np.arange(self.max_len)[:, None]
+        div = np.exp(np.arange(0, self.dim, 2)
+                     * (-np.log(10000.0) / self.dim))
+        table = np.zeros((self.max_len, self.dim), np.float32)
+        table[:, 0::2] = np.sin(pos * div)
+        table[:, 1::2] = np.cos(pos * div)
+        self.register_buffer("pos", torch.from_numpy(table))
+        for layer in range(self.layers):
+            for name, shape in (("wq", (self.dim, self.dim)),
+                                ("wk", (self.dim, self.dim)),
+                                ("wv", (self.dim, self.dim)),
+                                ("wo", (self.dim, self.dim)),
+                                ("w1", (self.dim, 2 * self.dim)),
+                                ("w2", (2 * self.dim, self.dim))):
+                setattr(self, f"{name}{layer}", weight(*shape))
+        self.to(dev)
+
+    @property
+    def device(self):
+        return self.embed.device
+
+    @property
+    def state(self):
+        """The weights as ``{name: tensor}`` (views of the module's own)."""
+        return dict(self.state_dict())
+
+    def kv_spec(self):
+        tail = (self.heads, self.head_dim)
+        spec = {}
+        for layer in range(self.layers):
+            spec[f"k{layer}"] = (tail, "float32")
+            spec[f"v{layer}"] = (tail, "float32")
+        return spec
+
+    @staticmethod
+    def _norm(x):
+        return x * torch.reciprocal(
+            torch.sqrt(torch.mean(torch.square(x), dim=-1, keepdim=True)
+                       + 1e-6))
+
+    def _mlp(self, state, x, layer):
+        hidden = self._norm(x)
+        return x + torch.relu(hidden @ state[f"w1{layer}"]) \
+            @ state[f"w2{layer}"]
+
+    def prefill_fn(self, state, tokens, lengths):
+        """Full-prompt forward: (B, L) -> K/V chunks ``[B, L, H, Dh]`` and
+        the last real token's logits ``[B, V]``. Causal attention makes
+        end-padding harmless: a real position sees only real ones."""
+        b, seq = tokens.shape
+        h, hd = self.heads, self.head_dim
+        x = state["embed"][tokens] + state["pos"][:seq][None]
+        kv = {}
+        for layer in range(self.layers):
+            hidden = self._norm(x)
+            q = (hidden @ state[f"wq{layer}"]).reshape(b, seq, h, hd)
+            k = (hidden @ state[f"wk{layer}"]).reshape(b, seq, h, hd)
+            v = (hidden @ state[f"wv{layer}"]).reshape(b, seq, h, hd)
+            kv[f"k{layer}"] = k
+            kv[f"v{layer}"] = v
+            # (B, H, L, Dh) views with the head dim contiguous: no copy
+            # before the kernel
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True)
+            out = out.transpose(1, 2).reshape(b, seq, self.dim)
+            x = x + out @ state[f"wo{layer}"]
+            x = self._mlp(state, x, layer)
+        # the logits of the last real token only: the norm and the
+        # projection act row by row
+        last = x[torch.arange(b, device=x.device), lengths - 1]
+        return kv, self._norm(last) @ state["embed"].T
+
+    def decode_fn(self, state, tokens, kv, lengths):
+        """One token per lane against the KV arena: attend over the
+        resident history (masked by live length) plus the incoming
+        token's own K/V, as prefill does at position ``lengths``, and
+        return that token's cache entry."""
+        s = tokens.shape[0]
+        h, hd = self.heads, self.head_dim
+        cap = next(iter(kv.values())).shape[1]
+        inv = 1.0 / math.sqrt(hd)
+        x = state["embed"][tokens] + state["pos"][lengths]
+        entry = {}
+        hist_mask = (torch.arange(cap, device=x.device)[None, None, :]
+                     < lengths[:, None, None])
+        for layer in range(self.layers):
+            hidden = self._norm(x)
+            q = (hidden @ state[f"wq{layer}"]).reshape(s, h, hd)
+            k_new = (hidden @ state[f"wk{layer}"]).reshape(s, h, hd)
+            v_new = (hidden @ state[f"wv{layer}"]).reshape(s, h, hd)
+            entry[f"k{layer}"] = k_new
+            entry[f"v{layer}"] = v_new
+            scores_h = torch.einsum("shd,schd->shc", q,
+                                    kv[f"k{layer}"]) * inv
+            scores_h = torch.where(hist_mask, scores_h, -1e9)
+            score_s = torch.sum(q * k_new, dim=-1, keepdim=True) * inv
+            scores = torch.cat([scores_h, score_s], dim=-1)
+            probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            probs = probs / probs.sum(dim=-1, keepdim=True)
+            out = torch.einsum("shc,schd->shd", probs[..., :cap],
+                               kv[f"v{layer}"]) \
+                + probs[..., cap:] * v_new
+            x = x + out.reshape(s, self.dim) @ state[f"wo{layer}"]
+            x = self._mlp(state, x, layer)
+        return self._norm(x) @ state["embed"].T, entry
+
+
+def demo_model(vocab=64, dim=32, heads=2, layers=2, max_len=512, seed=0,
+               device=None):
+    """The reference decode model for tests, the load generator and the
+    smoke run; on the card unless ``device`` says otherwise."""
+    return DemoLM(vocab=vocab, dim=dim, heads=heads, layers=layers,
+                  max_len=max_len, seed=seed, device=device)

@@ -1,0 +1,293 @@
+"""Closed-loop generative-decode load generator: ``GenerateEngine`` under
+ragged traffic, continuous refill against run-to-completion waves.
+
+Counterpart of ``scripts/decode_loadgen.py``'s ``make_workload`` and
+``run_load``: the same workload from the same seed (prompts of 1 to 16
+tokens across the prefill buckets (4, 16); 85% of requests asking for
+4-8 new tokens and 15% for 64-80), offered all at once to a warmed
+engine over ``demo_model(vocab=64,
+dim=256, heads=4, layers=2, seed=1)`` with ``slots=8, page=32,
+factor=2.0, max_len=96``. It measures tokens/s from the first submit to
+the last completion, ticks, mean lane occupancy, each request's
+completion latency (p50, p99), the signatures traffic met after warmup
+(0 expected) and the port's kernel launches the traffic made. Time to
+first token and time per output token need the request traces, which
+are not ported (ROADMAP.md Queue A item 1).
+
+    python -m paddle_tpu_torch.tools.decode_loadgen [--mode both]
+        [--sampling temperature=1.0,top_k=20,top_p=0.9] [--device cpu]
+        [--profile]
+
+prints one JSON line: each mode's measurement, ``speedup_x`` (continuous
+tokens/s over drain's, the reference's A/B), and the card's name and
+power limit. It runs on the card unless ``--device cpu``; a CPU run's
+times are the CPU's, not the card's. ``--profile`` adds
+:func:`profile_decode`: a decode tick's wall time against its device
+time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# short answers dominate; the long tail is what run-to-completion
+# batching stalls a whole batch on
+SHORT_NEW = (4, 8)       # 85% of requests
+LONG_NEW = (64, 80)      # 15% of requests
+LONG_FRAC = 0.15
+PROMPT_BUCKETS = (4, 16)
+PAGE, FACTOR = 32, 2.0   # the arena's page schedule, as the reference's
+PROFILE_TICKS, PROFILE_TOP = 10, 8
+
+
+def make_workload(n, prompt_buckets, max_len, seed=0):
+    """(prompt tokens, max_new_tokens) per request: ragged prompt lengths
+    across the bucket family, bimodal output lengths; the reference's
+    draws from the same seed."""
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(n):
+        if rng.rand() < LONG_FRAC:
+            new = int(rng.randint(LONG_NEW[0], LONG_NEW[1] + 1))
+        else:
+            new = int(rng.randint(SHORT_NEW[0], SHORT_NEW[1] + 1))
+        hi = min(int(prompt_buckets[-1]), max_len - new)
+        plen = int(rng.randint(1, hi + 1))
+        prompt = rng.randint(1, 31, size=plen).tolist()
+        reqs.append((prompt, new))
+    return reqs
+
+
+def _pct(sorted_vals, q):
+    if not sorted_vals:
+        return None
+    i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
+def run_load(model, mode, workload, slots, max_len, prompt_buckets,
+             sampling=None, seed_base=None):
+    """Drive one warmed engine in ``mode`` over the workload, offered all
+    at once, and return its measurement, with every request's tokens
+    under ``"outputs"``. ``sampling`` (dict or SamplingParams) makes
+    every request sampled, request ``i`` with seed ``seed_base + i``."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import GenerateEngine
+    eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
+                         max_len=max_len, prompt_buckets=prompt_buckets,
+                         queue_depth=len(workload) + 8, refill=mode,
+                         shed=False, start=True)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        n_exec, n_trace = eng.executables()
+        kernels.reset_launches()
+        reqs, t_sub, t_done = [], [], [None] * len(workload)
+        t0 = time.perf_counter()
+        for i, (prompt, new) in enumerate(workload):
+            r = eng.make_request(
+                prompt, max_new_tokens=new, eos_token=None,
+                sampling=sampling,
+                seed=(seed_base + i) if seed_base is not None else None)
+            t_sub.append(time.perf_counter())
+            r.future.add_done_callback(
+                lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            eng.submit_request(r)
+            reqs.append(r)
+        outs = [r.future.result(timeout=600) for r in reqs]
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        stats = eng.stats()
+        n_exec2, n_trace2 = eng.executables()
+    finally:
+        eng.close()
+    lat = sorted((d - s) * 1e3 for s, d in zip(t_sub, t_done))
+    tokens = int(sum(len(o) for o in outs))
+    return {
+        "mode": mode,
+        "device": str(eng.device),
+        "requests": len(workload),
+        "tokens": tokens,
+        "wall_s": wall_s,
+        "tokens_per_s": tokens / wall_s,
+        "batch_occupancy": stats["avg_occupancy"],
+        "ticks": stats["ticks"],
+        "prefills": stats["prefills"],
+        "latency_p50_ms": _pct(lat, 0.50),
+        "latency_p99_ms": _pct(lat, 0.99),
+        "warmup_s": warmup_s,
+        "executables": n_exec2,
+        "post_warmup_signatures": (n_exec2 - n_exec) + (n_trace2 - n_trace),
+        "pool_bytes": stats["pool_cache_bytes"],
+        "grows": stats["grows"],
+        "failed": stats["failed"],
+        "launches": launches,
+        "outputs": outs,
+    }
+
+
+def teacher_forced_logits(model, prompt, tokens):
+    """The logits ``model`` gives at every generated position when fed
+    ``tokens`` (another run's stream) after ``prompt``: row 0 from the
+    prefill, row ``i`` from the decode step whose input is ``tokens[i -
+    1]``; ``[len(tokens), V]`` on the host. Comparing two devices'
+    logits this way holds every position, where comparing free-running
+    greedy streams stops at the first near-tie that rounds apart."""
+    dev = model.device
+    state = model.state
+    p = len(prompt)
+    cap = p + len(tokens)
+    with torch.no_grad():
+        toks = torch.tensor([list(prompt)], dtype=torch.int64, device=dev)
+        kv, last = model.prefill_fn(state, toks,
+                                    torch.tensor([p], device=dev))
+        arena = {name: torch.zeros((1, cap) + tuple(c.shape[2:]),
+                                   dtype=c.dtype, device=dev)
+                 for name, c in kv.items()}
+        for name, c in kv.items():
+            arena[name][0, :p] = c[0]
+        rows = [last[0]]
+        for i, tok in enumerate(tokens[:-1]):
+            ln = torch.tensor([p + i], device=dev)
+            logits, entry = model.decode_fn(
+                state, torch.tensor([int(tok)], device=dev), arena, ln)
+            for name, e in entry.items():
+                arena[name][0, p + i] = e[0]
+            rows.append(logits[0])
+        return torch.stack(rows).cpu().numpy()
+
+
+def profile_decode(model, workload, slots, max_len, prompt_buckets,
+                   sampling=None):
+    """Where a decode tick's time goes on the card: ``slots`` requests of
+    ``workload`` (each asking for the whole arena) are seated and two
+    ticks run to warm; then :data:`PROFILE_TICKS` ticks are timed on the
+    host clock (each ends by reading its tokens back) and as many more
+    under ``torch.profiler``. Returns the wall time a tick, the card's
+    busy time a tick (its kernels' and copies' device time, profiled), the
+    idle share (1 - busy / wall), the profiled wall time a tick, launches
+    a tick and the kernels that took the most device time."""
+    from paddle_tpu_torch.serving import GenerateEngine
+    ticks = PROFILE_TICKS
+    eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
+                         max_len=max_len, prompt_buckets=prompt_buckets,
+                         start=False, shed=False)
+    try:
+        eng.warmup()
+        for i, (prompt, _new) in enumerate(workload[:slots]):
+            eng.submit(prompt, max_new_tokens=max_len - len(prompt),
+                       sampling=sampling, seed=i if sampling else None)
+        eng.tick()
+        eng.tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        wall = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.tick()
+            torch.cuda.synchronize()
+            wall_profiled = time.perf_counter() - t0
+    finally:
+        eng.close(drain=False)
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = names.get(e.name, (0.0, 0))
+            names[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in names.values()) / ticks
+    tick_ms = wall * 1e3 / ticks
+    return {
+        "sampled": sampling is not None,
+        "ticks": ticks,
+        "tick_ms": tick_ms,
+        "busy_ms_per_tick": busy,
+        "idle_share": 1.0 - busy / tick_ms,
+        "profiled_tick_ms": wall_profiled * 1e3 / ticks,
+        "launches_per_tick": sum(n for _, n in names.values()) / ticks,
+        "top_kernels": [[name[:100], ms / ticks, n // ticks] for name, (ms, n)
+                        in sorted(names.items(), key=lambda kv: -kv[1][0])
+                        [:PROFILE_TOP]],
+    }
+
+
+def nvidia_smi():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _parse_sampling(text):
+    out = {}
+    for kv in text.split(","):
+        k, _, v = kv.partition("=")
+        out[k.strip()] = int(v) if k.strip() == "top_k" else float(v)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=96)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", choices=["both", "continuous", "drain"],
+                    default="both")
+    ap.add_argument("--sampling", default=None,
+                    help="comma key=value SamplingParams, e.g. "
+                         "temperature=1.0,top_k=20,top_p=0.9")
+    ap.add_argument("--seed-base", type=int, default=1000,
+                    help="request i samples with seed seed-base + i")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the card)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also time a decode tick on the host clock and "
+                         "under torch.profiler (the card only)")
+    args = ap.parse_args(argv)
+    if args.profile and args.device == "cpu":
+        ap.error("--profile reads the card's device time; drop --device cpu")
+
+    from paddle_tpu_torch.serving import demo_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sampling = _parse_sampling(args.sampling) if args.sampling else None
+    workload = make_workload(args.requests, PROMPT_BUCKETS, args.max_len,
+                             seed=args.seed)
+    model = demo_model(vocab=64, dim=256, heads=4, layers=2,
+                       max_len=args.max_len, seed=1, device=args.device)
+    result = {"requests": args.requests, "slots": args.slots,
+              "sampling": sampling}
+    if model.device.type == "cuda":
+        result["card"] = nvidia_smi()
+    modes = ["continuous", "drain"] if args.mode == "both" else [args.mode]
+    for mode in modes:
+        r = run_load(model, mode, workload, args.slots, args.max_len,
+                     PROMPT_BUCKETS, sampling=sampling,
+                     seed_base=args.seed_base if sampling else None)
+        r.pop("outputs")
+        result[mode] = r
+    if len(modes) == 2:
+        result["speedup_x"] = (result["continuous"]["tokens_per_s"]
+                               / result["drain"]["tokens_per_s"])
+    if args.profile:
+        result["profile"] = profile_decode(model, workload, args.slots,
+                                           args.max_len, PROMPT_BUCKETS,
+                                           sampling=sampling)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -963,3 +963,74 @@ def test_resnet_kernel_route_launches_and_matches_the_cpu(cuda_device):
                                             size=64, **small)
     assert img_s > 0 and np.isfinite(last)
     assert sum(kernels.launches.values()) == 0
+
+
+# -- generative serving: the prefill's causal attention, and the engine ------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,s,d", [(4, 1, 64), (4, 4, 64), (4, 16, 64),
+                                   (2, 16, 8)])
+def test_flash_causal_f32_at_prefill_lengths(cuda_device, h, s, d):
+    """The prefill's shapes: one prompt, (1, H, L, Dh) float32 causal
+    views of a (1, L, H, Dh) projection, L far below the kernel's query
+    tile (padded query rows, the causal edge inside one tile); head dim
+    8 runs zero-padded to 64."""
+    g = torch.Generator(device=cuda_device).manual_seed(s * 100 + d)
+    qkv = torch.randn(3, 1, s, h, d, device=cuda_device, generator=g)
+    q, k, v = (t.transpose(1, 2) for t in qkv)
+    before = kernels.launches["flash_attention_fwd"]
+    out, m, l = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention_fwd"] == before + 1
+    out0, m0, l0 = FA.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert _scaled_err(out, out0) <= TOL[torch.float32]
+    assert _scaled_err(m, m0) <= 1e-4 and _scaled_err(l, l0) <= 1e-4
+    # row 0 sees key 0 alone
+    assert _scaled_err(out[:, :, 0], v[:, :, 0]) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_generate_engine_on_card_matches_cpu(cuda_device):
+    """A small engine on the card against the same weights on the CPU:
+    each prefill launches the flash kernel once a layer, a decode tick
+    never; the card's logits along the CPU's greedy streams are within
+    1e-4 scaled of the CPU's at every position (teacher-forced), and the
+    streams agree wherever the CPU's top-2 margin exceeds that."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    cpu = serving.demo_model(vocab=64, dim=256, heads=4, layers=2,
+                             max_len=128, seed=1, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    prompts = [[1, 2, 3], list(range(1, 17)), [5] * 9, [30, 2]]
+    streams = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        eng = serving.GenerateEngine(model, slots=4, page=32, max_len=128,
+                                     prompt_buckets=(4, 16), start=False,
+                                     shed=False)
+        eng.warmup()
+        before = eng.executables()
+        kernels.reset_launches()
+        futs = [eng.submit(p, max_new_tokens=20) for p in prompts]
+        for _ in range(100):
+            if all(f.done() for f in futs):
+                break
+            eng.tick()
+        streams[name] = [list(map(int, f.result(timeout=60))) for f in futs]
+        launches = kernels.launches["flash_attention_fwd"]
+        st = eng.stats()
+        assert eng.executables() == before
+        eng.close()
+        want = model.layers * st["prefills"] if name == "card" else 0
+        assert launches == want
+    for p, want, got in zip(prompts, streams["cpu"], streams["card"]):
+        ref = teacher_forced_logits(cpu, p, want)
+        on_card = teacher_forced_logits(card, p, want)
+        scale = np.maximum(1.0, np.abs(ref))
+        assert (np.abs(on_card - ref) / scale).max() <= 1e-4
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        sure = (top2[:, 1] - top2[:, 0]) > 1e-4 * scale.max(axis=-1)
+        # the card's free-running stream agrees up to its first near-tie
+        first_tie = int(np.argmin(sure)) if not sure.all() else len(want)
+        assert got[:first_tie] == want[:first_tie]
+        assert (np.argmax(on_card, axis=-1)[sure] == np.asarray(want)[sure]
+                ).all()
