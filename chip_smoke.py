@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BERT-base serving and training paths, its
-ResNet-50 training path and its generative serving on one CUDA card.
+ResNet-50 training path and its generative serving, plain and speculative,
+on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -143,7 +144,28 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    CPU and held to it as above, with one prefill's device time; and 10
    decode ticks on the host clock, then 10 under ``torch.profiler``,
    greedy and sampled: wall time a tick against the card's busy time.
-14. the ``kernels`` line (all 14), the card's name and power limit, and
+14. speculative decoding: kernel #3 in float32, causal, at the pair's
+   prefill shapes (1, 2, 4, 96) and (1, 2, 16, 96), zero-padded to 128,
+   against its plain version and timed as in phase 2; then
+   ``tools/decode_loadgen --spec``'s A/B on phase 13's traffic and engine:
+   ``demo_spec_pair(vocab=64, dim=192, heads=2, draft_layers=1,
+   extra_layers=7, seed=1, distill=0.10)``'s target, plain and with its
+   draft at k = 8, sampled at temperature 1 (seed 1000 + i), then greedy:
+   every request complete with its token count (and 8 more at prompt +
+   new = 96), no signature met after ``warmup()``, the flash kernel
+   launched 9 times a prefill (8 target layers, 1 draft layer) and never
+   in a tick; tokens/s, the speedup, accept rate and tokens a verify.
+   Greedy speculative streams against greedy plain, and a model drafting
+   for itself (``demo_model(vocab=64, dim=192, heads=2, layers=2,
+   seed=1)``) against plain sampling, every departure counted and each a
+   near-tie of the card's teacher-forced logits; the first 8 requests'
+   greedy speculative streams again on the CPU with the same weights,
+   the card's ``verify_fn`` logits along them within 1e-4 scaled and the
+   tokens equal beyond that margin; a speculative tick and a plain tick
+   of the 8-layer target on the host clock and under ``torch.profiler``,
+   and the target's and the draft's prefill at 16 tokens (device time
+   from a CUDA graph, and eager).
+15. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -552,10 +574,12 @@ def causal_pairs(sq, sk):
 
 
 def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
-               iters, gen, sk=None, dropout_p=0.0, phase="kernel"):
+               iters, gen, sk=None, dropout_p=0.0, phase="kernel",
+               card=None):
     """The forward kernel at (b, h, s, d) queries over ``sk`` keys (default
     s) against its plain version, with dropout at ``dropout_p`` from one
-    seed (and then the kept fraction of its hash mask checked)."""
+    seed (and then the kept fraction of its hash mask checked); ``card``,
+    the card's name and power limit, goes into the record."""
     sk = sk or s
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
@@ -574,6 +598,8 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
                causal=causal, dropout_p=dropout_p,
                max_abs_err=abs_err(out, out0), max_scaled_err=err,
                tol=KERNEL_TOL[dtype])
+    if card is not None:
+        rec["card"] = card
     check(err <= KERNEL_TOL[dtype],
           f"flash_attention_fwd {label}: error {err} > tolerance")
     check_masked_rows(label, mask_kind, out, v)
@@ -1713,17 +1739,20 @@ PREFILL_LENGTHS = (1, 4, 16, 128, 256, 512)
 
 
 def serve_generate(np, smi, model, workload, mode, sampling, label,
-                   max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS):
+                   max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS,
+                   draft=None, spec_k=4, phase="generate"):
     """The workload through ``tools/decode_loadgen``'s ``run_load`` (a
-    warmed ``GenerateEngine`` fed by ``submit``): every request must come
-    back with its token count, the traffic meet no signature that warmup
-    did not, and launch the flash kernel once a layer a prefill and no
-    other kernel (the launch counts are zeroed after warmup and read when
-    the last request is back)."""
+    warmed ``GenerateEngine`` fed by ``submit``; speculative with
+    ``draft``): every request must come back with its token count, the
+    traffic meet no signature that warmup did not, and launch the flash
+    kernel once a layer of each model a prefill and no other kernel (the
+    launch counts are zeroed after warmup and read when the last request
+    is back)."""
     from paddle_tpu_torch.tools.decode_loadgen import run_load
     r = run_load(model, mode, workload, GEN_SLOTS, max_len, prompt_buckets,
                  sampling=sampling,
-                 seed_base=GEN_SEED_BASE if sampling else None)
+                 seed_base=GEN_SEED_BASE if sampling else None,
+                 draft=draft, spec_k=spec_k)
     outs = [[int(t) for t in o] for o in r.pop("outputs")]
     check(r["failed"] == 0 and [len(o) for o in outs] ==
           [n for _, n in workload], f"generate {label}: a request did not "
@@ -1733,17 +1762,19 @@ def serve_generate(np, smi, model, workload, mode, sampling, label,
     check(r["post_warmup_signatures"] == 0,
           f"generate {label}: traffic met {r['post_warmup_signatures']} "
           f"signatures warmup did not")
-    want = {"flash_attention_fwd": model.layers * r["prefills"]}
+    layers = model.layers + (draft.layers if draft is not None else 0)
+    want = {"flash_attention_fwd": layers * r["prefills"]}
     check(r["prefills"] == len(workload) and r["launches"] == want,
           f"generate {label}: launches {r['launches']}, want {want} "
-          f"({model.layers} a prefill, none a decode tick)")
-    r.update(phase="generate", case=label, card=smi, sampling=sampling)
+          f"({layers} a prefill, none a decode tick)")
+    r.update(phase=phase, case=label, card=smi, sampling=sampling)
     emit(r)
     return r, outs
 
 
-def held_to_cpu(np, cpu, model, workload, cpu_outs, card_outs):
-    """The card's logits along the CPU's greedy streams, teacher-forced,
+def held_to_cpu(np, cpu, model, workload, cpu_outs, card_outs, chunk=None):
+    """The card's logits along the CPU's greedy streams, teacher-forced
+    (through ``verify_fn`` over ``chunk`` inputs at a time, where given),
     against the CPU's: the largest scaled difference, the positions whose
     CPU top-2 margin exceeds the tolerance, and for each request whether
     the card's tokens equal the CPU's at every such position (its own
@@ -1751,8 +1782,8 @@ def held_to_cpu(np, cpu, model, workload, cpu_outs, card_outs):
     from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
     errs, sure_n, agree = [], 0, []
     for (prompt, _), want, got in zip(workload, cpu_outs, card_outs):
-        ref = teacher_forced_logits(cpu, prompt, want)
-        card = teacher_forced_logits(model, prompt, want)
+        ref = teacher_forced_logits(cpu, prompt, want, chunk=chunk)
+        card = teacher_forced_logits(model, prompt, want, chunk=chunk)
         scale = np.maximum(1.0, np.abs(ref))
         errs.append(float((np.abs(card - ref) / scale).max()))
         top2 = np.sort(ref, axis=-1)[:, -2:]
@@ -1891,6 +1922,214 @@ def generate_phase(np, torch, FA, smi, seed, gen):
         seconds=time.perf_counter() - t0)
     emit(summary)
     return dict(kernel=fa, runs=runs, long=long_run, ticks=ticks)
+
+# -- phase 14: speculative decoding -------------------------------------------
+
+# the decode load generator's --spec arm (scripts/decode_loadgen.py:398-429;
+# tools/decode_loadgen's SPEC_PAIR and SPEC_SELF): the pair's 8-layer target
+# (width 192, 2 heads of 96) drafted for by its own first layer, k = 8, at
+# temperature 1, request i with seed 1000 + i, over phase 13's engine and
+# 96 requests
+SPEC_K = 8
+SPEC_SAMPLING = {"temperature": 1.0}
+# kernel #3 at the pair's prefill: one prompt, 2 heads of 96 (zero-padded
+# to 128), float32 causal, at the prompt buckets
+SPEC_PREFILL_LENGTHS = (4, 16)
+# where a speculative stream parts from the plain one, the decision there,
+# from the card's teacher-forced logits, must lie within this of a tie
+# (the scaled top-2 margin, or |u q(d) - p(d)|): a draft step, a verify
+# and a decode step compute the same logits at other row counts and arena
+# capacities, so their products may round apart
+SPEC_TIE_TOL = 1e-4
+
+
+def spec_departures(np, torch, model, workload, plain, spec, sampling):
+    """The requests whose speculative stream parts from the plain one, each
+    at its first parting ``t`` with the closeness to a tie of the decision
+    there, from ``model``'s logits teacher-forced along the plain stream:
+    greedy, the scaled top-2 margin; sampled (a model drafting for itself,
+    whose q is p up to rounding), the smaller of the Gumbel-perturbed
+    top-2 margin and the accept test's ``|u p(d) - p(d)|``. Each must be
+    within :data:`SPEC_TIE_TOL`."""
+    from paddle_tpu_torch.serving import sampling as S
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+
+    def margin(x):
+        top2 = torch.topk(x, 2).values
+        return float(top2[0] - top2[1]) / max(1.0, abs(float(top2[0])))
+
+    found = []
+    for i, ((prompt, _), want, got) in enumerate(
+            zip(workload, plain, spec)):
+        t = next((j for j in range(min(len(want), len(got)))
+                  if want[j] != got[j]), None)
+        if t is None:
+            check(len(want) == len(got), f"spec: request {i} has "
+                                         f"{len(got)} tokens, plain "
+                                         f"{len(want)}")
+            continue
+        z = torch.from_numpy(teacher_forced_logits(model, prompt,
+                                                   want[:t + 1])[t:])
+        if sampling is None:
+            closeness = margin(z[0])
+        else:
+            seed = [GEN_SEED_BASE + i]
+            filt = S.filter_logits(z, [sampling["temperature"]],
+                                   [sampling.get("top_k", 0)],
+                                   [sampling.get("top_p", 1.0)])
+            scored = (filt + S.gumbel(S.keys_for(seed, [t], S.SALT_TOKEN),
+                                      z.shape[-1]))[0]
+            p = S.probs_from_filtered(filt)[0]
+            d = int(torch.argmax(scored))
+            u = float(S.uniform_for(seed, [t], S.SALT_ACCEPT)[0])
+            closeness = min(margin(scored), float(p[d]) * (1.0 - u))
+        found.append(dict(request=i, at=t, closeness=closeness))
+        check(closeness <= SPEC_TIE_TOL,
+              f"spec: request {i} parts from the plain stream at {t}, "
+              f"{closeness} from a tie")
+    return found
+
+
+def spec_phase(np, torch, FA, smi, seed, gen):
+    """Phase 14: kernel #3 at the pair's prefill shapes, the decode load
+    generator's --spec A/B (sampled, then greedy), the self-draft arm, the
+    card against the CPU, and a speculative tick against a plain one."""
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    t0 = time.perf_counter()
+    fa = [flash_case(torch, FA, f"spec_prefill_s{s}", "float32", 1, 2, s,
+                     96, None, True, TIMED_ITERS, gen, phase="spec_kernel",
+                     card=smi)
+          for s in SPEC_PREFILL_LENGTHS]
+
+    # the main path: each run zeroes the counts after its warmup and reads
+    # them when its last request is back (9 flash launches a prefill: the
+    # target's 8 layers and the draft's 1)
+    target, draft = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN)
+    check(target.device.type == "cuda" and target.head_dim == 96
+          and (target.layers, draft.layers) == (8, 1)
+          and draft.embed is target.embed and draft.wq0 is target.wq0,
+          f"the pair: {target.layers} + {draft.layers} layers on "
+          f"{target.device}, head dim {target.head_dim}")
+    wl = LG.make_workload(GEN_REQUESTS, GEN_PROMPT_BUCKETS, GEN_MAX_LEN,
+                          seed=seed)
+    runs, outs = {}, {}
+    for kind, sampling in (("sampled", SPEC_SAMPLING), ("greedy", None)):
+        for arm, d in (("plain", None), ("spec", draft)):
+            runs[arm, kind], outs[arm, kind] = serve_generate(
+                np, smi, target, wl, "continuous", sampling,
+                f"pair_{arm}_{kind}", draft=d, spec_k=SPEC_K, phase="spec")
+    greedy_dep = spec_departures(np, torch, target, wl,
+                                 outs["plain", "greedy"],
+                                 outs["spec", "greedy"], None)
+    # requests at prompt + new = the model's max_len: near their budget the
+    # chunks reach past the position table and the arena (the traffic has
+    # one such request within k of it)
+    brim = [(prompt, GEN_MAX_LEN - len(prompt))
+            for prompt, _ in wl[:GEN_SLOTS]]
+    serve_generate(np, smi, target, brim, "continuous", SPEC_SAMPLING,
+                   "pair_spec_brim", draft=draft, spec_k=SPEC_K,
+                   phase="spec")
+    # the self-draft arm: a model drafting for itself reproduces plain
+    # sampling, every proposal accepted
+    own = demo_model(**LG.SPEC_SELF, max_len=GEN_MAX_LEN)
+    for arm, d in (("self_plain", None), ("self_spec", own)):
+        runs[arm, "sampled"], outs[arm, "sampled"] = serve_generate(
+            np, smi, own, wl, "continuous", SPEC_SAMPLING, arm, draft=d,
+            spec_k=SPEC_K, phase="spec")
+    self_dep = spec_departures(np, torch, own, wl,
+                               outs["self_plain", "sampled"],
+                               outs["self_spec", "sampled"], SPEC_SAMPLING)
+    ss = runs["self_spec", "sampled"]
+    check(ss["spec_accepted"] == ss["spec_proposed"] or self_dep,
+          "spec self-draft: a proposal rejected where no stream parted")
+    emit(dict(phase="spec_departures", card=smi, tol=SPEC_TIE_TOL,
+              greedy_requests=len(wl), greedy=greedy_dep,
+              self_draft_requests=len(wl), self_draft=self_dep,
+              self_draft_proposed=ss["spec_proposed"],
+              self_draft_accepted=ss["spec_accepted"]))
+
+    # the card against the CPU, with the same weights: the CPU's greedy
+    # speculative streams, and the card's verify logits teacher-forced
+    # along them a chunk of k + 1 at a time
+    cpu_t, cpu_d = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN,
+                                  device="cpu")
+    cpu_t.load_state_dict(target.state_dict())
+    check(cpu_d.embed is cpu_t.embed and torch.equal(
+        cpu_d.wq0, draft.wq0.cpu()), "the CPU pair shares no tensors")
+    cpu_outs = [[int(t) for t in o] for o in LG.run_load(
+        cpu_t, "continuous", wl[:GEN_CPU_PROMPTS], GEN_SLOTS, GEN_MAX_LEN,
+        GEN_PROMPT_BUCKETS, draft=cpu_d, spec_k=SPEC_K)["outputs"]]
+    err, sure_n, agree = held_to_cpu(np, cpu_t, target, wl, cpu_outs,
+                                     outs["spec", "greedy"],
+                                     chunk=SPEC_K + 1)
+    emit(dict(phase="spec_vs_cpu", requests=GEN_CPU_PROMPTS,
+              positions=sum(len(o) for o in cpu_outs),
+              positions_beyond_margin=sure_n, max_scaled_err=err,
+              tol=GEN_CPU_TOL, tokens_agree=agree,
+              streams_equal=[a == b for a, b in
+                             zip(cpu_outs, outs["spec", "greedy"])]))
+    check(err <= GEN_CPU_TOL,
+          f"spec: card vs CPU verify logits differ by {err}")
+    check(all(agree), f"spec: card and CPU tokens differ beyond the "
+                      f"margin: {agree}")
+
+    # a speculative tick against a plain tick of the 8-layer target
+    ticks = {arm: LG.profile_decode(target, wl, GEN_SLOTS, GEN_MAX_LEN,
+                                    GEN_PROMPT_BUCKETS,
+                                    sampling=SPEC_SAMPLING, draft=d,
+                                    spec_k=SPEC_K)
+             for arm, d in (("spec", draft), ("plain", None))}
+    for arm, t in ticks.items():
+        emit(dict(t, phase="spec_tick", arm=arm, card=smi))
+    # an admission's prefills at the bucket 16, the target's and the
+    # draft's: device time (a CUDA graph of prefill_fn) and eager time
+    toks = [(torch.randint(1, 31, (1, 16), device="cuda", generator=gen),
+             torch.tensor([16], device="cuda")) for _ in range(4)]
+    prefill = {}
+    for name, m in (("target", target), ("draft", draft)):
+        def run(t, n, m=m):
+            with torch.no_grad():
+                return m.prefill_fn(m.state, t, n)
+
+        prefill[name] = dict(ms=graph_ms(torch, run, toks, 10),
+                             call_ms=time_ms(torch, run, toks, 10))
+    emit(dict(phase="spec_prefill", card=smi, length=16, prefill=prefill))
+    sp, pl = runs["spec", "sampled"], runs["plain", "sampled"]
+    summary = dict(
+        phase="spec_summary", card=smi, spec_k=SPEC_K,
+        # requests whose last chunk can reach past the position table
+        past_table_requests=sum(len(p) + n + SPEC_K - 2 >= GEN_MAX_LEN
+                                for p, n in wl),
+        brim_requests=len(brim),
+        kernel_ms={r["case"]: [r["ms"], r["plain_ms"], r["library_ms"],
+                               r["bound_ms"]] for r in fa},
+        tokens_per_s=[pl["tokens_per_s"], sp["tokens_per_s"]],
+        spec_speedup_x=sp["tokens_per_s"] / pl["tokens_per_s"],
+        accept_rate=sp["accept_rate"],
+        spec_tokens_per_step=sp["spec_tokens_per_step"],
+        latency_p50_ms=[pl["latency_p50_ms"], sp["latency_p50_ms"]],
+        latency_p99_ms=[pl["latency_p99_ms"], sp["latency_p99_ms"]],
+        greedy_tokens_per_s=[runs["plain", "greedy"]["tokens_per_s"],
+                             runs["spec", "greedy"]["tokens_per_s"]],
+        greedy_accept_rate=runs["spec", "greedy"]["accept_rate"],
+        greedy_departures=len(greedy_dep),
+        self_draft_tokens_per_s=[runs["self_plain", "sampled"]
+                                 ["tokens_per_s"], ss["tokens_per_s"]],
+        self_draft_departures=len(self_dep),
+        vs_cpu_max_scaled_err=err,
+        tick_ms=[ticks["plain"]["tick_ms"], ticks["spec"]["tick_ms"]],
+        tick_busy_ms=[ticks["plain"]["busy_ms_per_tick"],
+                      ticks["spec"]["busy_ms_per_tick"]],
+        tick_tokens=[ticks["plain"]["tokens_per_tick"],
+                     ticks["spec"]["tokens_per_tick"]],
+        tick_launches=[ticks["plain"]["launches_per_tick"],
+                       ticks["spec"]["launches_per_tick"]],
+        prefill_call_ms=[prefill["target"]["call_ms"],
+                         prefill["draft"]["call_ms"]],
+        seconds=time.perf_counter() - t0)
+    emit(summary)
+    return dict(kernel=fa, runs=runs, ticks=ticks)
 
 
 def main(argv=None):
@@ -2119,7 +2358,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     generate_phase(np, torch, FA, smi, args.seed, gen)
 
-    # 14. the kernels line, the card, and the verdict
+    # 14. speculative decoding
+    spec_phase(np, torch, FA, smi, args.seed, gen)
+
+    # 15. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

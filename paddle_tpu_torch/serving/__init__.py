@@ -10,26 +10,28 @@ Counterpart of ``paddle_tpu/serving`` for this slice:
 * :mod:`~paddle_tpu_torch.serving.admission` — the shed ladder,
   deadlines dropped at dequeue, and failure triage
 * :mod:`~paddle_tpu_torch.serving.generate`  — :class:`GenerateEngine`,
-  continuous-batching autoregressive decode, and the reference decode
-  model :class:`DemoLM` (:func:`demo_model`)
+  continuous-batching autoregressive decode and speculative decoding
+  (``draft_model=``), and the reference decode model :class:`DemoLM`
+  (:func:`demo_model`, :func:`demo_spec_pair`)
 * :mod:`~paddle_tpu_torch.serving.kv_cache`  — :class:`KVCachePool`, the
   fixed-slot KV arena on a closed capacity family
 * :mod:`~paddle_tpu_torch.serving.sampling`  — :class:`SamplingParams`,
   the top-k / top-p filter and counter-keyed Gumbel-max draws
 
 Metrics, request tracing, the monitor's spans, fault injection, the
-multi-replica fleet, speculative decoding and disaggregated serving are
-not ported yet (see ROADMAP.md).
+multi-replica fleet and disaggregated serving are not ported yet (see
+ROADMAP.md).
 """
 from .admission import (AdmissionController, DeadlineExpired, PRIORITIES,
                         QueueFullError, ShedError)
 from .batcher import DynamicBatcher, Request
 from .engine import ServingEngine
-from .generate import DecodeRequest, DemoLM, GenerateEngine, demo_model
+from .generate import (DecodeRequest, DemoLM, GenerateEngine, demo_model,
+                       demo_spec_pair)
 from .kv_cache import KVCachePool
 from .sampling import SamplingParams
 
 __all__ = ["AdmissionController", "DeadlineExpired", "PRIORITIES",
            "QueueFullError", "ShedError", "DynamicBatcher", "Request",
            "ServingEngine", "DecodeRequest", "DemoLM", "GenerateEngine",
-           "demo_model", "KVCachePool", "SamplingParams"]
+           "demo_model", "demo_spec_pair", "KVCachePool", "SamplingParams"]

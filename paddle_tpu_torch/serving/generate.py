@@ -32,9 +32,21 @@ prefill once, to read the first token. Lane state (lengths, last
 tokens, sampling knobs) lives on the host and goes to the device as a
 few small tensors a tick.
 
-Not ported (ROADMAP.md Queue A item 17): speculative decoding
-(``draft_model=``, ``verify_fn``), KV segments carried between engines
-(``kv_import=True``, a request's ``preset``), the fleet
+Speculative decoding (``draft_model=``, ``spec_k=``): a cheaper model of
+the same vocabulary proposes ``k`` tokens a lane from its own arena (a
+second pool on the same slots and page schedule, grown in lockstep), and
+the target verifies all of them in one chunked forward (``verify_fn``)
+under the accept-prefix rule
+(:func:`~paddle_tpu_torch.serving.sampling.accept_prefix`). A lane emits
+the accepted proposals and, after a rejection, the residual resample;
+after a full accept it emits exactly the ``k`` proposals (no bonus
+token, so the two arenas stay in step), and both ledgers roll back to the
+kept prefix. Proposal ``i`` is drawn under the key plain sampling uses at
+that generation index, so a model drafting for itself reproduces plain
+sampling, and greedy speculation reproduces greedy decode for any draft.
+
+Not ported (ROADMAP.md Queue A item 17): KV segments carried between
+engines (``kv_import=True``, a request's ``preset``), the fleet
 (``MultiDecodeEngine``) and the supervision surface (heartbeat, probe,
 failover hand-offs: item 2), and the metrics, request traces and monitor
 spans (item 1). Where the reference takes an argument for one of them,
@@ -51,11 +63,14 @@ The model contract (duck-typed; :class:`DemoLM` implements it)::
     model.decode_fn(state, tokens[S], kv {leaf: [S, cap, *tail]},
                     lengths[S])
         -> (logits[S, V], entry {leaf: [S, *tail]})
+    model.verify_fn(state, tokens[S, C], kv, lengths[S])   # the target
+        -> (logits[S, C, V], entry {leaf: [S, C, *tail]})  # of a draft
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import itertools
 import math
 import os
@@ -71,7 +86,7 @@ from ..ops.kernels.flash_attention import flash_attention
 from ..resilience.deadline import Deadline
 from . import sampling as sampling_mod
 from .admission import AdmissionController, resolve_priority
-from .kv_cache import KVCachePool
+from .kv_cache import KVCachePool, device_memory_limit
 
 _seed_counter = itertools.count(1)
 _NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 17)"
@@ -158,17 +173,20 @@ class GenerateEngine:
     sampling : engine-default :class:`~paddle_tpu_torch.serving.sampling.
         SamplingParams` (or dict) for submits that pass none; None is
         greedy.
-    draft_model, kv_import : the reference's speculative decoding and KV
-        import; not ported, and raise ``NotImplementedError``.
+    draft_model : speculative decoding: a model of the same vocabulary
+        whose proposals the target (which must have ``verify_fn``)
+        verifies; it rides its own arena on the same slots and page
+        schedule, and its weights are used on the engine's device.
+    spec_k : draft proposals a lane a speculative tick (>= 1).
+    kv_import : the reference's KV import; not ported, and raises
+        ``NotImplementedError``.
     start : launch the tick thread now (False: tests call :meth:`tick`).
     """
 
     def __init__(self, model, slots=8, page=64, factor=2.0, max_len=512,
                  prompt_buckets=None, queue_depth=256, deadline_ms=None,
                  refill="continuous", shed=True, start=True, sampling=None,
-                 draft_model=None, kv_import=False):
-        if draft_model is not None:
-            raise NotImplementedError(f"speculative decoding: {_NOT_PORTED}")
+                 draft_model=None, spec_k=4, kv_import=False):
         if kv_import:
             raise NotImplementedError(f"kv_import: {_NOT_PORTED}")
         if refill not in ("continuous", "drain"):
@@ -184,13 +202,21 @@ class GenerateEngine:
                                 device=self.device)
         self.slots = self.pool.slots
         self.max_len = self.pool.max_len
+        self.spec_k = int(spec_k)
+        self.draft_model = draft_model
+        self.draft_pool = None
+        self._draft_state = None
+        if draft_model is not None:
+            self._mount_draft(draft_model, page, factor, max_len)
         # the arena's last bucket may pass the model's position table
         # (grow_buckets(32, 2.0, 96) ends at 128): a request or a prefill
-        # bucket is bounded by both, since a position past the table
-        # would index out of it
-        model_len = getattr(model, "max_len", None)
+        # bucket is bounded by both, and by the draft's, since a position
+        # past the table would index out of it
+        model_len = min((int(m.max_len) for m in (model, draft_model)
+                         if getattr(m, "max_len", None) is not None),
+                        default=None)
         self.seq_limit = (self.max_len if model_len is None
-                          else min(self.max_len, int(model_len)))
+                          else min(self.max_len, model_len))
         pb = tuple(sorted({int(b) for b in (
             self.pool.seq_buckets if prompt_buckets is None
             else prompt_buckets)}))
@@ -217,7 +243,9 @@ class GenerateEngine:
         self._stats = {"submitted": 0, "completed": 0, "failed": 0,
                        "rejected": 0, "expired": 0, "shed": 0,
                        "ticks": 0, "tokens": 0, "prefills": 0,
-                       "prefill_tokens": 0, "compiles": 0, "grows": 0}
+                       "prefill_tokens": 0, "compiles": 0, "grows": 0,
+                       "draft_steps": 0, "verify_steps": 0,
+                       "spec_proposed": 0, "spec_accepted": 0}
         self._occupancy_sum = 0.0
         self._running = False
         self._closed = False
@@ -225,6 +253,35 @@ class GenerateEngine:
         self._thread = None
         if start:
             self.start()
+
+    def _mount_draft(self, draft, page, factor, max_len):
+        """The draft's checks, its arena and its weights on the engine's
+        device."""
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if int(draft.vocab) != int(self.model.vocab):
+            raise ValueError(
+                f"draft vocab {draft.vocab} != target vocab "
+                f"{self.model.vocab}: the accept rule compares "
+                f"distributions over one vocabulary")
+        if not hasattr(self.model, "verify_fn"):
+            raise ValueError("speculative decoding needs model.verify_fn "
+                             "(chunked decode) on the target model")
+        # the same slots and page schedule, so that both arenas grow in
+        # lockstep and every speculative step sees one capacity
+        self.draft_pool = KVCachePool(draft.kv_spec(), self.slots, page=page,
+                                      factor=factor, max_len=max_len,
+                                      device=self.device)
+        limit = device_memory_limit(self.device)
+        need = self.pool.max_bytes() + self.draft_pool.max_bytes()
+        if limit is not None and need > limit:
+            raise ValueError(
+                f"the target and draft arenas at max_len={self.max_len} "
+                f"take {need} bytes, more than the device's {limit}: fewer "
+                f"slots (plan_slots) or a shorter max_len")
+        # no copy where the draft's weights are on this device already
+        self._draft_state = {name: t.to(self.device)
+                             for name, t in draft.state.items()}
 
     # -- client surface ----------------------------------------------------
 
@@ -359,23 +416,107 @@ class GenerateEngine:
             first = self._sample(last, knobs)
             return kv, int(first[0])
 
-    def _insert(self, bufs, chunk, slot):
+    def _draft_prefill(self, tokens, length):
+        """The draft's prompt ingest at one bucket: its K/V only (the first
+        token is the target prefill's)."""
+        toks = _device.to_device(tokens, self.device, torch.int64)
+        lens = _device.to_device(np.array([length]), self.device,
+                                 torch.int64)
+        self._note(("dprefill", tokens.shape[1]), toks, lens)
+        with torch.no_grad():
+            kv, _ = self.draft_model.prefill_fn(self._draft_state, toks,
+                                                lens)
+        return kv
+
+    def _insert(self, bufs, chunk, slot, kind="insert"):
         """Write a prefill's ``chunk {leaf: [1, L, *tail]}`` into arena
-        rows ``[slot, :L]``, in place."""
+        rows ``[slot, :L]``, in place (``kind`` "dinsert": the draft's)."""
         lb = next(iter(chunk.values())).shape[1]
         cap = next(iter(bufs.values())).shape[1]
-        self._note(("insert", lb, cap), *chunk.values(), *bufs.values())
+        self._note((kind, lb, cap), *chunk.values(), *bufs.values())
         for name, buf in bufs.items():
             buf[slot, :lb].copy_(chunk[name][0])
 
-    def _grow(self, bufs, old, new):
-        """The arena at capacity ``new``: a zero arena with the old rows
-        copied in."""
-        self._note(("grow", old, new), *bufs.values())
-        out = self.pool.zeros(new)
+    def _grow(self, pool, kind, bufs, old, new):
+        """``pool``'s arena at capacity ``new``: a zero arena with the old
+        rows copied in (``kind`` "grow", or "dgrow" for the draft's)."""
+        self._note((kind, old, new), *bufs.values())
+        out = pool.zeros(new)
         for name, buf in bufs.items():
             out[name][:, :old].copy_(buf)
         return out
+
+    def _spec_step(self, bufs, dbufs, tokens, lengths, active, knobs):
+        """One draft-then-verify step for every lane: ``k`` draft steps over
+        the draft arena ``dbufs``, then the target's verify of ``[last,
+        d_1 .. d_k]`` over ``bufs`` and the accept-prefix rule. Each step
+        writes its cache entries in place at the active lanes' positions
+        below the capacity; a lane within ``k`` of its budget computes the
+        rest of its chunk too, and those writes are dropped (never two
+        onto one row). Returns ``(n_accepted, resampled, proposals)`` on
+        the host, read back in one sync."""
+        k, n = self.spec_k, self.slots
+        v = int(self.model.vocab)
+        cap = next(iter(bufs.values())).shape[1]
+        temps, top_ks, top_ps, seeds, positions = knobs
+        # lane s writes chunk entry i at lengths[s] + i: the writes that
+        # land inside the arena, grouped by i (the draft writes entries 0
+        # .. k-1, the verify 0 .. k)
+        at = lengths[:, None] + np.arange(k + 1)[None, :]
+        cols, rows = np.nonzero((active[:, None] & (at < cap)).T)
+        bounds = np.searchsorted(cols, np.arange(k + 2))
+        host = np.concatenate([tokens, at.T.ravel(), rows, cols,
+                               at[rows, cols]])
+        dev = _device.to_device(host, self.device, torch.int64)
+        tok, lens = dev[:n], dev[n:n * (k + 2)].view(k + 1, n)
+        rows_d, cols_d, at_d = dev[n * (k + 2):].view(3, -1)
+        filtered = sampling_mod.needs_filter(top_ks, top_ps, v)
+        knobs_d = [_device.to_device(a, self.device, dt) for a, dt in (
+            (temps, torch.float32), (top_ks, torch.int64),
+            (top_ps, torch.float32))]
+        sampled = bool((temps > 0.0).any())
+        self._note(("sdraft", cap), tok, lens[0], *dbufs.values())
+        with torch.no_grad():
+            # every proposal's Gumbel noise at once: proposal i is keyed
+            # by (seed, position + i, SALT_TOKEN) alone, as the plain draw
+            # at that generation index is
+            noise = (sampling_mod.gumbel_ahead(seeds, positions, k, v,
+                                               device=self.device)
+                     if sampled else None)
+            d, proposals, qs = tok, [], []
+            for i in range(k):
+                logits, entry = self.draft_model.decode_fn(
+                    self._draft_state, d, dbufs, lens[i])
+                filt = sampling_mod.filter_logits(logits, *knobs_d,
+                                                  any_filter=filtered)
+                scored = filt if noise is None else filt + noise[:, i]
+                d = torch.argmax(scored, dim=-1)
+                proposals.append(d)
+                qs.append(sampling_mod.probs_from_filtered(filt))
+                r = rows_d[bounds[i]:bounds[i + 1]]
+                pos = at_d[bounds[i]:bounds[i + 1]]
+                for name, buf in dbufs.items():
+                    buf.index_put_((r, pos), entry[name][r])
+            proposals = torch.stack(proposals, dim=1)
+            qs = torch.stack(qs, dim=1)
+            chunk = torch.cat([tok[:, None], proposals], dim=1)
+            self._note(("verify", cap), chunk, lens[0], *bufs.values(),
+                       proposals, qs)
+            logits, entry = self.model.verify_fn(self.model.state, chunk,
+                                                 bufs, lens[0])
+            for name, buf in bufs.items():
+                buf.index_put_((rows_d, at_d), entry[name][rows_d, cols_d])
+            # the k+1 target distributions, each filtered with its lane's
+            # knobs
+            p = sampling_mod.probs_from_filtered(sampling_mod.filter_logits(
+                logits.reshape(n * (k + 1), v), *(np.repeat(a, k + 1) for a
+                                                  in (temps, top_ks, top_ps)),
+                any_filter=filtered)).view(n, k + 1, v)
+            a, resampled = sampling_mod.accept_prefix(p, qs, proposals,
+                                                      seeds, positions)
+            out = torch.cat([a[:, None], resampled[:, None], proposals],
+                            dim=1).cpu().numpy()
+        return out[:, 0], out[:, 1], out[:, 2:]
 
     @staticmethod
     def _knobs(n, sampled=False):
@@ -392,28 +533,46 @@ class GenerateEngine:
         capacity (greedy and sampled), an insert per (prompt bucket,
         capacity) that can co-occur, a grow per consecutive capacity
         pair, and a prefill a prompt bucket (greedy and sampled), each on
-        zero operands that no request sees. On the card this builds the
-        flash kernel and meets each cuBLAS shape before traffic. Returns
-        the number of signatures met for the first time."""
+        zero operands that no request sees; with a draft, also the
+        speculative family: a draft-then-verify step a capacity (greedy
+        and sampled), and the draft's insert, grow and prefill on the same
+        buckets. On the card this builds the flash kernel and meets each
+        cuBLAS shape before traffic. Returns the number of signatures met
+        for the first time."""
         before = len(self._exec)
         family = self.pool.seq_buckets
+        speculative = self.draft_model is not None
         zeros_i = np.zeros((self.slots,), np.int32)
         ones_i = np.ones((self.slots,), np.int32)
         inactive = np.zeros((self.slots,), bool)
         for cap in family:
             for sampled in (False, True):
+                knobs = self._knobs(self.slots, sampled)
                 self._decode_step(self.pool.zeros(cap), zeros_i, ones_i,
-                                  inactive, self._knobs(self.slots, sampled))
+                                  inactive, knobs)
+                if speculative:
+                    self._spec_step(self.pool.zeros(cap),
+                                    self.draft_pool.zeros(cap), zeros_i,
+                                    ones_i, inactive, knobs)
             for lb in self.prompt_buckets:
                 if lb <= cap:
                     self._insert(self.pool.zeros(cap),
                                  self.pool.zeros(lb, rows=1), 0)
+                    if speculative:
+                        self._insert(self.draft_pool.zeros(cap),
+                                     self.draft_pool.zeros(lb, rows=1), 0,
+                                     kind="dinsert")
         for old, new in zip(family, family[1:]):
-            self._grow(self.pool.zeros(old), old, new)
+            self._grow(self.pool, "grow", self.pool.zeros(old), old, new)
+            if speculative:
+                self._grow(self.draft_pool, "dgrow",
+                           self.draft_pool.zeros(old), old, new)
         for lb in self.prompt_buckets:
             for sampled in (False, True):
                 self._prefill(np.zeros((1, lb), np.int32), 1,
                               self._knobs(1, sampled))
+            if speculative:
+                self._draft_prefill(np.zeros((1, lb), np.int32), 1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return len(self._exec) - before
@@ -455,7 +614,7 @@ class GenerateEngine:
                 if slot.req is not None:
                     leftovers.append(slot.req)
                     slot.req = None
-                    self.pool.free(s)
+                    self._release(s)
         for r in leftovers:
             r.resolve_exception(RuntimeError("decode engine closed"))
 
@@ -506,7 +665,8 @@ class GenerateEngine:
         discipline), then advance every live sequence one token. Returns
         whether any work happened."""
         admitted = self._admit()
-        stepped = self._decode_once()
+        stepped = (self._spec_once() if self.draft_model is not None
+                   else self._decode_once())
         return bool(admitted or stepped)
 
     # -- admission into lanes ----------------------------------------------
@@ -554,9 +714,21 @@ class GenerateEngine:
         while self.pool.capacity < target:
             old = self.pool.capacity
             new = next_bucket(old + 1, self.pool.seq_buckets)
-            self.pool.grow_to(new, self._grow)
+            self.pool.grow_to(new, functools.partial(self._grow, self.pool,
+                                                     "grow"))
+            if self.draft_pool is not None:
+                # in lockstep: every speculative step sees one capacity
+                self.draft_pool.grow_to(new, functools.partial(
+                    self._grow, self.draft_pool, "dgrow"))
             with self._stats_lock:
                 self._stats["grows"] += 1
+
+    def _release(self, s):
+        """Free lane ``s`` in the target pool and zero its draft ledger
+        (the draft pool's slots follow the target's)."""
+        self.pool.free(s)
+        if self.draft_pool is not None:
+            self.draft_pool.note_length(s, 0)
 
     def _prefill_into_slot(self, req):
         """Prompt ingest: the bucketed prefill, its K/V written into a
@@ -586,15 +758,20 @@ class GenerateEngine:
                 np.zeros((1,), np.int32)))
             self._insert(self.pool.buffers, kv, s)
             self.pool.note_length(s, p)
+            if self.draft_model is not None:
+                self._insert(self.draft_pool.buffers,
+                             self._draft_prefill(tokens, p), s,
+                             kind="dinsert")
+                self.draft_pool.note_length(s, p)
             with self._stats_lock:
                 self._stats["prefills"] += 1
                 self._stats["prefill_tokens"] += p
         except BaseException:
-            self.pool.free(s)
+            self._release(s)
             raise
         if (req.eos_token is not None and first == req.eos_token) \
                 or req.max_new_tokens == 1:
-            self.pool.free(s)
+            self._release(s)
             self._complete(req, [first])
             return
         slot = self._slots[s]
@@ -606,10 +783,12 @@ class GenerateEngine:
 
     # -- the decode tick ---------------------------------------------------
 
-    def _gather_batch(self):
+    def _gather_batch(self, extra=1):
         """Snapshot the live lanes into the tick's host arrays: tokens,
         lengths, active, the sampling knobs and each lane's generation
-        index (the counter its random draw is keyed by)."""
+        index (the counter its random draw is keyed by). ``extra`` is the
+        arena headroom a lane needs this tick (1 for a decode step, k + 1
+        for a speculative one)."""
         with self._lock:
             assigned = [(s, slot.req) for s, slot in enumerate(self._slots)
                         if slot.req is not None]
@@ -636,7 +815,7 @@ class GenerateEngine:
                 top_ps[s] = sp.top_p
                 seeds[s] = sp.seed or 0
                 positions[s] = len(slot.tokens)
-                max_needed = max(max_needed, slot.length + 1)
+                max_needed = max(max_needed, slot.length + extra)
         return (assigned, tokens, lengths, active,
                 (temps, top_ks, top_ps, seeds, positions), max_needed)
 
@@ -679,6 +858,88 @@ class GenerateEngine:
             self._complete(req, toks)
         return True
 
+    def _spec_once(self):
+        """One speculative tick: ``k`` proposals a live lane and one verify
+        (:meth:`_spec_step`), then each lane's ledger settled on the host:
+
+        * partial accept (``a < k``): emit ``d_1 .. d_a`` and the residual
+          resample, ``a + 1`` tokens;
+        * full accept: emit exactly ``d_1 .. d_k`` and keep ``d_k`` as the
+          next input, with no bonus token, so that the draft arena never
+          falls an entry behind the target's;
+
+        an EOS or the budget cuts the emitted tokens where it falls. Both
+        steps wrote their entries ahead; ``note_length`` then ``rollback``
+        trims each pool's ledger to the kept prefix (no device copy)."""
+        k = self.spec_k
+        batch = self._gather_batch(extra=k + 1)
+        if batch is None:
+            return False
+        assigned, tokens, lengths, active, knobs, max_needed = batch
+        # a lane within k of its budget still verifies a whole chunk: its
+        # writes past the arena are dropped and its ledgers clamp below,
+        # so the chunk's shape never varies
+        self._ensure_capacity(min(max_needed, self.pool.max_len))
+        cap = self.pool.capacity
+        try:
+            a, resampled, proposals = self._spec_step(
+                self.pool.buffers, self.draft_pool.buffers, tokens, lengths,
+                active, knobs)
+        except BaseException as e:   # noqa: BLE001 - fail the wave
+            self._fail_active(assigned, e)
+            return True
+        finished = []
+        emitted_total = accepted_total = n_active = 0
+        with self._lock:
+            for s, req in assigned:
+                slot = self._slots[s]
+                if slot.req is not req:
+                    continue
+                n_active += 1
+                L, ai = int(lengths[s]), int(a[s])
+                new = [int(t) for t in proposals[s, :ai]]
+                if ai < k:
+                    new.append(int(resampled[s]))
+                emitted, done = [], False
+                for t in new:
+                    emitted.append(t)
+                    if (req.eos_token is not None and t == req.eos_token) \
+                            or len(slot.tokens) + len(emitted) \
+                            >= req.max_new_tokens:
+                        done = True
+                        break
+                e = len(emitted)
+                # the verify wrote the target's entries for [last, d_1 ..
+                # d_k] at L .. L+k, the draft its own for [last, d_1 ..
+                # d_k-1] at L .. L+k-1 (those inside the arena): keep the
+                # L + e entries before the new last token
+                self.pool.note_length(s, min(L + k + 1, cap))
+                self.pool.rollback(s, L + e)
+                self.draft_pool.note_length(s, min(L + k, cap))
+                if e < k:
+                    self.draft_pool.rollback(s, L + e)
+                slot.tokens.extend(emitted)
+                slot.length = L + e
+                slot.last_token = emitted[-1]
+                emitted_total += e
+                accepted_total += ai
+                if done:
+                    finished.append((req, slot.tokens))
+                    slot.req = None
+                    slot.tokens = None
+                    self._release(s)
+        with self._stats_lock:
+            self._stats["ticks"] += 1
+            self._stats["tokens"] += emitted_total
+            self._stats["draft_steps"] += k
+            self._stats["verify_steps"] += 1
+            self._stats["spec_proposed"] += k * n_active
+            self._stats["spec_accepted"] += accepted_total
+            self._occupancy_sum += n_active / self.slots
+        for req, toks in finished:
+            self._complete(req, toks)
+        return True
+
     def _fail_active(self, assigned, exc):
         with self._lock:
             failed = []
@@ -689,7 +950,7 @@ class GenerateEngine:
                 failed.append(req)
                 slot.req = None
                 slot.tokens = None
-                self.pool.free(s)
+                self._release(s)
         with self._stats_lock:
             self._stats["failed"] += len(failed)
         for r in failed:
@@ -714,6 +975,11 @@ class DemoLM(torch.nn.Module):
     :func:`~paddle_tpu_torch.ops.kernels.flash_attention.flash_attention`
     (causal), which launches kernel #3 on a CUDA tensor; decode attends
     over the KV arena in plain PyTorch, as the reference's einsums do.
+
+    The position table is read clamped to its last row, as JAX's gather
+    reads it: a speculative chunk near the end of a request's budget
+    reaches past the table, and the rows there are computed and thrown
+    away (on the card an index out of the table would be a device assert).
 
     Its parameters and buffer carry the reference state's names
     (``embed``, ``pos``, ``wq0`` .. ``w2{L-1}``), so
@@ -785,6 +1051,12 @@ class DemoLM(torch.nn.Module):
             torch.sqrt(torch.mean(torch.square(x), dim=-1, keepdim=True)
                        + 1e-6))
 
+    @staticmethod
+    def _positions(state, index):
+        """Rows of the position table at ``index``, clamped to its last."""
+        table = state["pos"]
+        return table[index.clamp(max=table.shape[0] - 1)]
+
     def _mlp(self, state, x, layer):
         hidden = self._norm(x)
         return x + torch.relu(hidden @ state[f"w1{layer}"]) \
@@ -826,7 +1098,7 @@ class DemoLM(torch.nn.Module):
         h, hd = self.heads, self.head_dim
         cap = next(iter(kv.values())).shape[1]
         inv = 1.0 / math.sqrt(hd)
-        x = state["embed"][tokens] + state["pos"][lengths]
+        x = state["embed"][tokens] + self._positions(state, lengths)
         entry = {}
         hist_mask = (torch.arange(cap, device=x.device)[None, None, :]
                      < lengths[:, None, None])
@@ -851,6 +1123,48 @@ class DemoLM(torch.nn.Module):
             x = self._mlp(state, x, layer)
         return self._norm(x) @ state["embed"].T, entry
 
+    def verify_fn(self, state, tokens, kv, lengths):
+        """Chunked decode, :meth:`decode_fn` over a ``(S, C)`` chunk (the
+        speculative verify): chunk position ``i`` sits at arena position
+        ``lengths + i`` and attends over the resident history (masked by
+        live length) plus chunk positions ``<= i``; all C logits rows and
+        cache entries come back. At ``C == 1`` it computes what
+        :meth:`decode_fn` does (a masked score is an exact zero after the
+        softmax)."""
+        s, c = tokens.shape
+        h, hd = self.heads, self.head_dim
+        cap = next(iter(kv.values())).shape[1]
+        inv = 1.0 / math.sqrt(hd)
+        dev = tokens.device
+        chunk = torch.arange(c, device=dev)
+        x = state["embed"][tokens] + self._positions(
+            state, lengths[:, None] + chunk[None, :])
+        entry = {}
+        hist_mask = (torch.arange(cap, device=dev)[None, None, None, :]
+                     < lengths[:, None, None, None])       # [S, 1, 1, cap]
+        self_mask = (chunk[None, :] <= chunk[:, None])[None, :, None, :]
+        for layer in range(self.layers):
+            hidden = self._norm(x)
+            q = (hidden @ state[f"wq{layer}"]).reshape(s, c, h, hd)
+            k_new = (hidden @ state[f"wk{layer}"]).reshape(s, c, h, hd)
+            v_new = (hidden @ state[f"wv{layer}"]).reshape(s, c, h, hd)
+            entry[f"k{layer}"] = k_new
+            entry[f"v{layer}"] = v_new
+            scores_h = torch.einsum("schd,sChd->schC", q,
+                                    kv[f"k{layer}"]) * inv
+            scores_h = torch.where(hist_mask, scores_h, -1e9)
+            scores_c = torch.einsum("schd,sChd->schC", q, k_new) * inv
+            scores_c = torch.where(self_mask, scores_c, -1e9)
+            scores = torch.cat([scores_h, scores_c], dim=-1)
+            probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            probs = probs / probs.sum(dim=-1, keepdim=True)
+            out = torch.einsum("schC,sChd->schd", probs[..., :cap],
+                               kv[f"v{layer}"]) \
+                + torch.einsum("schC,sChd->schd", probs[..., cap:], v_new)
+            x = x + out.reshape(s, c, self.dim) @ state[f"wo{layer}"]
+            x = self._mlp(state, x, layer)
+        return self._norm(x) @ state["embed"].T, entry
+
 
 def demo_model(vocab=64, dim=32, heads=2, layers=2, max_len=512, seed=0,
                device=None):
@@ -858,3 +1172,35 @@ def demo_model(vocab=64, dim=32, heads=2, layers=2, max_len=512, seed=0,
     smoke run; on the card unless ``device`` says otherwise."""
     return DemoLM(vocab=vocab, dim=dim, heads=heads, layers=layers,
                   max_len=max_len, seed=seed, device=device)
+
+
+def demo_spec_pair(vocab=64, dim=32, heads=2, draft_layers=1,
+                   extra_layers=1, max_len=512, seed=0, distill=0.15,
+                   device=None):
+    """A (target, draft) :class:`DemoLM` pair built for a high accept rate,
+    as a distilled draft would give one:
+
+    * the target has ``draft_layers + extra_layers`` layers, and its
+      refinement layers' weights are scaled by ``distill`` (each one's
+      residual contribution lands near ``distill**2``), so its
+      distribution is a small perturbation of its prefix's;
+    * the draft is that prefix: it holds the target's own ``embed``,
+      ``pos`` and first ``draft_layers`` layers' tensors (the same
+      ``Parameter`` and buffer objects), so the pair costs one model's
+      memory plus the extra layers, and loading weights into the target
+      (``convert.load_jax_state``) loads the draft's too.
+
+    On the card unless ``device`` says otherwise."""
+    target = DemoLM(vocab=vocab, dim=dim, heads=heads,
+                    layers=draft_layers + extra_layers, max_len=max_len,
+                    seed=seed, device=device)
+    with torch.no_grad():
+        for layer in range(draft_layers, target.layers):
+            for w in ("wq", "wk", "wv", "wo", "w1", "w2"):
+                getattr(target, f"{w}{layer}").mul_(float(distill))
+    # built on the host, then every tensor swapped for the target's
+    draft = DemoLM(vocab=vocab, dim=dim, heads=heads, layers=draft_layers,
+                   max_len=max_len, seed=seed, device="cpu")
+    for name in list(draft.state_dict()):
+        setattr(draft, name, getattr(target, name))
+    return target, draft

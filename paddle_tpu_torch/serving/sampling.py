@@ -203,7 +203,7 @@ def _knob(x, dtype, device):
     return to_device(np.asarray(x), device, dtype)
 
 
-def _any_filter(top_k, top_p, v):
+def needs_filter(top_k, top_p, v):
     """Whether any row asks for top-k (``0 < k < v``) or top-p (``p <
     1``): the batch-wide branch. Host knobs decide it without waiting for
     the card."""
@@ -211,10 +211,13 @@ def _any_filter(top_k, top_p, v):
     return bool((((top_k > 0) & (top_k < v)) | (top_p < 1.0)).any())
 
 
-def filter_logits(logits, temperature, top_k, top_p):
+def filter_logits(logits, temperature, top_k, top_p, any_filter=None):
     """Temperature, top-k and top-p per row of ``logits [S, V]``; the
     three knobs are ``[S]`` (tensors or host arrays). Returns float32
-    filtered logits, excluded tokens at :data:`NEG`.
+    filtered logits, excluded tokens at :data:`NEG`. ``any_filter`` is
+    the batch-wide branch (:func:`needs_filter`), which a caller that
+    hands over knobs already on the card decides from its host copies:
+    read from the card, it would wait for the queued work.
 
     * ``temperature <= 0``: greedy, the row becomes a one-hot of its
       argmax (ties to the lowest token id);
@@ -226,7 +229,8 @@ def filter_logits(logits, temperature, top_k, top_p):
     """
     s, v = logits.shape
     dev = logits.device
-    any_filter = _any_filter(top_k, top_p, v)
+    if any_filter is None:
+        any_filter = needs_filter(top_k, top_p, v)
     temperature = _knob(temperature, torch.float32, dev)
     greedy = temperature <= 0.0
     t = torch.where(greedy, torch.ones_like(temperature), temperature)
@@ -267,6 +271,20 @@ def sample_from_filtered(filtered, seeds, positions, salt=SALT_TOKEN):
     keys = keys_for(seeds, positions, salt, device=filtered.device)
     g = gumbel(keys, filtered.shape[-1])
     return torch.argmax(filtered + g, dim=-1)
+
+
+def gumbel_ahead(seeds, positions, k, v, device=None):
+    """The token draws' Gumbel noise at ``k`` consecutive generation
+    indices a row, ``[S, k, V]`` float32 on ``device``: row ``s``'s
+    ``i``-th is, bit for bit, the noise :func:`sample_from_filtered` draws
+    under ``(seeds[s], positions[s] + i, SALT_TOKEN)``, here from one key
+    derivation and one draw (a speculative draft's proposals; host
+    ``seeds`` and ``positions``, ``[S]``)."""
+    seeds = np.asarray(seeds)
+    at = np.asarray(positions, np.int64)[:, None] + np.arange(k)[None, :]
+    keys = keys_for(np.repeat(seeds, k), at.reshape(-1), SALT_TOKEN,
+                    device=device)
+    return gumbel(keys, v).view(len(seeds), k, v)
 
 
 # -- the speculative accept-prefix rule ---------------------------------------

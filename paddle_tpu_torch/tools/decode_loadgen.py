@@ -17,13 +17,24 @@ are not ported (ROADMAP.md Queue A item 1).
     python -m paddle_tpu_torch.tools.decode_loadgen [--mode both]
         [--sampling temperature=1.0,top_k=20,top_p=0.9] [--device cpu]
         [--profile]
+    python -m paddle_tpu_torch.tools.decode_loadgen --spec [--spec-k 8]
+        [--draft pair|self] [--device cpu] [--profile]
 
 prints one JSON line: each mode's measurement, ``speedup_x`` (continuous
 tokens/s over drain's, the reference's A/B), and the card's name and
-power limit. It runs on the card unless ``--device cpu``; a CPU run's
-times are the CPU's, not the card's. ``--profile`` adds
-:func:`profile_decode`: a decode tick's wall time against its device
-time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
+power limit. ``--spec`` makes the A/B speculative against plain decode
+on the same sampled traffic (temperature 1 unless ``--sampling`` says
+otherwise), continuous refill both, as the reference's
+(``scripts/decode_loadgen.py:398-429``): the target is
+``demo_spec_pair(vocab=64, dim=192, heads=2, draft_layers=1,
+extra_layers=7, seed=1, distill=0.10)``'s, drafted for by its first
+layer (``--draft pair``), or ``demo_model(vocab=64, dim=192, heads=2,
+layers=2, seed=1)`` drafting for itself (``--draft self``); it adds
+``spec_speedup_x`` and ``accept_rate``. It runs on the card unless
+``--device cpu``; a CPU run's times are the CPU's, not the card's.
+``--profile`` adds :func:`profile_decode`: a decode tick's (with
+``--spec``, a speculative and a plain tick's) wall time against its
+device time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
 """
 from __future__ import annotations
 
@@ -44,6 +55,10 @@ LONG_FRAC = 0.15
 PROMPT_BUCKETS = (4, 16)
 PAGE, FACTOR = 32, 2.0   # the arena's page schedule, as the reference's
 PROFILE_TICKS, PROFILE_TOP = 10, 8
+# the speculative A/B's models (scripts/decode_loadgen.py:410-419)
+SPEC_PAIR = dict(vocab=64, dim=192, heads=2, draft_layers=1, extra_layers=7,
+                 seed=1, distill=0.10)
+SPEC_SELF = dict(vocab=64, dim=192, heads=2, layers=2, seed=1)
 
 
 def make_workload(n, prompt_buckets, max_len, seed=0):
@@ -72,17 +87,20 @@ def _pct(sorted_vals, q):
 
 
 def run_load(model, mode, workload, slots, max_len, prompt_buckets,
-             sampling=None, seed_base=None):
+             sampling=None, seed_base=None, draft=None, spec_k=4):
     """Drive one warmed engine in ``mode`` over the workload, offered all
     at once, and return its measurement, with every request's tokens
     under ``"outputs"``. ``sampling`` (dict or SamplingParams) makes
-    every request sampled, request ``i`` with seed ``seed_base + i``."""
+    every request sampled, request ``i`` with seed ``seed_base + i``.
+    ``draft`` drafts ``spec_k`` tokens a verify (speculative decoding);
+    the result then carries the accept rate and tokens a verify."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.serving import GenerateEngine
     eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
                          max_len=max_len, prompt_buckets=prompt_buckets,
                          queue_depth=len(workload) + 8, refill=mode,
-                         shed=False, start=True)
+                         shed=False, start=True, draft_model=draft,
+                         spec_k=spec_k)
     try:
         t0 = time.perf_counter()
         eng.warmup()
@@ -110,7 +128,21 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
         eng.close()
     lat = sorted((d - s) * 1e3 for s, d in zip(t_sub, t_done))
     tokens = int(sum(len(o) for o in outs))
+    spec = {}
+    if draft is not None:
+        spec = {
+            "spec_k": spec_k,
+            "verify_steps": stats["verify_steps"],
+            "accept_rate": (stats["spec_accepted"]
+                            / max(stats["spec_proposed"], 1)),
+            "spec_tokens_per_step": (stats["tokens"]
+                                     / max(stats["verify_steps"], 1)),
+            "pool_rollbacks": stats["pool_rollbacks"],
+            "spec_proposed": stats["spec_proposed"],
+            "spec_accepted": stats["spec_accepted"],
+        }
     return {
+        **spec,
         "mode": mode,
         "device": str(eng.device),
         "requests": len(workload),
@@ -133,13 +165,15 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
     }
 
 
-def teacher_forced_logits(model, prompt, tokens):
+def teacher_forced_logits(model, prompt, tokens, chunk=None):
     """The logits ``model`` gives at every generated position when fed
     ``tokens`` (another run's stream) after ``prompt``: row 0 from the
     prefill, row ``i`` from the decode step whose input is ``tokens[i -
-    1]``; ``[len(tokens), V]`` on the host. Comparing two devices'
-    logits this way holds every position, where comparing free-running
-    greedy streams stops at the first near-tie that rounds apart."""
+    1]``, or with ``chunk``, from the ``verify_fn`` call over ``chunk``
+    consecutive inputs that holds it (the last chunk padded); ``[len(
+    tokens), V]`` on the host. Comparing two devices' logits this way
+    holds every position, where comparing free-running greedy streams
+    stops at the first near-tie that rounds apart."""
     dev = model.device
     state = model.state
     p = len(prompt)
@@ -154,43 +188,63 @@ def teacher_forced_logits(model, prompt, tokens):
         for name, c in kv.items():
             arena[name][0, :p] = c[0]
         rows = [last[0]]
-        for i, tok in enumerate(tokens[:-1]):
+        inputs = [int(t) for t in tokens[:-1]]
+        step = chunk or 1
+        for i in range(0, len(inputs), step):
+            part = inputs[i:i + step]
             ln = torch.tensor([p + i], device=dev)
-            logits, entry = model.decode_fn(
-                state, torch.tensor([int(tok)], device=dev), arena, ln)
+            if chunk is None:
+                logits, entry = model.decode_fn(
+                    state, torch.tensor(part, device=dev), arena, ln)
+                logits, entry = logits[:, None], {
+                    name: e[:, None] for name, e in entry.items()}
+            else:
+                logits, entry = model.verify_fn(state, torch.tensor(
+                    [part + [0] * (chunk - len(part))], device=dev), arena,
+                    ln)
             for name, e in entry.items():
-                arena[name][0, p + i] = e[0]
-            rows.append(logits[0])
+                arena[name][0, p + i:p + i + len(part)] = e[0, :len(part)]
+            rows.extend(logits[0, :len(part)])
         return torch.stack(rows).cpu().numpy()
 
 
 def profile_decode(model, workload, slots, max_len, prompt_buckets,
-                   sampling=None):
+                   sampling=None, draft=None, spec_k=4):
     """Where a decode tick's time goes on the card: ``slots`` requests of
     ``workload`` (each asking for the whole arena) are seated and two
     ticks run to warm; then :data:`PROFILE_TICKS` ticks are timed on the
     host clock (each ends by reading its tokens back) and as many more
-    under ``torch.profiler``. Returns the wall time a tick, the card's
-    busy time a tick (its kernels' and copies' device time, profiled), the
-    idle share (1 - busy / wall), the profiled wall time a tick, launches
-    a tick and the kernels that took the most device time."""
+    under ``torch.profiler``. With ``draft`` the ticks are speculative
+    (``spec_k`` proposals a lane), and fewer where a lane's budget could
+    end before the last of them: every lane stays live throughout.
+    Returns the wall time a tick, the tokens a tick, the card's busy time
+    a tick (its kernels' and copies' device time, profiled), the idle
+    share (1 - busy / wall), the profiled wall time a tick, launches a
+    tick and the kernels that took the most device time."""
     from paddle_tpu_torch.serving import GenerateEngine
-    ticks = PROFILE_TICKS
     eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
                          max_len=max_len, prompt_buckets=prompt_buckets,
-                         start=False, shed=False)
+                         start=False, shed=False, draft_model=draft,
+                         spec_k=spec_k)
+    seated = workload[:slots]
+    limit = min(max_len, eng.seq_limit)
+    # a tick emits at most spec_k tokens a lane; the prefill emits one
+    room = limit - max(len(p) for p, _ in seated) - 1
+    ticks = min(PROFILE_TICKS, (room // (spec_k if draft else 1) - 2) // 2)
     try:
         eng.warmup()
-        for i, (prompt, _new) in enumerate(workload[:slots]):
-            eng.submit(prompt, max_new_tokens=max_len - len(prompt),
+        for i, (prompt, _new) in enumerate(seated):
+            eng.submit(prompt, max_new_tokens=limit - len(prompt),
                        sampling=sampling, seed=i if sampling else None)
         eng.tick()
         eng.tick()
         torch.cuda.synchronize()
+        tokens0 = eng.stats()["tokens"]
         t0 = time.perf_counter()
         for _ in range(ticks):
             eng.tick()
         wall = time.perf_counter() - t0
+        tokens = eng.stats()["tokens"] - tokens0
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -199,8 +253,12 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
                 eng.tick()
             torch.cuda.synchronize()
             wall_profiled = time.perf_counter() - t0
+        live = eng.pool.used_slots()
     finally:
         eng.close(drain=False)
+    if live != len(seated):
+        raise RuntimeError(f"profile_decode: {len(seated) - live} lanes "
+                           f"ended inside the timed ticks")
     names = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -210,8 +268,10 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
     tick_ms = wall * 1e3 / ticks
     return {
         "sampled": sampling is not None,
+        "spec_k": spec_k if draft is not None else None,
         "ticks": ticks,
         "tick_ms": tick_ms,
+        "tokens_per_tick": tokens / ticks,
         "busy_ms_per_tick": busy,
         "idle_share": 1.0 - busy / tick_ms,
         "profiled_tick_ms": wall_profiled * 1e3 / ticks,
@@ -256,35 +316,73 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also time a decode tick on the host clock and "
                          "under torch.profiler (the card only)")
+    ap.add_argument("--spec", action="store_true",
+                    help="A/B speculative against plain decode instead of "
+                         "continuous against drain (sampled traffic)")
+    ap.add_argument("--spec-k", type=int, default=8,
+                    help="draft tokens proposed a verify step")
+    ap.add_argument("--draft", choices=["pair", "self"], default="pair",
+                    help="pair: the distilled demo pair; self: the target "
+                         "drafts for itself (accept rate 1)")
     args = ap.parse_args(argv)
     if args.profile and args.device == "cpu":
         ap.error("--profile reads the card's device time; drop --device cpu")
 
-    from paddle_tpu_torch.serving import demo_model
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair
     torch.backends.cuda.matmul.allow_tf32 = False
     sampling = _parse_sampling(args.sampling) if args.sampling else None
     workload = make_workload(args.requests, PROMPT_BUCKETS, args.max_len,
                              seed=args.seed)
-    model = demo_model(vocab=64, dim=256, heads=4, layers=2,
-                       max_len=args.max_len, seed=1, device=args.device)
+    draft = None
+    if args.spec:
+        sampling = sampling or {"temperature": 1.0}
+        if args.draft == "pair":
+            model, draft = demo_spec_pair(**SPEC_PAIR, max_len=args.max_len,
+                                          device=args.device)
+        else:
+            model = demo_model(**SPEC_SELF, max_len=args.max_len,
+                               device=args.device)
+            draft = model
+    else:
+        model = demo_model(vocab=64, dim=256, heads=4, layers=2,
+                           max_len=args.max_len, seed=1, device=args.device)
     result = {"requests": args.requests, "slots": args.slots,
               "sampling": sampling}
     if model.device.type == "cuda":
         result["card"] = nvidia_smi()
-    modes = ["continuous", "drain"] if args.mode == "both" else [args.mode]
-    for mode in modes:
-        r = run_load(model, mode, workload, args.slots, args.max_len,
-                     PROMPT_BUCKETS, sampling=sampling,
-                     seed_base=args.seed_base if sampling else None)
-        r.pop("outputs")
-        result[mode] = r
-    if len(modes) == 2:
-        result["speedup_x"] = (result["continuous"]["tokens_per_s"]
-                               / result["drain"]["tokens_per_s"])
+    seed_base = args.seed_base if sampling else None
+    if args.spec:
+        # the same sampled traffic, continuous refill, draft off and on
+        arms = {"nonspec": None, "spec": draft}
+        for arm, d in arms.items():
+            r = run_load(model, "continuous", workload, args.slots,
+                         args.max_len, PROMPT_BUCKETS, sampling=sampling,
+                         seed_base=seed_base, draft=d, spec_k=args.spec_k)
+            r.pop("outputs")
+            result[arm] = r
+        result["spec_speedup_x"] = (result["spec"]["tokens_per_s"]
+                                    / result["nonspec"]["tokens_per_s"])
+        result["accept_rate"] = result["spec"]["accept_rate"]
+    else:
+        modes = (["continuous", "drain"] if args.mode == "both"
+                 else [args.mode])
+        for mode in modes:
+            r = run_load(model, mode, workload, args.slots, args.max_len,
+                         PROMPT_BUCKETS, sampling=sampling,
+                         seed_base=seed_base)
+            r.pop("outputs")
+            result[mode] = r
+        if len(modes) == 2:
+            result["speedup_x"] = (result["continuous"]["tokens_per_s"]
+                                   / result["drain"]["tokens_per_s"])
     if args.profile:
         result["profile"] = profile_decode(model, workload, args.slots,
                                            args.max_len, PROMPT_BUCKETS,
                                            sampling=sampling)
+        if args.spec:
+            result["profile_spec"] = profile_decode(
+                model, workload, args.slots, args.max_len, PROMPT_BUCKETS,
+                sampling=sampling, draft=draft, spec_k=args.spec_k)
     print(json.dumps(result))
     return 0
 

@@ -969,12 +969,12 @@ def test_resnet_kernel_route_launches_and_matches_the_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,s,d", [(4, 1, 64), (4, 4, 64), (4, 16, 64),
-                                   (2, 16, 8)])
+                                   (2, 16, 8), (2, 4, 96), (2, 16, 96)])
 def test_flash_causal_f32_at_prefill_lengths(cuda_device, h, s, d):
     """The prefill's shapes: one prompt, (1, H, L, Dh) float32 causal
     views of a (1, L, H, Dh) projection, L far below the kernel's query
     tile (padded query rows, the causal edge inside one tile); head dim
-    8 runs zero-padded to 64."""
+    8 runs zero-padded to 64, and 96 (the speculative pair's) to 128."""
     g = torch.Generator(device=cuda_device).manual_seed(s * 100 + d)
     qkv = torch.randn(3, 1, s, h, d, device=cuda_device, generator=g)
     q, k, v = (t.transpose(1, 2) for t in qkv)
@@ -1034,3 +1034,49 @@ def test_generate_engine_on_card_matches_cpu(cuda_device):
         assert got[:first_tie] == want[:first_tie]
         assert (np.argmax(on_card, axis=-1)[sure] == np.asarray(want)[sure]
                 ).all()
+
+
+@pytest.mark.cuda
+def test_spec_engine_on_card_completes_a_brim_request(cuda_device):
+    """The speculative engine on the card: a request at prompt + new equal
+    to the model's max_len (its chunks reach past the position table and
+    the arena: no device assert), each prefill launching the flash
+    kernel once a layer of both models and a tick never, and greedy
+    speculation giving the greedy plain stream up to its first near-tie
+    of the target's teacher-forced logits."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    target, draft = serving.demo_spec_pair(vocab=64, dim=192, heads=2,
+                                           draft_layers=1, extra_layers=3,
+                                           max_len=32, seed=1, distill=0.1)
+    prompt = list(range(1, 9))
+    streams = {}
+    for name, d in (("plain", None), ("spec", draft)):
+        eng = serving.GenerateEngine(target, slots=4, page=16, max_len=32,
+                                     prompt_buckets=(16,), start=False,
+                                     shed=False, draft_model=d, spec_k=8)
+        eng.warmup()
+        before = eng.executables()
+        kernels.reset_launches()
+        futs = [eng.submit(prompt, max_new_tokens=24),
+                eng.submit(prompt[:3], max_new_tokens=29,
+                           sampling={"temperature": 1.0}, seed=5)]
+        for _ in range(100):
+            if all(f.done() for f in futs):
+                break
+            eng.tick()
+        streams[name] = [list(map(int, f.result(timeout=60))) for f in futs]
+        st = eng.stats()
+        assert eng.executables() == before and st["failed"] == 0
+        layers = target.layers + (draft.layers if d is not None else 0)
+        assert kernels.launches["flash_attention_fwd"] == \
+            layers * st["prefills"]
+        eng.close()
+    assert [len(s) for s in streams["spec"]] == [24, 29]
+    want, got = streams["plain"][0], streams["spec"][0]
+    logits = teacher_forced_logits(target, prompt, want)
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > 1e-4 * np.maximum(
+        1.0, np.abs(top2[:, 1]))
+    first_tie = int(np.argmin(sure)) if not sure.all() else len(want)
+    assert got[:first_tie] == want[:first_tie]

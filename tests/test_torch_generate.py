@@ -334,8 +334,6 @@ def test_requests_are_bounded_by_the_models_positions():
 def test_unported_options_raise(models):
     _, lm = models
     with pytest.raises(NotImplementedError, match="item 17"):
-        serving.GenerateEngine(lm, draft_model=lm, start=False)
-    with pytest.raises(NotImplementedError, match="item 17"):
         serving.GenerateEngine(lm, kv_import=True, start=False)
     eng = serving.GenerateEngine(lm, slots=1, page=16, max_len=32,
                                  prompt_buckets=(4,), start=False)
