@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BERT-base serving and training paths, its
 ResNet-50 training path and its generative serving, plain and speculative,
-on one CUDA card.
+with the KV hand-off between engines and the serving monitor, on one CUDA
+card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -165,7 +166,33 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    of the 8-layer target on the host clock and under ``torch.profiler``,
    and the target's and the draft's prefill at 16 tokens (device time
    from a CUDA graph, and eager).
-15. the ``kernels`` line (all 14), the card's name and power limit, and
+15. the KV hand-off and the monitor: phase 13's traffic (greedy, then
+   sampled) into a ``GenerateEngine`` on phase 13's model and engine
+   settings, 40 ticks, then every request to a second, warmed engine
+   built with ``kv_import=True`` (live lanes by
+   ``disown_inflight(export_kv=True)``, queued ones by ``steal_pending``;
+   half through ``requeue``, half through ``submit_request(admit=False)``),
+   with the launch counts zeroed just before each engine's traffic and
+   read just after: every request complete with its token count, the
+   second engine meeting no signature after ``warmup()``, its
+   ``kv_imports`` equal to the exported lanes, its flash launches one a
+   layer a bare request's prefill and none for an imported lane, each
+   segment's bytes ``bytes_per_token x pad``, and every stream equal to
+   the unmoved run's on the card (each departure counted and a near-tie
+   of the teacher-forced logits); then the speculative pair of phase 14
+   at k = 8, greedy, after 3 ticks, the second engine carrying the draft;
+   each lane's export and import time (mean, max) and the bytes moved.
+   Then the port's monitor: phase 13's sampled traffic with the monitor
+   and tracer off, on with its JSONL sink and on in memory, in turns
+   (tokens/s each way, and the records' own host time), one record a
+   request, the decode counters equal to the engine's, TTFT and TPOT
+   p50/p99 and ``serving.decode.prefill_ratio``; a sampled tick's
+   launches with the monitor off and on (equal); phase 14's sampled A/B
+   with the monitor on, the speculative arm's summed prefill time against
+   its summed tick time; the Chrome trace written under
+   ``paddle_tpu_torch/_build/monitor/`` and read back, the engine's slot
+   lanes in it.
+16. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -2132,6 +2159,432 @@ def spec_phase(np, torch, FA, smi, seed, gen):
     return dict(kernel=fa, runs=runs, ticks=ticks)
 
 
+# -- phase 15: the KV hand-off and the monitor --------------------------------
+
+# engine A takes phase 13's traffic and ticks this many times before every
+# request moves to engine B (each live lane then has decode tokens of its
+# own, and the long requests' lanes have outgrown the first capacity); the
+# speculative pair emits up to k tokens a lane a tick, so fewer
+HANDOFF_TICKS, HANDOFF_SPEC_TICKS = 40, 3
+# the monitor's cost: phase 13's sampled traffic with the monitor off, on
+# with its JSONL sink, and on in memory only, in turns, this block this
+# many times (a host-bound number drifts within a call: the order cancels
+# a steady drift)
+MONITOR_BLOCK = ("off", "sink", "memory", "memory", "sink", "off")
+MONITOR_TURNS = 4
+# the monitor's own host time: record calls timed in a loop (a tick's
+# record, and one request's records from submit to its terminal record)
+MONITOR_COST_CALLS = 2000
+# where a moved stream parts from the unmoved one, the decision there, from
+# the card's teacher-forced logits, must lie within this of a tie (the
+# scaled top-2 margin, Gumbel-perturbed where sampled): A's and B's arenas
+# may stand at other capacities, so the attention's products may round
+# apart
+HANDOFF_TIE_TOL = SPEC_TIE_TOL
+
+
+def _engine(model, **kw):
+    from paddle_tpu_torch.serving import GenerateEngine
+    return GenerateEngine(model, slots=GEN_SLOTS, page=32, factor=2.0,
+                          max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS,
+                          queue_depth=GEN_REQUESTS + 8, shed=False,
+                          start=False, **kw)
+
+
+def _drain(eng, futs, ticks=5000):
+    for _ in range(ticks):
+        if all(f.done() for f in futs):
+            break
+        eng.tick()
+    return [[int(t) for t in f.result(timeout=60)] for f in futs]
+
+
+def handoff_departures(torch, model, workload, clean, moved, sampling):
+    """The requests whose moved stream parts from the unmoved one, each at
+    its first parting ``t`` with the closeness to a tie of the decision
+    there, from ``model``'s logits teacher-forced along the unmoved
+    stream: the scaled top-2 margin, of the Gumbel-perturbed filtered
+    logits where sampled. Each must be within :data:`HANDOFF_TIE_TOL`."""
+    from paddle_tpu_torch.serving import sampling as S
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    found = []
+    for i, ((prompt, n), want, got) in enumerate(zip(workload, clean,
+                                                     moved)):
+        check(len(got) == n, f"handoff: request {i} has {len(got)} tokens, "
+                             f"asked {n}")
+        t = next((j for j in range(n) if want[j] != got[j]), None)
+        if t is None:
+            continue
+        z = torch.from_numpy(teacher_forced_logits(model, prompt,
+                                                   want[:t + 1])[t:])
+        if sampling is not None:
+            z = S.filter_logits(z, [sampling["temperature"]],
+                                [sampling.get("top_k", 0)],
+                                [sampling.get("top_p", 1.0)])
+            z = z + S.gumbel(S.keys_for([GEN_SEED_BASE + i], [t],
+                                        S.SALT_TOKEN), z.shape[-1])
+        top2 = torch.topk(z[0], 2).values
+        closeness = float(top2[0] - top2[1]) / max(1.0, abs(float(top2[0])))
+        found.append(dict(request=i, at=t, closeness=closeness))
+        check(closeness <= HANDOFF_TIE_TOL,
+              f"handoff: request {i} parts from its unmoved stream at {t}, "
+              f"{closeness} from a tie")
+    return found
+
+
+def handoff_run(np, torch, smi, model, workload, sampling, label,
+                draft=None, clean=None, ticks=HANDOFF_TICKS):
+    """Phase 15's hand-off: ``workload`` into engine A, ``ticks`` ticks,
+    then every request to a warmed ``kv_import=True`` engine B (the
+    live lanes exported with their KV, the queued ones bare; half through
+    ``requeue``, half through ``submit_request(admit=False)``), with the
+    launch counts zeroed just before each engine's traffic and read just
+    after. Each moved stream is held to ``clean`` (the unmoved streams on
+    the same card), departures counted and each a near-tie."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.kv_cache import KVCachePool, bytes_per_token
+    layers = model.layers + (draft.layers if draft is not None else 0)
+    a = _engine(model, draft_model=draft, spec_k=SPEC_K)
+    a.warmup()
+    kernels.reset_launches()
+    futs = [a.submit(p, max_new_tokens=n, sampling=sampling,
+                     seed=(GEN_SEED_BASE + i) if sampling else None)
+            for i, (p, n) in enumerate(workload)]
+    for _ in range(ticks):
+        a.tick()
+    torch.cuda.synchronize()
+    a_launches = dict(kernels.launches)
+    a_stats = a.stats()
+    check(a_launches["flash_attention_fwd"] == layers * a_stats["prefills"]
+          > 0, f"handoff {label}: engine A's flash launches "
+               f"{a_launches['flash_attention_fwd']}, want {layers} a "
+               f"prefill ({a_stats['prefills']})")
+    live = [(s, slot) for s, slot in enumerate(a._slots)
+            if slot.req is not None]
+    check(live and all(len(slot.tokens) >= 2 for _, slot in live),
+          f"handoff {label}: a live lane without a decode token")
+    # each lane's export alone, timed (the device-to-host copies and the
+    # one wait), then the engine's own hand-off, which exports them again
+    export_ms = []
+    for s, slot in live:
+        t0 = time.perf_counter()
+        a.pool.export_slot(s, pad_to=a.pool.capacity_for(slot.length))
+        export_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    moved = a.disown_inflight(export_kv=True) + a.steal_pending()
+    disown_ms = (time.perf_counter() - t0) * 1e3
+    a.close(drain=False)
+    exported = [r for r in moved if r.preset is not None]
+    per_tok = bytes_per_token(model.kv_spec())
+    for r in exported:
+        seg = r.preset["segment"]
+        check(seg["bytes"] == per_tok * seg["pad"],
+              f"handoff {label}: a segment of {seg['bytes']} bytes at pad "
+              f"{seg['pad']}, want {per_tok} a position")
+    check(len(exported) == len(live) and len(moved) == len(workload)
+          - a_stats["completed"],
+          f"handoff {label}: moved {len(moved)}, exported {len(exported)} "
+          f"of {len(live)} live lanes")
+    # each segment's import alone into a spare arena, timed to the card's
+    # completion of the host-to-device copies
+    spare = KVCachePool(model.kv_spec(), GEN_SLOTS, page=32, factor=2.0,
+                        max_len=GEN_MAX_LEN)
+    spare.grow_to(spare.max_len, lambda b, o, n: {k: torch.cat([v, torch.zeros(
+        (v.shape[0], n - o) + tuple(v.shape[2:]), device=v.device)], 1)
+        for k, v in b.items()})
+    import_ms = []
+    for i, r in enumerate(exported):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spare.import_slot(i % GEN_SLOTS, r.preset["segment"])
+        torch.cuda.synchronize()
+        import_ms.append((time.perf_counter() - t0) * 1e3)
+
+    b = _engine(model, draft_model=draft, spec_k=SPEC_K, kv_import=True)
+    b.warmup()
+    before = b.executables()
+    kernels.reset_launches()
+    b.requeue(moved[:len(moved) // 2])
+    for r in moved[len(moved) // 2:]:
+        b.submit_request(r, admit=False)
+    outs = _drain(b, futs)
+    torch.cuda.synchronize()
+    b_launches = dict(kernels.launches)
+    st = b.stats()
+    after = b.executables()
+    b.close()
+    check(after == before, f"handoff {label}: engine B met "
+                           f"{after[0] - before[0]} signatures after warmup")
+    check(st["kv_imports"] == len(exported),
+          f"handoff {label}: {st['kv_imports']} imports, "
+          f"{len(exported)} exported lanes")
+    check(st["prefills"] == len(moved) - len(exported)
+          and b_launches["flash_attention_fwd"] == layers * st["prefills"],
+          f"handoff {label}: engine B's {b_launches['flash_attention_fwd']} "
+          f"flash launches, {st['prefills']} prefills for "
+          f"{len(moved) - len(exported)} bare requests (an imported lane "
+          f"must launch none)")
+    deps = handoff_departures(torch, model, workload, clean, outs, sampling)
+    rec = dict(phase="handoff", case=label, card=smi, ticks_before=ticks,
+               requests=len(workload), moved=len(moved),
+               exported=len(exported),
+               pads=sorted(r.preset["segment"]["pad"] for r in exported),
+               bytes_moved=sum(r.preset["segment"]["bytes"]
+                               for r in exported),
+               export_ms_mean=statistics.mean(export_ms),
+               export_ms_max=max(export_ms),
+               import_ms_mean=statistics.mean(import_ms),
+               import_ms_max=max(import_ms), disown_ms=disown_ms,
+               engine_a_prefills=a_stats["prefills"],
+               engine_b_prefills=st["prefills"], kv_imports=st["kv_imports"],
+               engine_b_flash_launches=b_launches["flash_attention_fwd"],
+               departures=deps, tol=HANDOFF_TIE_TOL)
+    if draft is not None:
+        rec.update(spec_proposed=st["spec_proposed"],
+                   spec_accepted=st["spec_accepted"])
+    emit(rec)
+    return rec
+
+
+def monitor_host_cost(monitor, path):
+    """The host time the monitor's records take, on, with a sink: a decode
+    tick's record, and one request's records and spans from its submit
+    to its terminal record (what ``GenerateEngine`` calls for it), in µs,
+    each the mean of :data:`MONITOR_COST_CALLS` calls."""
+    from paddle_tpu_torch.serving import metrics, reqtrace
+    trc = monitor.trace
+    monitor.enable(str(path))
+    trc.enable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(MONITOR_COST_CALLS):
+            metrics.record_decode_tick(8, 8, 8, 7.0)
+        tick_us = (time.perf_counter() - t0) / MONITOR_COST_CALLS * 1e6
+        t0 = time.perf_counter()
+        for i in range(MONITOR_COST_CALLS):
+            att = reqtrace.attach(None, kind="decode")
+            metrics.record_submit(1)
+            metrics.record_queue_depth(1)
+            att.hop("enqueue")
+            with trc.span("serving.enqueue", depth=1):
+                reqtrace.flow_mark(att)
+            metrics.record_queue_depth(0)
+            att.to("prefill")
+            pc = time.perf_counter()
+            metrics.record_prefill(8, 5.0, 16)
+            att.first_token()
+            trc.lane_complete("kv.slot0", "prefill", pc, pc, rid=i,
+                              tokens=8, bucket=16)
+            att.note_tokens(8)
+            metrics.record_completed(1, [100.0], within_sla=[True])
+            att.finalize("ok")
+            trc.lane_complete("kv.slot0", "req", pc, rid=i, tokens=8)
+        request_us = (time.perf_counter() - t0) / MONITOR_COST_CALLS * 1e6
+    finally:
+        monitor.disable()
+        trc.disable()
+        monitor.reset()
+        trc.clear()
+        reqtrace.reset()
+        metrics.reset_windows()
+    return tick_us, request_us
+
+
+def monitor_phase(np, torch, smi, seed):
+    """Phase 15, second half: phase 13's sampled traffic and phase 14's
+    A/B with the port's monitor and tracer on (and phase 13's traffic off,
+    in the same call): TTFT and TPOT, the prefill share, the speculative
+    arm's summed prefill against tick time, the records and counters
+    against the engine's, a tick's launches with the monitor on and off,
+    and the Chrome trace."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair, metrics
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    out_dir = HERE / "paddle_tpu_torch" / "_build" / "monitor"
+    model = demo_model(**GEN_MODEL)
+    wl = LG.make_workload(GEN_REQUESTS, GEN_PROMPT_BUCKETS, GEN_MAX_LEN,
+                          seed=seed)
+
+    def load(m, draft=None, sampling=GEN_SAMPLING):
+        r = LG.run_load(m, "continuous", wl, GEN_SLOTS, GEN_MAX_LEN,
+                        GEN_PROMPT_BUCKETS, sampling=sampling,
+                        seed_base=GEN_SEED_BASE, draft=draft, spec_k=SPEC_K)
+        r.pop("outputs")
+        return r
+
+    # the monitor's cost on tokens/s: off and on in turns, in one call
+    runs = {arm: [] for arm in MONITOR_BLOCK}
+    snaps, sink = [], None
+    try:
+        for arm in MONITOR_BLOCK * MONITOR_TURNS:
+            if arm != "off":
+                path = monitor.enable(str(out_dir) if arm == "sink"
+                                      else None)
+                sink = path or sink
+                monitor.trace.enable()
+            snaps.append(monitor.snapshot("serving.decode."))
+            runs[arm].append(load(model))
+            snaps.append(monitor.snapshot("serving.decode."))
+            monitor.disable()
+            monitor.trace.disable()
+        # a sampled tick's launches, with the monitor off and on
+        ticks_off = LG.profile_decode(model, wl, GEN_SLOTS, GEN_MAX_LEN,
+                                      GEN_PROMPT_BUCKETS,
+                                      sampling=GEN_SAMPLING)
+        monitor.enable(str(out_dir))
+        monitor.trace.enable()
+        ticks_on = LG.profile_decode(model, wl, GEN_SLOTS, GEN_MAX_LEN,
+                                     GEN_PROMPT_BUCKETS, sampling=GEN_SAMPLING)
+        target, draft = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN)
+        arms = {arm: load(target, d, SPEC_SAMPLING)
+                for arm, d in (("plain", None), ("spec", draft))}
+        trace_path = monitor.trace.export_chrome_trace(
+            str(out_dir / "trace.json"))
+    finally:
+        monitor.disable()
+        monitor.trace.disable()
+    off, ons = runs["off"], runs["sink"]
+    on = ons[0]
+    tick_us, request_us = monitor_host_cost(monitor, out_dir / "cost")
+    snap0, snap1 = snaps[2], snaps[3]
+    # the runs' requests completed; the profiled ticks' requests, closed
+    # mid-stream, end as errors
+    records = [r for r in monitor.read_jsonl(sink)
+               if r["kind"] == "serving.request" and r["outcome"] == "ok"]
+    check(all(len(r["records"]) == GEN_REQUESTS
+              for r in ons + runs["memory"])
+          and len(records) == GEN_REQUESTS * (len(ons) + 2),
+          f"monitor: {[len(r['records']) for r in ons]} records for "
+          f"{GEN_REQUESTS} requests a run, {len(records)} in the sink for "
+          f"{len(ons) + 2} runs")
+    delta = {k: snap1[k] - snap0.get(k, 0) for k in (
+        "serving.decode.ticks", "serving.decode.tokens",
+        "serving.decode.prefills", "serving.decode.prefill_tokens")}
+    want = {"serving.decode.ticks": on["ticks"],
+            # a tick's tokens: each request's first comes from its prefill
+            "serving.decode.tokens": on["tokens"] - on["prefills"],
+            "serving.decode.prefills": on["prefills"],
+            "serving.decode.prefill_tokens": sum(len(p) for p, _ in wl)}
+    check(delta == want, f"monitor: decode counters {delta}, the engine's "
+                         f"{want}")
+    check(on["tick_ms_total"][0] == on["ticks"]
+          and on["prefill_ms_total"][0] == on["prefills"],
+          "monitor: a tick or prefill the histograms missed")
+    check(ticks_on["launches_per_tick"] == ticks_off["launches_per_tick"],
+          f"monitor: a tick launches {ticks_on['launches_per_tick']} with "
+          f"the monitor on, {ticks_off['launches_per_tick']} off")
+    with open(trace_path) as fh:
+        doc = json.load(fh)
+    lanes = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    names = {e["name"] for e in doc["traceEvents"]}
+    check(any(n.startswith("kv.slot") for n in lanes) and "kv.pool" in lanes
+          and {"serving.enqueue", "serving.warmup", "prefill"} <= names,
+          f"monitor: the Chrome trace lacks the engine's lanes ({lanes})")
+    sp = arms["spec"]
+    rec = dict(
+        phase="monitor", card=smi, requests=GEN_REQUESTS,
+        tokens_per_s_off=[r["tokens_per_s"] for r in off],
+        tokens_per_s_on=[r["tokens_per_s"] for r in ons],
+        tokens_per_s_memory=[r["tokens_per_s"] for r in runs["memory"]],
+        monitor_cost=1.0 - statistics.median(r["tokens_per_s"] for r in ons)
+        / statistics.median(r["tokens_per_s"] for r in off),
+        memory_cost=1.0 - statistics.median(
+            r["tokens_per_s"] for r in runs["memory"])
+        / statistics.median(r["tokens_per_s"] for r in off),
+        # each block's own ratio: on (sink) over off, its two runs each
+        block_ratios=[sum(r["tokens_per_s"] for r in ons[2 * b:2 * b + 2])
+                      / sum(r["tokens_per_s"] for r in off[2 * b:2 * b + 2])
+                      for b in range(MONITOR_TURNS)],
+        # the monitor's own host time, and what it comes to in a run of
+        # the same ticks and requests, as a share of the run's wall time
+        record_tick_us=tick_us, record_request_us=request_us,
+        monitor_host_share=(tick_us * on["ticks"] + request_us
+                            * GEN_REQUESTS) / 1e6 / on["wall_s"],
+        ttft_p50_ms=[r["ttft_p50_ms"] for r in ons],
+        ttft_p99_ms=[r["ttft_p99_ms"] for r in ons],
+        tpot_p50_ms=[r["tpot_p50_ms"] for r in ons],
+        tpot_p99_ms=[r["tpot_p99_ms"] for r in ons],
+        prefill_ratio=[r["prefill_ratio"] for r in ons],
+        prefill_ms_total=[r["prefill_ms_total"] for r in ons],
+        tick_ms_total=[r["tick_ms_total"] for r in ons],
+        wall_s=[r["wall_s"] for r in ons],
+        tick_launches=[ticks_off["launches_per_tick"],
+                       ticks_on["launches_per_tick"]],
+        tick_ms=[ticks_off["tick_ms"], ticks_on["tick_ms"]],
+        spec={arm: dict(tokens_per_s=r["tokens_per_s"], wall_s=r["wall_s"],
+                        prefill_ms_total=r["prefill_ms_total"],
+                        tick_ms_total=r["tick_ms_total"],
+                        prefill_ratio=r["prefill_ratio"],
+                        ttft_p50_ms=r["ttft_p50_ms"],
+                        ttft_p99_ms=r["ttft_p99_ms"],
+                        tpot_p50_ms=r["tpot_p50_ms"],
+                        tpot_p99_ms=r["tpot_p99_ms"])
+              for arm, r in arms.items()},
+        spec_prefill_s=sp["prefill_ms_total"][1] / 1e3,
+        spec_tick_s=sp["tick_ms_total"][1] / 1e3,
+        trace_events=len(doc["traceEvents"]), trace=str(trace_path),
+        decode_rollup=metrics.decode_rollup())
+    emit(rec)
+    return rec
+
+
+def handoff_phase(np, torch, smi, seed):
+    """Phase 15: the KV hand-off on the card (plain, greedy and sampled;
+    then the speculative pair, greedy), then the monitor."""
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    t0 = time.perf_counter()
+    model = demo_model(**GEN_MODEL)
+    wl = LG.make_workload(GEN_REQUESTS, GEN_PROMPT_BUCKETS, GEN_MAX_LEN,
+                          seed=seed)
+    runs = {}
+    for kind, sampling in (("greedy", None), ("sampled", GEN_SAMPLING)):
+        eng = _engine(model)
+        eng.warmup()
+        clean = _drain(eng, [eng.submit(
+            p, max_new_tokens=n, sampling=sampling,
+            seed=(GEN_SEED_BASE + i) if sampling else None)
+            for i, (p, n) in enumerate(wl)])
+        eng.close()
+        runs[kind] = handoff_run(np, torch, smi, model, wl, sampling, kind,
+                                 clean=clean)
+    target, draft = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN)
+    eng = _engine(target)
+    eng.warmup()
+    clean = _drain(eng, [eng.submit(p, max_new_tokens=n) for p, n in wl])
+    eng.close()
+    runs["spec_greedy"] = handoff_run(np, torch, smi, target, wl, None,
+                                      "spec_greedy", draft=draft,
+                                      clean=clean, ticks=HANDOFF_SPEC_TICKS)
+    mon = monitor_phase(np, torch, smi, seed)
+    emit(dict(
+        phase="handoff_summary", card=smi,
+        export_ms_mean={k: r["export_ms_mean"] for k, r in runs.items()},
+        export_ms_max={k: r["export_ms_max"] for k, r in runs.items()},
+        import_ms_mean={k: r["import_ms_mean"] for k, r in runs.items()},
+        import_ms_max={k: r["import_ms_max"] for k, r in runs.items()},
+        bytes_moved={k: r["bytes_moved"] for k, r in runs.items()},
+        exported={k: r["exported"] for k, r in runs.items()},
+        departures={k: len(r["departures"]) for k, r in runs.items()},
+        ttft_ms=[statistics.median(mon["ttft_p50_ms"]),
+                 statistics.median(mon["ttft_p99_ms"])],
+        tpot_ms=[statistics.median(mon["tpot_p50_ms"]),
+                 statistics.median(mon["tpot_p99_ms"])],
+        prefill_ratio=statistics.median(mon["prefill_ratio"]),
+        record_tick_us=mon["record_tick_us"],
+        record_request_us=mon["record_request_us"],
+        monitor_host_share=mon["monitor_host_share"],
+        spec_prefill_s=mon["spec_prefill_s"], spec_tick_s=mon["spec_tick_s"],
+        spec_wall_s=mon["spec"]["spec"]["wall_s"],
+        monitor_cost=mon["monitor_cost"], memory_cost=mon["memory_cost"],
+        block_ratios=mon["block_ratios"],
+        tokens_per_s=[mon["tokens_per_s_off"], mon["tokens_per_s_on"]],
+        tick_launches=mon["tick_launches"],
+        seconds=time.perf_counter() - t0))
+    return runs, mon
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -2361,7 +2814,10 @@ def main(argv=None):
     # 14. speculative decoding
     spec_phase(np, torch, FA, smi, args.seed, gen)
 
-    # 15. the kernels line, the card, and the verdict
+    # 15. the KV hand-off, and the monitor
+    handoff_phase(np, torch, smi, args.seed)
+
+    # 16. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

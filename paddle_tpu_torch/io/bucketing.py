@@ -2,7 +2,8 @@
 sizes, and slice them back.
 
 Counterpart of ``next_bucket``, ``grow_buckets``, ``pad_to_bucket``,
-``unpad`` and ``split_rows`` in ``paddle_tpu/io/bucketing.py``, on numpy
+``batch_mask``, ``unpad`` and ``split_rows`` in
+``paddle_tpu/io/bucketing.py``, on numpy
 arrays and ``torch.Tensor`` alike. Padding repeats the last real row by default
 (``mode="zeros"`` zero-fills). On the card a fixed set of batch shapes
 means the warmed-up shapes are the only ones traffic meets.
@@ -84,6 +85,14 @@ def pad_to_bucket(array, target, axis=0, mode="repeat"):
     if is_torch:
         return torch.cat([array, fill], dim=axis)
     return np.concatenate([array, fill], axis=axis)
+
+
+def batch_mask(real_n, padded_n, dtype="float32"):
+    """A ``(padded_n,)`` numpy 0/1 mask, 1 for the real rows: its mean is
+    a padded batch's occupancy (``serving.metrics.record_batch``)."""
+    m = np.zeros((int(padded_n),), dtype=dtype)
+    m[:int(real_n)] = 1
+    return m
 
 
 def unpad(array, real_n, axis=0):

@@ -17,11 +17,15 @@ Counterpart of ``paddle_tpu/serving`` for this slice:
   fixed-slot KV arena on a closed capacity family
 * :mod:`~paddle_tpu_torch.serving.sampling`  — :class:`SamplingParams`,
   the top-k / top-p filter and counter-keyed Gumbel-max draws
+* :mod:`~paddle_tpu_torch.serving.metrics`   — the serving series and
+  rolling SLO windows over the port's monitor
+* :mod:`~paddle_tpu_torch.serving.reqtrace`  — one ``serving.request``
+  record a request, its latency split into stages (TTFT, TPOT)
 
-Metrics, request tracing, the monitor's spans, fault injection, the
-multi-replica fleet and disaggregated serving are not ported yet (see
-ROADMAP.md).
+Fault injection, the multi-replica fleet and disaggregated serving are
+not ported yet (see ROADMAP.md).
 """
+from . import metrics, reqtrace
 from .admission import (AdmissionController, DeadlineExpired, PRIORITIES,
                         QueueFullError, ShedError)
 from .batcher import DynamicBatcher, Request
@@ -34,4 +38,5 @@ from .sampling import SamplingParams
 __all__ = ["AdmissionController", "DeadlineExpired", "PRIORITIES",
            "QueueFullError", "ShedError", "DynamicBatcher", "Request",
            "ServingEngine", "DecodeRequest", "DemoLM", "GenerateEngine",
-           "demo_model", "demo_spec_pair", "KVCachePool", "SamplingParams"]
+           "demo_model", "demo_spec_pair", "KVCachePool", "SamplingParams",
+           "metrics", "reqtrace"]

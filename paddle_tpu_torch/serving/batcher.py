@@ -1,10 +1,10 @@
 """paddle_tpu_torch.serving.batcher — dynamic request coalescing.
 
-Counterpart of ``paddle_tpu/serving/batcher.py`` without its monitor,
-metrics and request-trace calls, and without the hooks the multi-replica
-fleet uses for supervision and failover (``inflight_age``,
-``steal_pending``, ``disown_inflight``, ``requeue``), which come back
-with ``serving/multi.py``. Callers submit ragged requests (1, 3,
+Counterpart of ``paddle_tpu/serving/batcher.py``, with its metrics, span
+and request-trace calls, and without the hooks the multi-replica fleet
+uses for supervision and failover (``inflight_age``, ``steal_pending``,
+``disown_inflight``, ``requeue``), which come back with
+``serving/multi.py`` (ROADMAP.md Queue A item 17.3). Callers submit ragged requests (1, 3,
 7, 13 rows ...) into a bounded queue; a background thread drains it,
 coalesces same-signature requests along the batch axis, and flushes when
 either ``max_batch`` rows accumulate or the oldest request has waited
@@ -31,6 +31,9 @@ import concurrent.futures
 import threading
 import time
 
+from .. import monitor as _monitor
+from . import metrics
+
 
 class Request:
     """One in-flight unit of work: ``n`` example rows across one or
@@ -38,9 +41,10 @@ class Request:
     deadline. Created by ``ServingEngine.submit``."""
 
     __slots__ = ("inputs", "n", "signature", "future", "deadline",
-                 "t_enqueue", "priority")
+                 "t_enqueue", "priority", "trace")
 
-    def __init__(self, inputs, n, signature, deadline=None, priority=1):
+    def __init__(self, inputs, n, signature, deadline=None, priority=1,
+                 trace=None):
         self.inputs = inputs              # tuple of host arrays
         self.n = int(n)                   # rows along the batch axis
         self.signature = signature        # per-example (shape, dtype) tuple
@@ -48,6 +52,9 @@ class Request:
         self.deadline = deadline
         self.priority = int(priority)     # admission.PRIORITIES rank
         self.t_enqueue = time.monotonic()
+        # reqtrace.Attempt riding the request through thread hand-offs
+        # (None while the monitor is off)
+        self.trace = trace
 
     def age(self, now=None):
         return (now if now is not None else time.monotonic()) \
@@ -55,18 +62,32 @@ class Request:
 
     # concurrent.futures raises InvalidStateError on a cancelled (or
     # already resolved) future; a caller cancelling mid-flight must not
-    # crash the drain thread, and the first resolution wins.
+    # crash the drain thread, and the first resolution wins. The winner,
+    # and only the winner, finalizes the request trace: one terminal
+    # ``serving.request`` record a logical request.
     def resolve_result(self, value):
         try:
             self.future.set_result(value)
         except concurrent.futures.InvalidStateError:
-            pass
+            return
+        if self.trace is not None:
+            self.trace.finalize("ok")
 
     def resolve_exception(self, exc):
         try:
             self.future.set_exception(exc)
         except concurrent.futures.InvalidStateError:
-            pass
+            return
+        if self.trace is not None:
+            self.trace.finalize(*_outcome(exc))
+
+
+def _outcome(exc):
+    """A failed request's ``(outcome, error=)`` for its trace record."""
+    from .admission import DeadlineExpired, ShedError
+    return ("expired" if isinstance(exc, DeadlineExpired)
+            else "shed" if isinstance(exc, ShedError)
+            else "error"), repr(exc)
 
 
 class DynamicBatcher:
@@ -104,7 +125,10 @@ class DynamicBatcher:
                 raise RuntimeError("serving engine is closed")
             self._admission.admit(request, len(self._queue))
             self._queue.append(request)
+            depth = len(self._queue)
             self._cond.notify()
+        metrics.record_submit(request.n)
+        metrics.record_queue_depth(depth)
         return request.future
 
     def depth(self):
@@ -169,7 +193,9 @@ class DynamicBatcher:
                 with self._lock:
                     self._inflight = group
                 try:
-                    self._process(group)
+                    with _monitor.trace.span("serving.batch",
+                                             requests=len(group)):
+                        self._process(group)
                 except BaseException as e:  # noqa: BLE001 - to futures
                     # process() resolves its own failures; this is the
                     # belt-and-braces path for an unexpected escape, so
@@ -208,6 +234,7 @@ class DynamicBatcher:
                     kept.append(r)
             self._queue = kept
             if not self._queue:
+                metrics.record_queue_depth(0)
                 return expired, [], 0.0
 
             head = self._queue[0]
@@ -240,4 +267,5 @@ class DynamicBatcher:
             taken = set(map(id, cand))
             self._queue = collections.deque(
                 r for r in self._queue if id(r) not in taken)
+            metrics.record_queue_depth(len(self._queue))
             return expired, cand, 0.0

@@ -1,9 +1,11 @@
 """paddle_tpu_torch.serving.engine — a Predictor as an online endpoint.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` without the monitor,
-``serving/metrics.py``, ``serving/reqtrace.py`` and fault-injection
-wiring, and without the fleet's supervision surface (heartbeat, probe,
-failover hand-offs), which come back with ``serving/multi.py``.
+Counterpart of ``paddle_tpu/serving/engine.py``, with its monitor spans,
+``serving/metrics.py`` records and ``serving/reqtrace.py`` request
+traces, and without fault injection and the fleet's supervision surface
+(heartbeat, probe, failover hand-offs, ``replica_id``, ``on_outcome``),
+which come back with ``serving/multi.py`` (ROADMAP.md Queue A item
+17.3).
 
 ``ServingEngine`` composes the pieces: the batcher decides *when* a
 coalesced group flushes (``max_batch`` rows or ``timeout_ms``,
@@ -33,9 +35,12 @@ import time
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..inference import to_host
 from ..io.bucketing import next_bucket, pad_to_bucket, split_rows
 from ..resilience.deadline import Deadline
+from . import metrics
+from . import reqtrace
 from .admission import AdmissionController, resolve_priority
 from .batcher import DynamicBatcher, Request
 
@@ -77,17 +82,35 @@ class ServingEngine:
         failures.
     start : launch the drain thread now (False = tests drive it
         manually via ``.start()``).
-    shed : walk the priority shed ladder before the hard queue cap.
+    shed / slo_goodput_floor : walk the priority shed ladder before the
+        hard queue cap; one rung higher while the monitor's ``slo.*``
+        goodput window is below the floor.
 
-    The reference's ``seq_buckets`` (sequence-axis padding for token
-    prompts) is not ported: it comes with generative serving, and it is
-    wrong for BERT, whose repeated last ``attention_mask`` column would
-    make a padded key visible whenever the last real token is.
+    The reference's other options are accepted at their defaults and
+    raise ``NotImplementedError`` otherwise: ``metrics_port`` (the
+    ``/metrics`` endpoint, ROADMAP.md Queue A item 20), ``replica_id`` and
+    ``on_outcome`` (the fleet, item 17.3), and ``seq_buckets``
+    (sequence-axis padding for token prompts, item 17.5; wrong for BERT,
+    whose repeated last ``attention_mask`` column would make a padded key
+    visible whenever the last real token is).
     """
 
     def __init__(self, predictor, buckets=None, max_batch=32,
                  timeout_ms=5.0, queue_depth=256, deadline_ms=None,
-                 retry_policy=None, start=True, shed=True):
+                 retry_policy=None, start=True, metrics_port=None,
+                 replica_id=None, on_outcome=None, shed=True,
+                 slo_goodput_floor=0.90, seq_buckets=None):
+        for name, value, item in (("metrics_port", metrics_port, "20"),
+                                  ("replica_id", replica_id, "17.3"),
+                                  ("on_outcome", on_outcome, "17.3"),
+                                  ("seq_buckets", seq_buckets, "17.5")):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}: not ported yet (ROADMAP.md Queue A item "
+                    f"{item})")
+        self.replica_id = None
+        # the served weights' version, stamped into each request record
+        self.weights_version = 0
         self.predictor = predictor
         self.max_batch = int(max_batch)
         if self.max_batch < 1:
@@ -104,7 +127,8 @@ class ServingEngine:
         self.admission = AdmissionController(
             max_queue_depth=queue_depth,
             default_deadline_ms=deadline_ms,
-            retry_policy=retry_policy, shed=shed)
+            retry_policy=retry_policy, shed=shed,
+            slo_goodput_floor=slo_goodput_floor)
         self.admission.on_event = self._admission_event
         self._batcher = DynamicBatcher(
             self._process, self.admission,
@@ -120,9 +144,12 @@ class ServingEngine:
 
     # -- client surface ---------------------------------------------------
 
-    def make_request(self, inputs, deadline_ms=None, priority=None):
+    def make_request(self, inputs, deadline_ms=None, priority=None,
+                     trace=None):
         """Validate + canonicalize one submit's inputs into a ``Request``
-        (not yet enqueued). Raises ``ValueError`` on malformed inputs."""
+        (not yet enqueued). Raises ``ValueError`` on malformed inputs.
+        ``trace=`` carries a shed request's ``RequestTrace`` into its
+        retry, so that both are one logical request (one record)."""
         if not inputs:
             raise ValueError("submit() needs at least one input array")
         arrays = tuple(_as_host_array(x) for x in inputs)
@@ -143,18 +170,27 @@ class ServingEngine:
         deadline = (Deadline.after_ms(deadline_ms)
                     if deadline_ms is not None else None)
         sig = tuple((a.shape[1:], str(a.dtype)) for a in arrays)
-        return Request(arrays, n, sig, deadline=deadline,
-                       priority=resolve_priority(priority))
+        prio = resolve_priority(priority)
+        return Request(arrays, n, sig, deadline=deadline, priority=prio,
+                       trace=reqtrace.attach(trace, kind="serve",
+                                             priority=prio,
+                                             replica=self.replica_id,
+                                             version=self.weights_version))
 
     def submit_request(self, req):
         """Enqueue an already-built ``Request``; returns its future.
         Raises ``ShedError`` / ``QueueFullError`` from admission."""
-        fut = self._batcher.submit(req)
+        with _monitor.trace.span("serving.enqueue", rows=req.n):
+            fut = self._batcher.submit(req)
+            if req.trace is not None:
+                req.trace.hop("enqueue", replica=self.replica_id)
+                reqtrace.flow_mark(req.trace)
         with self._stats_lock:
             self._stats["submitted"] += 1
         return fut
 
-    def submit(self, *inputs, deadline_ms=None, priority=None):
+    def submit(self, *inputs, deadline_ms=None, priority=None,
+               trace=None):
         """Enqueue one request (each input shaped ``(n, ...)``, all with
         the same leading ``n <= max_batch``); returns a
         ``concurrent.futures.Future`` resolving to what
@@ -162,9 +198,11 @@ class ServingEngine:
         'high'/'normal'/'low' (default 'normal') — under overload the
         admission ladder sheds low classes first. Raises ``ShedError``
         / ``QueueFullError`` under overload, ``ValueError`` on
-        malformed inputs."""
+        malformed inputs. A caller retrying after a shed passes the shed
+        request's ``trace`` back."""
         return self.submit_request(self.make_request(
-            inputs, deadline_ms=deadline_ms, priority=priority))
+            inputs, deadline_ms=deadline_ms, priority=priority,
+            trace=trace))
 
     def run(self, *inputs, deadline_ms=None, timeout=None, priority=None):
         """Blocking submit: enqueue, wait, return the outputs (or raise
@@ -179,19 +217,22 @@ class ServingEngine:
         single ``(n, 16)`` float input. Returns the number of signatures
         warmed for the first time."""
         before = len(self.predictor._compiled)
-        for sig in signatures:
-            norm = []
-            for item in sig:
-                if hasattr(item, "shape") and hasattr(item, "dtype"):
-                    norm.append((tuple(item.shape), item.dtype))
-                else:
-                    shape, dtype = item
-                    norm.append((tuple(shape), dtype))
-            for b in self.buckets:
-                self.predictor.warmup(
-                    [((b,) + shape, dtype) for shape, dtype in norm])
+        with _monitor.trace.span("serving.warmup",
+                                 buckets=len(self.buckets)):
+            for sig in signatures:
+                norm = []
+                for item in sig:
+                    if hasattr(item, "shape") and hasattr(item, "dtype"):
+                        norm.append((tuple(item.shape), item.dtype))
+                    else:
+                        shape, dtype = item
+                        norm.append((tuple(shape), dtype))
+                for b in self.buckets:
+                    self.predictor.warmup(
+                        [((b,) + shape, dtype) for shape, dtype in norm])
         fresh = len(self.predictor._compiled) - before
         if fresh:
+            metrics.record_compiles(fresh)
             with self._stats_lock:
                 self._stats["compiles"] += fresh
         return fresh
@@ -232,14 +273,20 @@ class ServingEngine:
         retry/isolation) → scatter."""
         with self._stats_lock:
             self._stats["batches"] += 1
-        arrays, real_n, bucket = self._assemble(requests)
+        with _monitor.trace.span("serving.batch_assemble",
+                                 requests=len(requests)):
+            # queue time ends here: the drain thread owns the group now
+            reqtrace.transition(requests, "assemble", flow=True)
+            arrays, real_n, bucket = self._assemble(requests)
+        metrics.record_batch(real_n, bucket, len(requests))
         with self._stats_lock:
             self._stats["coalesced_rows"] += real_n
             self._stats["padded_rows"] += bucket - real_n
         outs = self._execute_with_recovery(requests, arrays)
         if outs is None:
             return      # isolation path resolved every future already
-        self._scatter(requests, outs)
+        with _monitor.trace.span("serving.scatter", requests=len(requests)):
+            self._scatter(requests, outs)
 
     def _assemble(self, requests):
         """Concatenate the group's inputs along the batch axis and pad
@@ -260,9 +307,12 @@ class ServingEngine:
         outputs plus whether the model is multi-output. Counts signatures
         met for the first time into ``compiles`` (zero after warmup)."""
         before = len(self.predictor._compiled)
-        out = self.predictor.run_device(*arrays)
+        with _monitor.trace.span("serving.execute",
+                                 rows=int(arrays[0].shape[0])):
+            out = self.predictor.run_device(*arrays)
         fresh = len(self.predictor._compiled) - before
         if fresh:
+            metrics.record_compiles(fresh)
             with self._stats_lock:
                 self._stats["compiles"] += fresh
         multi = isinstance(out, (tuple, list))
@@ -276,13 +326,18 @@ class ServingEngine:
         attempt = 0
         while True:
             try:
+                reqtrace.transition(requests, "execute")
                 return self._run_batch(arrays)
             except Exception as e:  # noqa: BLE001 - triaged below
                 if policy.is_transient(e) \
                         and attempt + 1 < policy.max_attempts:
+                    metrics.record_retry(where="serving.execute")
                     with self._stats_lock:
                         self._stats["retries"] += 1
-                    time.sleep(policy.delay(attempt))
+                    with _monitor.trace.span("serving.retry_backoff",
+                                             attempt=attempt + 1):
+                        reqtrace.transition(requests, "retry_backoff")
+                        time.sleep(policy.delay(attempt))
                     attempt += 1
                     continue
                 with self._stats_lock:
@@ -295,13 +350,15 @@ class ServingEngine:
         padded, so no fresh shapes are minted) and resolve its future.
         Raises to the caller (admission.isolate) if this request is the
         poison."""
+        reqtrace.transition([request], "execute")
         arrays, _real, _bucket = self._assemble([request])
         self._scatter([request], self._run_batch(arrays))
 
     def _scatter(self, requests, outs_multi):
         """Slice each request's rows back out (device→host once for the
-        whole batch) and resolve the futures."""
+        whole batch), resolve the futures and record their latencies."""
         outs, multi = outs_multi
+        reqtrace.transition(requests, "scatter", flow=True)
         host = [to_host(o) for o in outs]
         bucket = None
         for a in host:
@@ -317,8 +374,16 @@ class ServingEngine:
                 # no batch dim (a scalar reduction): every request gets
                 # the whole thing
                 per_out_chunks.append([a] * len(requests))
+        now = time.monotonic()
+        latencies, within = [], []
         for j, r in enumerate(requests):
             vals = [chunks[j] for chunks in per_out_chunks]
             r.resolve_result(list(vals) if multi else vals[0])
+            latencies.append(r.age(now) * 1e3)
+            # the slo.* goodput numerator: resolved before its deadline
+            within.append(r.deadline is None
+                          or not r.deadline.expired(now))
+        metrics.record_completed(len(requests), latencies,
+                                 within_sla=within)
         with self._stats_lock:
             self._stats["completed"] += len(requests)

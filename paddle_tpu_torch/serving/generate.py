@@ -45,12 +45,26 @@ kept prefix. Proposal ``i`` is drawn under the key plain sampling uses at
 that generation index, so a model drafting for itself reproduces plain
 sampling, and greedy speculation reproduces greedy decode for any draft.
 
-Not ported (ROADMAP.md Queue A item 17): KV segments carried between
-engines (``kv_import=True``, a request's ``preset``), the fleet
-(``MultiDecodeEngine``) and the supervision surface (heartbeat, probe,
-failover hand-offs: item 2), and the metrics, request traces and monitor
-spans (item 1). Where the reference takes an argument for one of them,
-this engine raises ``NotImplementedError``.
+A sequence moves between engines with its history: ``disown_inflight(
+export_kv=True)`` exports each live lane's KV as a host segment
+(:meth:`~paddle_tpu_torch.serving.kv_cache.KVCachePool.export_slot`)
+with its tokens so far, and an engine built with ``kv_import=True``
+seats such a request (``DecodeRequest.preset``) by importing the segment
+instead of running its prefill; its ledger length and generation index
+carry over, so the stream continues as if it never moved. Without
+``export_kv`` the requests move bare and re-prefill, which regenerates
+the same stream from the prompt.
+
+The engine reports through the port's monitor (``serving/metrics.py``,
+``serving/reqtrace.py``, ``monitor.trace``) at the reference's sites;
+every record reads host numbers only, and with the monitor off each
+site is one flag check.
+
+Not ported: the fleet (``MultiDecodeEngine``) and the supervision
+surface (heartbeat, probe, fault injection, ``replica_id=``,
+``on_outcome=``: ROADMAP.md Queue A item 17.3). Those arguments are
+accepted at the reference's defaults and raise ``NotImplementedError``
+otherwise.
 
 The model contract (duck-typed; :class:`DemoLM` implements it)::
 
@@ -81,15 +95,18 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import monitor as _monitor
 from ..io.bucketing import next_bucket
 from ..ops.kernels.flash_attention import flash_attention
 from ..resilience.deadline import Deadline
+from . import metrics
+from . import reqtrace
 from . import sampling as sampling_mod
 from .admission import AdmissionController, resolve_priority
+from .batcher import _outcome
 from .kv_cache import KVCachePool, device_memory_limit
 
 _seed_counter = itertools.count(1)
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 17)"
 
 
 def _fresh_seed():
@@ -102,13 +119,15 @@ def _fresh_seed():
 class DecodeRequest:
     """One sequence in flight: a prompt, a generation budget, and a future
     resolving to the generated token ids (``np.int32``, EOS included when
-    hit). The first resolution wins."""
+    hit). The first resolution wins, and only it finalizes the request's
+    trace."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_token", "future",
-                 "deadline", "priority", "sampling", "preset")
+                 "deadline", "t_enqueue", "priority", "trace", "sampling",
+                 "preset")
 
     def __init__(self, prompt, max_new_tokens, eos_token=None,
-                 deadline=None, priority=1, sampling=None):
+                 deadline=None, priority=1, trace=None, sampling=None):
         self.prompt = prompt                    # 1-D int32 host array
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token = eos_token
@@ -118,37 +137,65 @@ class DecodeRequest:
         self.future = concurrent.futures.Future()
         self.deadline = deadline
         self.priority = int(priority)
-        # the reference's KV segment for a sequence that arrives with its
-        # history (disaggregated hand-off): not ported, refused at seating
+        self.t_enqueue = time.monotonic()
+        # reqtrace.Attempt (None while the monitor is off)
+        self.trace = trace
+        # a sequence that arrives with its history: {"segment" (the KV
+        # pool's transport format), "tokens" emitted so far, "last_token",
+        # "prompt_len"}; seated by importing the segment, no prefill
         self.preset = None
+
+    def age(self, now=None):
+        return (now if now is not None else time.monotonic()) \
+            - self.t_enqueue
 
     def resolve_result(self, value):
         try:
             self.future.set_result(value)
         except concurrent.futures.InvalidStateError:
-            pass
+            return
+        if self.trace is not None:
+            self.trace.finalize("ok")
 
     def resolve_exception(self, exc):
         try:
             self.future.set_exception(exc)
         except concurrent.futures.InvalidStateError:
-            pass
+            return
+        if self.trace is not None:
+            self.trace.finalize(*_outcome(exc))
 
 
 class _Slot:
     """Host-side state of one decode-batch lane."""
 
-    __slots__ = ("req", "length", "tokens", "last_token")
+    __slots__ = ("req", "length", "tokens", "last_token", "t_seat")
 
     def __init__(self):
         self.req = None          # DecodeRequest occupying the lane
         self.length = 0          # tokens resident in the KV arena
         self.tokens = None       # generated so far (list of int)
         self.last_token = 0      # next decode input
+        self.t_seat = 0.0        # perf_counter at seating (its lane's
+        #                          occupancy interval starts there)
 
 
 def _signature(*tensors):
     return tuple((tuple(t.shape), str(t.dtype)) for t in tensors)
+
+
+def _label(key, k):
+    """A signature key as the reference names its executable."""
+    kind, *b = key
+    if kind in ("prefill", "dprefill"):
+        return f"{kind}[L={b[0]}]"
+    if kind in ("insert", "dinsert"):
+        return f"{kind}[L={b[0]}, cap={b[1]}]"
+    if kind in ("grow", "dgrow"):
+        return f"{kind}[{b[0]}->{b[1]}]"
+    if kind in ("sdraft", "verify"):
+        return f"{kind}[cap={b[0]}, k={k}]"
+    return f"{kind}[cap={b[0]}]"
 
 
 class GenerateEngine:
@@ -166,8 +213,8 @@ class GenerateEngine:
     prompt_buckets : prefill length buckets (default: the capacity
         family), within ``seq_limit``; a prompt longer than the largest
         is rejected at submit.
-    queue_depth / deadline_ms / shed : the admission ladder's knobs, as
-        in ``ServingEngine``.
+    queue_depth / deadline_ms / shed / slo_goodput_floor : the admission
+        ladder's knobs, as in ``ServingEngine``.
     refill : ``"continuous"`` (freed lanes refill at the next tick) or
         ``"drain"`` (no admission until every lane is free).
     sampling : engine-default :class:`~paddle_tpu_torch.serving.sampling.
@@ -178,21 +225,35 @@ class GenerateEngine:
         verifies; it rides its own arena on the same slots and page
         schedule, and its weights are used on the engine's device.
     spec_k : draft proposals a lane a speculative tick (>= 1).
-    kv_import : the reference's KV import; not ported, and raises
-        ``NotImplementedError``.
+    kv_import : this engine receives KV segments (requests carrying a
+        ``preset``): :meth:`warmup` also meets an insert for every
+        capacity-family pad, so that an imported segment meets no new
+        signature.
     start : launch the tick thread now (False: tests call :meth:`tick`).
+    replica_id / on_outcome : the fleet's; not ported (ROADMAP.md Queue A
+        item 17.3), and anything but None raises ``NotImplementedError``.
     """
 
     def __init__(self, model, slots=8, page=64, factor=2.0, max_len=512,
                  prompt_buckets=None, queue_depth=256, deadline_ms=None,
-                 refill="continuous", shed=True, start=True, sampling=None,
-                 draft_model=None, spec_k=4, kv_import=False):
-        if kv_import:
-            raise NotImplementedError(f"kv_import: {_NOT_PORTED}")
+                 refill="continuous", shed=True, slo_goodput_floor=0.90,
+                 start=True, replica_id=None, on_outcome=None,
+                 sampling=None, draft_model=None, spec_k=4,
+                 kv_import=False):
+        for name, value in (("replica_id", replica_id),
+                            ("on_outcome", on_outcome)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}: not ported yet (ROADMAP.md Queue A item "
+                    f"17.3)")
         if refill not in ("continuous", "drain"):
             raise ValueError(
                 f"refill must be 'continuous' or 'drain', got {refill!r}")
         self.model = model
+        self.replica_id = None
+        self.kv_import = bool(kv_import)
+        # the served weights' version, stamped into each request record
+        self.weights_version = 0
         self.refill = refill
         self.default_sampling = sampling_mod.resolve(sampling)
         self.device = torch.device(getattr(model, "device", None)
@@ -228,12 +289,14 @@ class GenerateEngine:
         self.prompt_buckets = pb
         self.admission = AdmissionController(
             max_queue_depth=queue_depth, default_deadline_ms=deadline_ms,
-            shed=shed)
+            shed=shed, slo_goodput_floor=slo_goodput_floor)
         self.admission.on_event = self._admission_event
         self._queue = collections.deque()
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._slots = [_Slot() for _ in range(self.slots)]
+        # the Chrome export's resource lanes, one a KV slot ("kv.slot3")
+        self._lane = "kv"
         # (kind, *buckets) met so far, and each with its operands'
         # shapes and dtypes: a new entry in either after warmup is a
         # signature that traffic met first (a first-call cost on the card)
@@ -245,7 +308,8 @@ class GenerateEngine:
                        "ticks": 0, "tokens": 0, "prefills": 0,
                        "prefill_tokens": 0, "compiles": 0, "grows": 0,
                        "draft_steps": 0, "verify_steps": 0,
-                       "spec_proposed": 0, "spec_accepted": 0}
+                       "spec_proposed": 0, "spec_accepted": 0,
+                       "kv_imports": 0}
         self._occupancy_sum = 0.0
         self._running = False
         self._closed = False
@@ -271,7 +335,7 @@ class GenerateEngine:
         # lockstep and every speculative step sees one capacity
         self.draft_pool = KVCachePool(draft.kv_spec(), self.slots, page=page,
                                       factor=factor, max_len=max_len,
-                                      device=self.device)
+                                      device=self.device, label="draft")
         limit = device_memory_limit(self.device)
         need = self.pool.max_bytes() + self.draft_pool.max_bytes()
         if limit is not None and need > limit:
@@ -286,13 +350,14 @@ class GenerateEngine:
     # -- client surface ----------------------------------------------------
 
     def make_request(self, prompt, max_new_tokens=32, eos_token=None,
-                     deadline_ms=None, priority=None, sampling=None,
-                     seed=None):
+                     deadline_ms=None, priority=None, trace=None,
+                     sampling=None, seed=None):
         """Validate one submit into a :class:`DecodeRequest` (not yet
         enqueued). ``sampling`` is None (the engine default), a dict of
         knobs, or ``SamplingParams``; ``seed`` overrides its seed. A
         sampled request with no seed gets a fresh one here, recorded on
-        the request."""
+        the request. ``trace=`` carries a shed request's ``RequestTrace``
+        into its retry (one record for both)."""
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if arr.size < 1:
             raise ValueError("empty prompt")
@@ -319,30 +384,46 @@ class GenerateEngine:
         if params.seed is None:
             params.seed = 0 if params.greedy else _fresh_seed()
         return DecodeRequest(arr, m, eos_token=eos_token, deadline=deadline,
-                             priority=prio, sampling=params)
+                             priority=prio, sampling=params,
+                             trace=reqtrace.attach(
+                                 trace, kind="decode", priority=prio,
+                                 replica=self.replica_id,
+                                 version=self.weights_version))
 
-    def submit_request(self, req):
+    def submit_request(self, req, admit=True):
         """Admit and enqueue; returns the future. Raises ``ShedError`` /
-        ``QueueFullError`` from the admission ladder."""
+        ``QueueFullError`` from the admission ladder. ``admit=False``
+        skips the ladder: a request handed over from another engine was
+        admitted there, and must not be charged (or shed) twice."""
         with self._cond:
             if self._closed:
                 raise RuntimeError("decode engine is closed")
-            self.admission.admit(req, len(self._queue))
+            if admit:
+                self.admission.admit(req, len(self._queue))
             self._queue.append(req)
+            depth = len(self._queue)
             self._cond.notify()
+        metrics.record_submit(1)
+        metrics.record_queue_depth(depth)
+        if req.trace is not None:
+            req.trace.hop("enqueue", replica=self.replica_id)
+            if _monitor.trace.enabled():
+                with _monitor.trace.span("serving.enqueue", depth=depth):
+                    reqtrace.flow_mark(req.trace)
         with self._stats_lock:
             self._stats["submitted"] += 1
         return req.future
 
     def submit(self, prompt, max_new_tokens=32, eos_token=None,
-               deadline_ms=None, priority=None, sampling=None, seed=None):
+               deadline_ms=None, priority=None, trace=None, sampling=None,
+               seed=None):
         """Enqueue one sequence; the future resolves to the generated token
         ids (``np.int32``; the first comes from the prefill, an EOS, when
         given and hit, is included and ends the sequence)."""
         return self.submit_request(self.make_request(
             prompt, max_new_tokens=max_new_tokens, eos_token=eos_token,
-            deadline_ms=deadline_ms, priority=priority, sampling=sampling,
-            seed=seed))
+            deadline_ms=deadline_ms, priority=priority, trace=trace,
+            sampling=sampling, seed=seed))
 
     def run(self, prompt, max_new_tokens=32, eos_token=None,
             deadline_ms=None, timeout=None, priority=None, sampling=None,
@@ -363,6 +444,7 @@ class GenerateEngine:
         compile, as the reference counts its executables."""
         if key not in self._exec:
             self._exec.add(key)
+            metrics.record_decode_compile(1, what=_label(key, self.spec_k))
             with self._stats_lock:
                 self._stats["compiles"] += 1
         self._traces.add((key, _signature(*tensors)))
@@ -528,53 +610,63 @@ class GenerateEngine:
         return (temps, top_ks, top_ps, np.zeros((n,), np.uint32),
                 np.zeros((n,), np.int32))
 
-    def warmup(self):
+    def warmup(self, *_signatures):
         """Meet every signature the engine can need once: a decode step a
         capacity (greedy and sampled), an insert per (prompt bucket,
-        capacity) that can co-occur, a grow per consecutive capacity
-        pair, and a prefill a prompt bucket (greedy and sampled), each on
-        zero operands that no request sees; with a draft, also the
-        speculative family: a draft-then-verify step a capacity (greedy
-        and sampled), and the draft's insert, grow and prefill on the same
-        buckets. On the card this builds the flash kernel and meets each
-        cuBLAS shape before traffic. Returns the number of signatures met
-        for the first time."""
+        capacity) that can co-occur (with ``kv_import``, also per
+        (capacity-family pad, capacity): a moved lane's segment is padded
+        to a capacity bucket), a grow per consecutive capacity pair, and a
+        prefill a prompt bucket (greedy and sampled), each on zero
+        operands that no request sees; with a draft, also the speculative
+        family: a draft-then-verify step a capacity (greedy and sampled),
+        and the draft's insert, grow and prefill on the same buckets. On
+        the card this builds the flash kernel and meets each cuBLAS shape
+        before traffic. Positional signatures (the fleet's) are accepted
+        and ignored: the engine's shapes come from its bucket families.
+        Returns the number of signatures met for the first time."""
         before = len(self._exec)
         family = self.pool.seq_buckets
         speculative = self.draft_model is not None
         zeros_i = np.zeros((self.slots,), np.int32)
         ones_i = np.ones((self.slots,), np.int32)
         inactive = np.zeros((self.slots,), bool)
-        for cap in family:
-            for sampled in (False, True):
-                knobs = self._knobs(self.slots, sampled)
-                self._decode_step(self.pool.zeros(cap), zeros_i, ones_i,
-                                  inactive, knobs)
-                if speculative:
-                    self._spec_step(self.pool.zeros(cap),
-                                    self.draft_pool.zeros(cap), zeros_i,
-                                    ones_i, inactive, knobs)
-            for lb in self.prompt_buckets:
-                if lb <= cap:
-                    self._insert(self.pool.zeros(cap),
-                                 self.pool.zeros(lb, rows=1), 0)
+        insert_pads = set(self.prompt_buckets)
+        if self.kv_import:
+            insert_pads |= set(family)
+        with _monitor.trace.span("serving.warmup", buckets=len(family)):
+            for cap in family:
+                for sampled in (False, True):
+                    knobs = self._knobs(self.slots, sampled)
+                    self._decode_step(self.pool.zeros(cap), zeros_i,
+                                      ones_i, inactive, knobs)
                     if speculative:
-                        self._insert(self.draft_pool.zeros(cap),
-                                     self.draft_pool.zeros(lb, rows=1), 0,
-                                     kind="dinsert")
-        for old, new in zip(family, family[1:]):
-            self._grow(self.pool, "grow", self.pool.zeros(old), old, new)
-            if speculative:
-                self._grow(self.draft_pool, "dgrow",
-                           self.draft_pool.zeros(old), old, new)
-        for lb in self.prompt_buckets:
-            for sampled in (False, True):
-                self._prefill(np.zeros((1, lb), np.int32), 1,
-                              self._knobs(1, sampled))
-            if speculative:
-                self._draft_prefill(np.zeros((1, lb), np.int32), 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                        self._spec_step(self.pool.zeros(cap),
+                                        self.draft_pool.zeros(cap), zeros_i,
+                                        ones_i, inactive, knobs)
+                for lb in sorted(insert_pads):
+                    if lb <= cap:
+                        self._insert(self.pool.zeros(cap),
+                                     self.pool.zeros(lb, rows=1), 0)
+                if speculative:
+                    for lb in self.prompt_buckets:
+                        if lb <= cap:
+                            self._insert(self.draft_pool.zeros(cap),
+                                         self.draft_pool.zeros(lb, rows=1),
+                                         0, kind="dinsert")
+            for old, new in zip(family, family[1:]):
+                self._grow(self.pool, "grow", self.pool.zeros(old), old,
+                           new)
+                if speculative:
+                    self._grow(self.draft_pool, "dgrow",
+                               self.draft_pool.zeros(old), old, new)
+            for lb in self.prompt_buckets:
+                for sampled in (False, True):
+                    self._prefill(np.zeros((1, lb), np.int32), 1,
+                                  self._knobs(1, sampled))
+                if speculative:
+                    self._draft_prefill(np.zeros((1, lb), np.int32), 1)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         return len(self._exec) - before
 
     # -- lifecycle ---------------------------------------------------------
@@ -624,6 +716,83 @@ class GenerateEngine:
 
     def __exit__(self, *exc):
         self.close()
+
+    # -- hand-off between engines ------------------------------------------
+
+    def steal_pending(self):
+        """Hand every queued request to the caller."""
+        with self._cond:
+            taken = list(self._queue)
+            self._queue.clear()
+        metrics.record_queue_depth(0)
+        return taken
+
+    def disown_inflight(self, export_kv=False):
+        """Evict every live sequence and hand its request over; each lane
+        is freed and its draft ledger zeroed. Decode is a function of the
+        request alone (greedy argmax, or draws keyed by the request's
+        ``(seed, generation index)``), so an engine that re-prefills a
+        bare request regenerates the same stream.
+
+        ``export_kv=True`` carries each sequence's history instead: the
+        lane's KV is exported (:meth:`KVCachePool.export_slot`), padded to
+        its capacity bucket (a warmed insert signature of an engine built
+        with ``kv_import=True``), into ``req.preset`` with the tokens so
+        far, the last token and the prompt's length; the adopting engine
+        continues at the same ledger length and generation index instead
+        of running the prefill again. Only the target's arena travels: an
+        adopting engine with a draft starts the lane's draft ledger at 0,
+        as the reference's does (ROADMAP.md Queue C)."""
+        taken, evicted = [], []
+        with self._lock:
+            for s, slot in enumerate(self._slots):
+                if slot.req is None:
+                    continue
+                if export_kv and slot.length > 0:
+                    seg = self.pool.export_slot(
+                        s, pad_to=self.pool.capacity_for(slot.length))
+                    slot.req.preset = {
+                        "segment": seg,
+                        "tokens": list(slot.tokens),
+                        "last_token": slot.last_token,
+                        "prompt_len": int(slot.req.prompt.size),
+                    }
+                taken.append(slot.req)
+                evicted.append((s, slot.t_seat))
+                slot.req = None
+                slot.tokens = None
+                self._release(s)
+        trc = _monitor.trace
+        if trc.enabled() and evicted:
+            now_pc = time.perf_counter()
+            for s, t_seat in evicted:
+                trc.lane_complete(f"{self._lane}.slot{s}", "req evicted",
+                                  t_seat, now_pc)
+        return taken
+
+    def requeue(self, requests):
+        """Put requests at the front of the queue with no re-admission
+        (they were admitted where they came from); on a closed engine each
+        future fails instead."""
+        if not requests:
+            return
+        for r in requests:
+            tr = getattr(r, "trace", None)
+            if tr is not None:
+                # back to queue wait, on this engine
+                tr.to("queue")
+                tr.hop("requeue", replica=self.replica_id)
+        with self._cond:
+            if self._closed:
+                for r in requests:
+                    r.resolve_exception(
+                        RuntimeError("decode engine closed"))
+                return
+            for r in reversed(requests):
+                self._queue.appendleft(r)
+            depth = len(self._queue)
+            self._cond.notify()
+        metrics.record_queue_depth(depth)
 
     def _admission_event(self, event):
         key = {"rejected": "rejected", "expired": "expired",
@@ -696,8 +865,10 @@ class GenerateEngine:
             now = time.monotonic()
             with self._cond:
                 req, expired = self._pop_next_locked(now)
+                depth = len(self._queue)
             for r in expired:
                 self.admission.expire(r)
+            metrics.record_queue_depth(depth)
             if req is None:
                 break
             try:
@@ -722,6 +893,11 @@ class GenerateEngine:
                     self._grow, self.draft_pool, "dgrow"))
             with self._stats_lock:
                 self._stats["grows"] += 1
+            # the growth marker on the arena's lane, beside the slots'
+            # occupancy intervals
+            _monitor.trace.lane_instant(f"{self._lane}.pool",
+                                        f"grow {old}->{new}",
+                                        old_cap=old, new_cap=new)
 
     def _release(self, s):
         """Free lane ``s`` in the target pool and zero its draft ledger
@@ -733,19 +909,25 @@ class GenerateEngine:
     def _prefill_into_slot(self, req):
         """Prompt ingest: the bucketed prefill, its K/V written into a
         free lane's arena rows, the sequence seated. The first generated
-        token comes from the prefill."""
+        token comes from the prefill. A request carrying a ``preset`` is
+        seated by importing its segment instead (:meth:`_seat_preset`):
+        no prefill runs."""
         if req.preset is not None:
-            raise NotImplementedError(
-                f"a request carrying a KV segment: {_NOT_PORTED}")
+            return self._seat_preset(req)
         p = int(req.prompt.size)
         bucket = next_bucket(p, self.prompt_buckets)
+        tr = req.trace
+        if tr is not None:
+            tr.to("prefill")
         # the arena must hold the prompt, the first decode write (position
         # p) and the whole insert bucket
         self._ensure_capacity(max(p + 1, bucket))
         s = self.pool.alloc()
         if s is None:
             raise RuntimeError("no free slot after free_slots() > 0")
+        pc_seat = time.perf_counter()
         try:
+            t0 = time.monotonic()
             tokens = np.zeros((1, bucket), np.int32)
             tokens[0, :p] = req.prompt
             sp = req.sampling
@@ -763,23 +945,89 @@ class GenerateEngine:
                              self._draft_prefill(tokens, p), s,
                              kind="dinsert")
                 self.draft_pool.note_length(s, p)
+            ms = (time.monotonic() - t0) * 1e3
+            metrics.record_prefill(p, ms, bucket)
             with self._stats_lock:
                 self._stats["prefills"] += 1
                 self._stats["prefill_tokens"] += p
         except BaseException:
             self._release(s)
             raise
+        # the first token: the prefill's last logits sampled
+        if tr is not None:
+            tr.first_token()
+        trc = _monitor.trace
+        rid = tr.ctx.rid if tr is not None else None
+        if trc.enabled():
+            trc.lane_complete(f"{self._lane}.slot{s}", "prefill", pc_seat,
+                              pc_seat + ms / 1e3, rid=rid, tokens=p,
+                              bucket=bucket)
         if (req.eos_token is not None and first == req.eos_token) \
                 or req.max_new_tokens == 1:
             self._release(s)
+            if trc.enabled():
+                trc.lane_complete(f"{self._lane}.slot{s}",
+                                  f"req {rid}" if rid else "req", pc_seat,
+                                  rid=rid, tokens=1)
             self._complete(req, [first])
             return
+        self._seat(s, req, p, [first], first, pc_seat)
+
+    def _seat(self, s, req, length, tokens, last, t_seat):
         slot = self._slots[s]
         with self._lock:
             slot.req = req
-            slot.length = p
-            slot.tokens = [first]
-            slot.last_token = first
+            slot.length = length
+            slot.tokens = tokens
+            slot.last_token = last
+            slot.t_seat = t_seat
+
+    def _seat_preset(self, req):
+        """Seat a sequence whose history arrives as a host segment
+        (``req.preset``, from :meth:`disown_inflight`): the segment lands
+        by :meth:`KVCachePool.import_slot` through the insert step for its
+        pad (a signature ``warmup`` met with ``kv_import``), and the
+        ledger's length restores the generation index, so the stream
+        continues as if it never moved. With a draft, the lane's draft
+        ledger starts at 0, as in the reference: the draft attends over
+        rows it never wrote, its proposals lose their footing and the
+        lane's accept rate falls, while the verify keeps the emitted
+        distribution exact (greedy: the plain stream)."""
+        preset = req.preset
+        seg = preset["segment"]
+        pad = int(seg["pad"])
+        length = int(seg["length"])
+        toks = list(preset["tokens"])
+        last = int(preset["last_token"])
+        tr = req.trace
+        self._ensure_capacity(max(length + 1, pad))
+        s = self.pool.alloc()
+        if s is None:
+            raise RuntimeError("no free slot after free_slots() > 0")
+        pc_seat = time.perf_counter()
+        try:
+            self.pool.import_slot(s, seg, insert_fn=self._insert)
+            with self._stats_lock:
+                self._stats["kv_imports"] += 1
+        except BaseException:
+            self._release(s)
+            raise
+        # the first token was stamped where it came out; entering "decode"
+        # closes the hand-off's queue wait
+        if tr is not None:
+            tr.to("decode")
+        trc = _monitor.trace
+        if trc.enabled():
+            trc.lane_complete(f"{self._lane}.slot{s}", "kv import", pc_seat,
+                              time.perf_counter(),
+                              rid=tr.ctx.rid if tr is not None else None,
+                              tokens=length, pad=pad)
+        if (req.eos_token is not None and last == req.eos_token) \
+                or len(toks) >= req.max_new_tokens:
+            self._release(s)
+            self._complete(req, toks)
+            return
+        self._seat(s, req, length, toks, last, pc_seat)
 
     # -- the decode tick ---------------------------------------------------
 
@@ -826,8 +1074,10 @@ class GenerateEngine:
         assigned, tokens, lengths, active, knobs, max_needed = batch
         self._ensure_capacity(max_needed)
         try:
+            t0 = time.monotonic()
             nxt = self._decode_step(self.pool.buffers, tokens, lengths,
                                     active, knobs)
+            step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
             self._fail_active(assigned, e)
             return True
@@ -846,7 +1096,7 @@ class GenerateEngine:
                 self.pool.note_length(s, slot.length)
                 if (req.eos_token is not None and tok == req.eos_token) \
                         or len(slot.tokens) >= req.max_new_tokens:
-                    finished.append((req, slot.tokens))
+                    finished.append((s, req, slot.tokens, slot.t_seat))
                     slot.req = None
                     slot.tokens = None
                     self.pool.free(s)
@@ -854,9 +1104,23 @@ class GenerateEngine:
             self._stats["ticks"] += 1
             self._stats["tokens"] += n_active
             self._occupancy_sum += n_active / self.slots
-        for req, toks in finished:
-            self._complete(req, toks)
+        metrics.record_decode_tick(n_active, self.slots, n_active, step_ms)
+        self._finish(finished)
         return True
+
+    def _finish(self, finished):
+        """Close each finished sequence's occupancy interval on its slot's
+        lane, then resolve it."""
+        trc = _monitor.trace
+        if trc.enabled() and finished:
+            now_pc = time.perf_counter()
+            for s, req, toks, t_seat in finished:
+                rid = req.trace.ctx.rid if req.trace is not None else None
+                trc.lane_complete(f"{self._lane}.slot{s}",
+                                  f"req {rid}" if rid else "req", t_seat,
+                                  now_pc, rid=rid, tokens=len(toks))
+        for _s, req, toks, _t in finished:
+            self._complete(req, toks)
 
     def _spec_once(self):
         """One speculative tick: ``k`` proposals a live lane and one verify
@@ -882,9 +1146,11 @@ class GenerateEngine:
         self._ensure_capacity(min(max_needed, self.pool.max_len))
         cap = self.pool.capacity
         try:
+            t0 = time.monotonic()
             a, resampled, proposals = self._spec_step(
                 self.pool.buffers, self.draft_pool.buffers, tokens, lengths,
                 active, knobs)
+            step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
             self._fail_active(assigned, e)
             return True
@@ -921,10 +1187,12 @@ class GenerateEngine:
                 slot.tokens.extend(emitted)
                 slot.length = L + e
                 slot.last_token = emitted[-1]
+                if req.trace is not None:
+                    req.trace.note_spec(k, ai)
                 emitted_total += e
                 accepted_total += ai
                 if done:
-                    finished.append((req, slot.tokens))
+                    finished.append((s, req, slot.tokens, slot.t_seat))
                     slot.req = None
                     slot.tokens = None
                     self._release(s)
@@ -936,8 +1204,11 @@ class GenerateEngine:
             self._stats["spec_proposed"] += k * n_active
             self._stats["spec_accepted"] += accepted_total
             self._occupancy_sum += n_active / self.slots
-        for req, toks in finished:
-            self._complete(req, toks)
+        metrics.record_decode_tick(n_active, self.slots, emitted_total,
+                                   step_ms)
+        metrics.record_spec_tick(k * n_active, accepted_total, emitted_total,
+                                 k)
+        self._finish(finished)
         return True
 
     def _fail_active(self, assigned, exc):
@@ -947,18 +1218,32 @@ class GenerateEngine:
                 slot = self._slots[s]
                 if slot.req is not req:
                     continue
-                failed.append(req)
+                failed.append((s, req, slot.t_seat))
                 slot.req = None
                 slot.tokens = None
                 self._release(s)
         with self._stats_lock:
             self._stats["failed"] += len(failed)
-        for r in failed:
+        trc = _monitor.trace
+        if trc.enabled() and failed:
+            now_pc = time.perf_counter()
+            for s, _r, t_seat in failed:
+                trc.lane_complete(f"{self._lane}.slot{s}", "req failed",
+                                  t_seat, now_pc)
+        for _s, r, _t in failed:
             r.resolve_exception(exc)
 
     def _complete(self, req, tokens):
+        now = time.monotonic()
+        latency_ms = req.age(now) * 1e3
+        within = req.deadline is None or not req.deadline.expired(now)
+        if req.trace is not None:
+            # the token count lands before the record is finalized: tpot
+            # derives from it
+            req.trace.note_tokens(len(tokens))
         # count before resolving: a stats() read right after result()
         # must already see this completion
+        metrics.record_completed(1, [latency_ms], within_sla=[within])
         with self._stats_lock:
             self._stats["completed"] += 1
         req.resolve_result(np.asarray(tokens, np.int32))

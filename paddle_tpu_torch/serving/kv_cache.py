@@ -22,9 +22,12 @@ step, and sequences of different lengths share one decode step:
 
 The pool owns the buffers and the slot ledger; the decode engine
 (``serving/generate.py``) owns the prefill, decode, insert and grow steps
-that read and write them. The reference's ``export_slot``/``import_slot``
-(the disaggregated hand-off's transport) are not ported (ROADMAP.md
-Queue A item 17), nor are its metrics (item 1).
+that read and write them. :meth:`KVCachePool.export_slot` and
+:meth:`KVCachePool.import_slot` carry one slot's history off the arena
+and onto another as a host *segment*, in the reference's format (a dict
+from one package imports into the other's pool). The pool publishes its
+footprint, growth and rollbacks through ``serving/metrics.py``, from its
+byte arithmetic: no record reads the card.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from .. import device as _device
 from ..io.bucketing import grow_buckets, next_bucket
+from . import metrics
 
 
 def _dtype(d):
@@ -90,20 +94,24 @@ class KVCachePool:
         max_len)``; ``max_len`` caps prompt + generated tokens.
     device : where the buffers live (default: the port's device, the
         card; ``"cpu"`` on the CPU).
+    label : the metrics namespace of a second arena (``"draft"``: the
+        speculative draft's, published as ``serving.decode.draft_cache_*``).
     """
 
     def __init__(self, spec, slots, page=128, factor=2.0, max_len=1024,
-                 device=None):
+                 device=None, label=None):
         self.spec = dict(spec)
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.device = _device.resolve(device)
+        self.label = label
         self.seq_buckets = grow_buckets(page, factor, max_len)
         self.max_len = int(self.seq_buckets[-1])
         self.capacity = int(self.seq_buckets[0])
         self._leaf_list = _leaves(self.spec)
-        limit = device_memory_limit(self.device)
+        # the card's memory, read once: a metric never asks the card
+        self._limit = limit = device_memory_limit(self.device)
         if limit is not None and self.max_bytes() > limit:
             raise ValueError(
                 f"the arena at max_len={self.max_len} takes "
@@ -118,6 +126,7 @@ class KVCachePool:
         self._grows = 0
         self._rollbacks = 0
         self._rollback_tokens = 0
+        self._publish()
 
     def zeros(self, capacity, rows=None):
         """A fresh zero arena ``{leaf: [rows or slots, capacity, *tail]}``
@@ -180,6 +189,8 @@ class KVCachePool:
             self._lengths[int(slot)] = new_len
             self._rollbacks += 1
             self._rollback_tokens += dropped
+        if dropped:
+            metrics.record_rollback(dropped, label=self.label)
         return dropped
 
     def free_slots(self):
@@ -189,6 +200,108 @@ class KVCachePool:
     def used_slots(self):
         with self._lock:
             return self.slots - len(self._free)
+
+    # -- slot transport (hand-off between engines) -------------------------
+
+    def _check_bytes(self, seg_bytes, pad, what):
+        expected = bytes_per_token(self.spec) * pad
+        if seg_bytes != expected:
+            raise AssertionError(
+                f"{what} byte accounting drifted: segment holds {seg_bytes} "
+                f"bytes, spec arithmetic says {expected} ({pad} positions x "
+                f"{bytes_per_token(self.spec)} B/tok)")
+
+    def export_slot(self, slot, pad_to=None):
+        """Copy one slot's resident history off the arena as a host
+        *segment*, padded to ``pad_to`` positions (default: its live
+        length; a capacity bucket lands on a warmed insert signature).
+        Returns ``{"length", "pad", "bytes", "leaves"}``, ``leaves[name]``
+        a ``[pad, *tail]`` numpy array: the reference's format. The byte
+        count must equal ``bytes_per_token(spec) x pad`` to the byte
+        (AssertionError otherwise). On the card every leaf leaves by one
+        non-blocking copy into one pinned host buffer, and the export
+        waits for the card once, after the last."""
+        slot = int(slot)
+        with self._lock:
+            length = self._lengths[slot]
+        pad = int(pad_to) if pad_to is not None else length
+        if pad < length:
+            raise ValueError(
+                f"export pad {pad} < live length {length} of slot {slot}")
+        if pad > self.capacity:
+            raise ValueError(
+                f"export pad {pad} exceeds arena capacity {self.capacity}")
+        rows = {name: self.buffers[name][slot, :pad]
+                for name, _tail, _dt in self._leaf_list}
+        if self.device.type == "cuda":
+            # one pinned buffer, each leaf at a 16-byte aligned offset
+            offsets, total = {}, 0
+            for name, t in rows.items():
+                offsets[name] = total
+                total += -(-t.numel() * t.element_size() // 16) * 16
+            host = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+            views = {}
+            for name, t in rows.items():
+                nb = t.numel() * t.element_size()
+                views[name] = host[offsets[name]:offsets[name] + nb].view(
+                    t.dtype).view(t.shape)
+                views[name].copy_(t, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            leaves = {name: v.numpy() for name, v in views.items()}
+        else:
+            leaves = {name: t.clone().numpy() for name, t in rows.items()}
+        seg_bytes = sum(int(a.nbytes) for a in leaves.values())
+        self._check_bytes(seg_bytes, pad, "export_slot")
+        return {"length": length, "pad": pad, "bytes": seg_bytes,
+                "leaves": leaves}
+
+    def import_slot(self, slot, segment, insert_fn=None):
+        """Land an exported segment (from either package) in ``slot``:
+        its leaves at arena positions ``[0, pad)``, its live length
+        through :meth:`note_length`, so that a moved stream continues at
+        the same generation index. ``insert_fn(buffers, chunk, slot)``
+        is the engine's insert step (its signature noted, as a prefill's
+        insert is); without it each leaf lands by a slice ``copy_``. The
+        leaves reach the card by one pinned, non-blocking copy each: an
+        import never waits for the card. Checks the pad against the
+        capacity and the leaf names (ValueError), the bytes against the
+        spec's arithmetic and the arena's footprint before and after
+        (AssertionError). Returns the segment's bytes."""
+        slot = int(slot)
+        pad = int(segment["pad"])
+        length = int(segment["length"])
+        if pad > self.capacity:
+            raise ValueError(
+                f"segment pad {pad} exceeds arena capacity {self.capacity} "
+                f"— grow first")
+        leaves = segment["leaves"]
+        names = {name for name, _t, _d in self._leaf_list}
+        if set(leaves) != names:
+            raise ValueError(
+                f"segment leaves {sorted(leaves)} != spec leaves "
+                f"{sorted(names)}")
+        seg_bytes = sum(int(np.asarray(a).nbytes) for a in leaves.values())
+        self._check_bytes(seg_bytes, pad, "import_slot")
+        before = self.allocated_bytes()
+        chunk = {}
+        for name, _tail, dt in self._leaf_list:
+            a = np.asarray(leaves[name])
+            # a read-only array (the reference's segments) is copied: a
+            # tensor must not alias memory it may not write
+            a = a if a.flags.writeable else a.copy()
+            chunk[name] = _device.to_device(a[None], self.device, dt)
+        if insert_fn is not None:
+            insert_fn(self.buffers, chunk, slot)
+        else:
+            for name, buf in self.buffers.items():
+                buf[slot, :pad].copy_(chunk[name][0])
+        after = self.allocated_bytes()
+        if after != before:
+            raise AssertionError(
+                f"import_slot changed the arena footprint: {before} -> "
+                f"{after} bytes")
+        self.note_length(slot, length)
+        return seg_bytes
 
     # -- capacity schedule -------------------------------------------------
 
@@ -219,6 +332,8 @@ class KVCachePool:
         self.buffers = grow_fn(self.buffers, self.capacity, new_capacity)
         self.capacity = new_capacity
         self._grows += 1
+        metrics.record_cache_grow(new_capacity)
+        self._publish()
 
     # -- budget ------------------------------------------------------------
 
@@ -242,10 +357,16 @@ class KVCachePool:
         """``(limit - max_bytes, limit)`` against the card's memory
         (``limit_bytes`` overrides it); ``(None, None)`` on the CPU."""
         if limit_bytes is None:
-            limit_bytes = device_memory_limit(self.device)
+            limit_bytes = self._limit
         if limit_bytes is None:
             return None, None
         return int(limit_bytes) - self.max_bytes(), int(limit_bytes)
+
+    def _publish(self):
+        headroom, limit = self.headroom()
+        metrics.record_cache(self.bytes(), self.capacity,
+                             headroom_bytes=headroom, limit_bytes=limit,
+                             label=self.label)
 
     def stats(self):
         return {

@@ -10,15 +10,20 @@ dim=256, heads=4, layers=2, seed=1)`` with ``slots=8, page=32,
 factor=2.0, max_len=96``. It measures tokens/s from the first submit to
 the last completion, ticks, mean lane occupancy, each request's
 completion latency (p50, p99), the signatures traffic met after warmup
-(0 expected) and the port's kernel launches the traffic made. Time to
-first token and time per output token need the request traces, which
-are not ported (ROADMAP.md Queue A item 1).
+(0 expected), the port's kernel launches the traffic made, and the
+decode window's prefill p50, tick p99 and prefill share
+(``metrics.decode_rollup``). With the port's monitor on
+(``--monitor DIR``, or ``monitor.enable()`` around ``run_load``) it also
+collects each request's ``serving.request`` record: time to first token
+and time per output token (p50, p99), and the run's summed prefill and
+tick times from the monitor's histograms.
 
     python -m paddle_tpu_torch.tools.decode_loadgen [--mode both]
         [--sampling temperature=1.0,top_k=20,top_p=0.9] [--device cpu]
         [--profile]
     python -m paddle_tpu_torch.tools.decode_loadgen --spec [--spec-k 8]
         [--draft pair|self] [--device cpu] [--profile]
+    ... [--monitor DIR]
 
 prints one JSON line: each mode's measurement, ``speedup_x`` (continuous
 tokens/s over drain's, the reference's A/B), and the card's name and
@@ -35,6 +40,9 @@ layers=2, seed=1)`` drafting for itself (``--draft self``); it adds
 ``--profile`` adds :func:`profile_decode`: a decode tick's (with
 ``--spec``, a speculative and a plain tick's) wall time against its
 device time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
+``--monitor DIR`` turns the port's monitor and span tracer on: the JSONL
+events and a Chrome trace (``trace-<pid>.json``, the engine's slot lanes
+in it) land in ``DIR``.
 """
 from __future__ import annotations
 
@@ -86,6 +94,17 @@ def _pct(sorted_vals, q):
     return sorted_vals[i]
 
 
+def _decode_sums(snap):
+    """The monitor's prefill and tick histograms: (count, summed ms)."""
+    return {key: (snap.get(f"serving.decode.{key}", {}).get("count", 0),
+                  snap.get(f"serving.decode.{key}", {}).get("sum", 0.0))
+            for key in ("prefill_ms", "step_ms")}
+
+
+def _rnd(v, n=3):
+    return round(v, n) if v is not None else None
+
+
 def run_load(model, mode, workload, slots, max_len, prompt_buckets,
              sampling=None, seed_base=None, draft=None, spec_k=4):
     """Drive one warmed engine in ``mode`` over the workload, offered all
@@ -93,9 +112,13 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
     under ``"outputs"``. ``sampling`` (dict or SamplingParams) makes
     every request sampled, request ``i`` with seed ``seed_base + i``.
     ``draft`` drafts ``spec_k`` tokens a verify (speculative decoding);
-    the result then carries the accept rate and tokens a verify."""
+    the result then carries the accept rate and tokens a verify. With
+    the port's monitor on, each request's ``serving.request`` record is
+    collected (``"records"``) and summarised (TTFT, TPOT)."""
+    from paddle_tpu_torch import monitor
     from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.serving import GenerateEngine
+    from paddle_tpu_torch.serving import GenerateEngine, metrics
+    metrics.reset_windows()
     eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
                          max_len=max_len, prompt_buckets=prompt_buckets,
                          queue_depth=len(workload) + 8, refill=mode,
@@ -106,6 +129,7 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
         eng.warmup()
         warmup_s = time.perf_counter() - t0
         n_exec, n_trace = eng.executables()
+        sums0 = _decode_sums(monitor.snapshot())
         kernels.reset_launches()
         reqs, t_sub, t_done = [], [], [None] * len(workload)
         t0 = time.perf_counter()
@@ -122,10 +146,37 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
         outs = [r.future.result(timeout=600) for r in reqs]
         wall_s = time.perf_counter() - t0
         launches = {k: v for k, v in kernels.launches.items() if v}
+        rollup = metrics.decode_rollup()
         stats = eng.stats()
         n_exec2, n_trace2 = eng.executables()
+        sums1 = _decode_sums(monitor.snapshot())
     finally:
         eng.close()
+    # each request's record (the monitor on: otherwise no request has a
+    # trace, and only the throughput numbers come back)
+    records = [r.trace.ctx.record() for r in reqs
+               if r.trace is not None and r.trace.ctx.record() is not None]
+    slo = {}
+    if records:
+        ttfts = sorted(r["ttft_ms"] for r in records
+                       if r.get("ttft_ms") is not None)
+        tpots = sorted(r["tpot_ms"] for r in records
+                       if r.get("tpot_ms") is not None)
+        queues = sorted(r.get("queue_ms", 0.0) for r in records)
+        slo = {
+            "records": records,
+            "ttft_p50_ms": _rnd(_pct(ttfts, 0.50)),
+            "ttft_p99_ms": _rnd(_pct(ttfts, 0.99)),
+            "tpot_p50_ms": _rnd(_pct(tpots, 0.50)),
+            "tpot_p99_ms": _rnd(_pct(tpots, 0.99)),
+            "queue_p99_ms": _rnd(_pct(queues, 0.99)),
+            # the run's prefills and ticks on the host clock, from the
+            # monitor's histograms: (count, summed ms)
+            "prefill_ms_total": [sums1["prefill_ms"][i]
+                                 - sums0["prefill_ms"][i] for i in (0, 1)],
+            "tick_ms_total": [sums1["step_ms"][i] - sums0["step_ms"][i]
+                              for i in (0, 1)],
+        }
     lat = sorted((d - s) * 1e3 for s, d in zip(t_sub, t_done))
     tokens = int(sum(len(o) for o in outs))
     spec = {}
@@ -142,6 +193,7 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
             "spec_accepted": stats["spec_accepted"],
         }
     return {
+        **slo,
         **spec,
         "mode": mode,
         "device": str(eng.device),
@@ -154,6 +206,10 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
         "prefills": stats["prefills"],
         "latency_p50_ms": _pct(lat, 0.50),
         "latency_p99_ms": _pct(lat, 0.99),
+        "prefill_p50_ms": _rnd(rollup["prefill_p50_ms"]),
+        "decode_p99_ms": _rnd(rollup["decode_p99_ms"]),
+        "prefill_ratio": _rnd(rollup["prefill_ratio"], 4),
+        "decode_rollup": rollup,
         "warmup_s": warmup_s,
         "executables": n_exec2,
         "post_warmup_signatures": (n_exec2 - n_exec) + (n_trace2 - n_trace),
@@ -324,10 +380,14 @@ def main(argv=None):
     ap.add_argument("--draft", choices=["pair", "self"], default="pair",
                     help="pair: the distilled demo pair; self: the target "
                          "drafts for itself (accept rate 1)")
+    ap.add_argument("--monitor", default=None, metavar="DIR",
+                    help="turn the port's monitor and span tracer on; the "
+                         "events and a Chrome trace land in DIR")
     args = ap.parse_args(argv)
     if args.profile and args.device == "cpu":
         ap.error("--profile reads the card's device time; drop --device cpu")
 
+    from paddle_tpu_torch import monitor
     from paddle_tpu_torch.serving import demo_model, demo_spec_pair
     torch.backends.cuda.matmul.allow_tf32 = False
     sampling = _parse_sampling(args.sampling) if args.sampling else None
@@ -351,6 +411,24 @@ def main(argv=None):
     if model.device.type == "cuda":
         result["card"] = nvidia_smi()
     seed_base = args.seed_base if sampling else None
+    if args.monitor:
+        monitor.enable(args.monitor)
+        monitor.trace.enable()
+    try:
+        _arms(args, result, model, draft, workload, sampling, seed_base)
+    finally:
+        if args.monitor:
+            result["chrome_trace"] = monitor.trace.export_chrome_trace(
+                args.monitor)
+            monitor.disable()
+            monitor.trace.disable()
+    print(json.dumps(result))
+    return 0
+
+
+def _arms(args, result, model, draft, workload, sampling, seed_base):
+    """The CLI's runs into ``result``: the speculative or refill A/B, and
+    with ``--profile`` the ticks."""
     if args.spec:
         # the same sampled traffic, continuous refill, draft off and on
         arms = {"nonspec": None, "spec": draft}
@@ -359,6 +437,7 @@ def main(argv=None):
                          args.max_len, PROMPT_BUCKETS, sampling=sampling,
                          seed_base=seed_base, draft=d, spec_k=args.spec_k)
             r.pop("outputs")
+            r.pop("records", None)
             result[arm] = r
         result["spec_speedup_x"] = (result["spec"]["tokens_per_s"]
                                     / result["nonspec"]["tokens_per_s"])
@@ -371,6 +450,7 @@ def main(argv=None):
                          PROMPT_BUCKETS, sampling=sampling,
                          seed_base=seed_base)
             r.pop("outputs")
+            r.pop("records", None)
             result[mode] = r
         if len(modes) == 2:
             result["speedup_x"] = (result["continuous"]["tokens_per_s"]
@@ -383,8 +463,6 @@ def main(argv=None):
             result["profile_spec"] = profile_decode(
                 model, workload, args.slots, args.max_len, PROMPT_BUCKETS,
                 sampling=sampling, draft=draft, spec_k=args.spec_k)
-    print(json.dumps(result))
-    return 0
 
 
 if __name__ == "__main__":

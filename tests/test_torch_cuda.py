@@ -1080,3 +1080,114 @@ def test_spec_engine_on_card_completes_a_brim_request(cuda_device):
         1.0, np.abs(top2[:, 1]))
     first_tie = int(np.argmin(sure)) if not sure.all() else len(want)
     assert got[:first_tie] == want[:first_tie]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [16, 32])
+def test_kv_segment_round_trip_on_card(cuda_device, pad):
+    """A KV segment off the card and back: leaves bit for bit, bytes =
+    ``bytes_per_token x pad``, the arena's footprint unchanged, the ledger
+    length carried; a segment built on the host lands the same way."""
+    from paddle_tpu_torch.serving.kv_cache import KVCachePool, bytes_per_token
+    spec = {"k0": ((4, 64), "float32"), "v0": ((4, 64), "float32"),
+            "k1": ((4, 64), "float32"), "v1": ((4, 64), "float32")}
+    src = KVCachePool(spec, slots=3, page=16, max_len=64)
+    src.grow_to(32, lambda b, o, n: {k: torch.cat([v, torch.zeros(
+        (v.shape[0], n - o) + tuple(v.shape[2:]), device=v.device)], 1)
+        for k, v in b.items()})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for buf in src.buffers.values():
+        buf.copy_(torch.randn(buf.shape, device="cuda", generator=gen))
+    s = src.alloc()
+    src.note_length(s, pad - 3)
+    before = src.allocated_bytes()
+    seg = src.export_slot(s, pad_to=pad)
+    assert src.allocated_bytes() == before
+    assert seg["bytes"] == bytes_per_token(spec) * pad
+    for name, buf in src.buffers.items():
+        assert isinstance(seg["leaves"][name], np.ndarray)
+        np.testing.assert_array_equal(seg["leaves"][name],
+                                      buf[s, :pad].cpu().numpy())
+    dst = KVCachePool(spec, slots=2, page=16, max_len=64)
+    dst.grow_to(32, lambda b, o, n: {k: torch.cat([v, torch.zeros(
+        (v.shape[0], n - o) + tuple(v.shape[2:]), device=v.device)], 1)
+        for k, v in b.items()})
+    dst.alloc()
+    d = dst.alloc()
+    before = dst.allocated_bytes()
+    assert dst.import_slot(d, seg) == seg["bytes"]
+    assert dst.allocated_bytes() == before and dst.length(d) == pad - 3
+    for name in spec:
+        assert torch.equal(dst.buffers[name][d, :pad],
+                           src.buffers[name][s, :pad])
+        assert not dst.buffers[name][0].any()
+
+
+@pytest.mark.cuda
+def test_kv_hand_off_stream_on_card(cuda_device):
+    """Two engines on the card: lanes exported mid-stream (and a queued
+    request moved bare) from the first, imported by a warmed
+    ``kv_import=True`` second engine that meets no new signature, imports
+    without a prefill (no flash launch for an imported lane) and continues
+    each sampled stream as the unmoved run on the card gives it, up to a
+    counted near-tie."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving import sampling as S
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    model = serving.demo_model(vocab=64, dim=256, heads=4, layers=2,
+                               max_len=96, seed=1)
+    eng_kw = dict(slots=4, page=32, max_len=96, prompt_buckets=(4, 16),
+                  shed=False)
+    jobs = [([1, 2, 3], 40), (list(range(1, 17)), 24), ([5] * 9, 30),
+            ([30, 2], 12), ([7, 7, 7, 7, 7], 20)]
+    knobs = {"temperature": 1.0, "top_k": 20, "top_p": 0.9}
+
+    def submit(eng):
+        return [eng.submit(p, max_new_tokens=n, sampling=knobs,
+                           seed=100 + i) for i, (p, n) in enumerate(jobs)]
+
+    def drive(eng, futs):
+        for _ in range(400):
+            if all(f.done() for f in futs):
+                break
+            eng.tick()
+        return [list(map(int, f.result(timeout=60))) for f in futs]
+
+    clean = serving.GenerateEngine(model, start=False, **eng_kw)
+    want = drive(clean, submit(clean))
+    clean.close()
+    a = serving.GenerateEngine(model, start=False, **eng_kw)
+    futs = submit(a)
+    for _ in range(5):
+        a.tick()
+    moved = a.disown_inflight(export_kv=True) + a.steal_pending()
+    a.close(drain=False)
+    exported = [r for r in moved if r.preset is not None]
+    assert len(exported) == 4 and len(moved) == 5
+    b = serving.GenerateEngine(model, start=False, kv_import=True, **eng_kw)
+    b.warmup()
+    before = b.executables()
+    kernels.reset_launches()
+    b.requeue(moved)
+    got = drive(b, futs)
+    st = b.stats()
+    assert b.executables() == before and st["kv_imports"] == 4
+    assert st["prefills"] == 1
+    assert kernels.launches["flash_attention_fwd"] == model.layers
+    b.close()
+    parted = 0
+    for i, ((prompt, n), w, g) in enumerate(zip(jobs, want, got)):
+        assert len(g) == n
+        t = next((j for j in range(n) if w[j] != g[j]), None)
+        if t is None:
+            continue
+        z = torch.from_numpy(teacher_forced_logits(model, prompt,
+                                                   w[:t + 1])[t:])
+        filt = S.filter_logits(z, [1.0], [20], [0.9])
+        scored = (filt + S.gumbel(S.keys_for([100 + i], [t], S.SALT_TOKEN),
+                                  64))[0]
+        top2 = torch.topk(scored, 2).values
+        assert float(top2[0] - top2[1]) <= 1e-4 * max(1.0, abs(float(
+            top2[0])))
+        parted += 1
+    assert parted < len(jobs)

@@ -332,16 +332,22 @@ def test_requests_are_bounded_by_the_models_positions():
 
 
 def test_unported_options_raise(models):
+    """The fleet's arguments raise at anything but their defaults; a
+    request with a malformed KV segment (``kv_import`` and ``preset`` are
+    ported) fails its own future and frees its lane."""
     _, lm = models
-    with pytest.raises(NotImplementedError, match="item 17"):
-        serving.GenerateEngine(lm, kv_import=True, start=False)
+    for kw in (dict(replica_id=0), dict(on_outcome=lambda ok, exc: None)):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            serving.GenerateEngine(lm, slots=1, page=16, max_len=32,
+                                   prompt_buckets=(4,), start=False, **kw)
     eng = serving.GenerateEngine(lm, slots=1, page=16, max_len=32,
-                                 prompt_buckets=(4,), start=False)
+                                 prompt_buckets=(4,), start=False,
+                                 kv_import=True)
     req = eng.make_request([1, 2], max_new_tokens=3)
     req.preset = {"segment": None}
     eng.submit_request(req)
     eng.tick()
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError):
         req.future.result(timeout=10)
     assert eng.stats()["failed"] == 1 and eng.pool.free_slots() == 1
     eng.close()

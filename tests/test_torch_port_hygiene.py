@@ -143,3 +143,25 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                                 "CUDA_VISIBLE_DEVICES": ""})
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("module", ["paddle_tpu_torch.monitor",
+                                    "paddle_tpu_torch.monitor.registry",
+                                    "paddle_tpu_torch.monitor.trace",
+                                    "paddle_tpu_torch.serving.metrics",
+                                    "paddle_tpu_torch.serving.reqtrace"])
+def test_monitor_and_serving_metrics_load_no_jax(module):
+    """The monitor package and the serving metrics it feeds are covered
+    by the import check above (every file under the port), and importing
+    each alone loads no JAX."""
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert path in SOURCES
+    code = ("import sys; sys.path.insert(0, %r); import %s; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)") % (str(ROOT), module)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
