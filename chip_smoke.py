@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BERT-base serving and training paths, its
 ResNet-50 training path and its generative serving, plain and speculative,
-with the KV hand-off between engines and the serving monitor, on one CUDA
-card.
+with the KV hand-off between engines, the serving monitor and
+multi-replica serving under injected faults, on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -192,7 +192,37 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    its summed tick time; the Chrome trace written under
    ``paddle_tpu_torch/_build/monitor/`` and read back, the engine's slot
    lanes in it.
-16. the ``kernels`` line (all 14), the card's name and power limit, and
+16. multi-replica serving: ``MultiDeviceEngine`` over two copies of
+   phase 3's BERT-base on the one card (``buckets=[8, 32], max_batch=32,
+   timeout_ms=2``) takes phase 3's 44 requests while replica 0 fails its
+   first three batch attempts (``replica_error``, inside a four-attempt
+   retry policy): its breaker opens and no later request reaches it,
+   every future resolves to the single engine's phase 3 outputs within
+   1e-4, and the counters, zeroed just before, show 25 layer-norm and 12
+   flash launches per executed batch over both replicas; the supervisor's
+   half-open probe then readmits replica 0 on the card, and a rolling
+   ``swap_weights`` to a second seed's weights runs under a client's
+   traffic with no request failing, after which 8 requests equal a single
+   engine's over those weights. Then ``MultiDecodeEngine`` over 1, 2 and
+   3 copies of phase 13's model on the card (phase 13's engine settings)
+   takes phase 13's 96 sampled requests (tokens/s each, through the
+   loadgen's ``run_fleet``); again over 3 under the supervisor, where
+   replica 1 hangs (``replica_hang``, 5 s) in a tick with lanes seated and
+   requests queued: the verdict trips its breaker and moves both, then a
+   ``preempt_replica`` notice drains replica 2 and moves its work; again
+   over 3 with every engine on its own thread and the hang left where it
+   falls, counting the requests a hung prefill strands (they finish on
+   the hung replica once the hang ends); then phase 14's pair at k = 8,
+   greedy, over 2 replicas with a hang that moves lanes seated and
+   requests queued. Every request completes with its token count, no engine
+   meets a signature after ``warmup()``, the flash kernel launches once a
+   layer a prefill (re-prefills of moved requests included) and never in
+   a tick, and every stream equals phase 13's single-engine stream
+   (phase 14's plain greedy one for the pair), each departure counted and
+   a near-tie of the teacher-forced logits; the failover time (verdict to
+   the last moved request done), the supervisor's decisions, each
+   breaker's state and the hedges against ``hedge_budget``.
+17. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -1932,6 +1962,7 @@ def generate_phase(np, torch, FA, smi, seed, gen):
                             GEN_PROMPT_BUCKETS, sampling=sampling)
              for sampling in (None, GEN_SAMPLING)]
     for t in ticks:
+        t.pop("events")
         emit(dict(t, phase="generate_tick", card=smi))
     c, d = runs["greedy", "continuous"], runs["greedy", "drain"]
     cs, ds = runs["sampled", "continuous"], runs["sampled", "drain"]
@@ -1948,7 +1979,8 @@ def generate_phase(np, torch, FA, smi, seed, gen):
         tick_idle_share=[t["idle_share"] for t in ticks],
         seconds=time.perf_counter() - t0)
     emit(summary)
-    return dict(kernel=fa, runs=runs, long=long_run, ticks=ticks)
+    return dict(kernel=fa, runs=runs, long=long_run, ticks=ticks,
+                outs=outs, workload=wl)
 
 # -- phase 14: speculative decoding -------------------------------------------
 
@@ -2108,6 +2140,7 @@ def spec_phase(np, torch, FA, smi, seed, gen):
                                     spec_k=SPEC_K)
              for arm, d in (("spec", draft), ("plain", None))}
     for arm, t in ticks.items():
+        t.pop("events")
         emit(dict(t, phase="spec_tick", arm=arm, card=smi))
     # an admission's prefills at the bucket 16, the target's and the
     # draft's: device time (a CUDA graph of prefill_fn) and eager time
@@ -2156,7 +2189,7 @@ def spec_phase(np, torch, FA, smi, seed, gen):
                          prefill["draft"]["call_ms"]],
         seconds=time.perf_counter() - t0)
     emit(summary)
-    return dict(kernel=fa, runs=runs, ticks=ticks)
+    return dict(kernel=fa, runs=runs, ticks=ticks, outs=outs, workload=wl)
 
 
 # -- phase 15: the KV hand-off and the monitor --------------------------------
@@ -2470,9 +2503,14 @@ def monitor_phase(np, torch, smi, seed):
     check(on["tick_ms_total"][0] == on["ticks"]
           and on["prefill_ms_total"][0] == on["prefills"],
           "monitor: a tick or prefill the histograms missed")
+    ev_off, ev_on = ticks_off["events"], ticks_on["events"]
     check(ticks_on["launches_per_tick"] == ticks_off["launches_per_tick"],
           f"monitor: a tick launches {ticks_on['launches_per_tick']} with "
-          f"the monitor on, {ticks_off['launches_per_tick']} off")
+          f"the monitor on, {ticks_off['launches_per_tick']} off; the "
+          f"events whose counts differ (off, on): " + str({
+              n: (ev_off.get(n, 0), ev_on.get(n, 0))
+              for n in sorted(set(ev_off) | set(ev_on))
+              if ev_off.get(n, 0) != ev_on.get(n, 0)}))
     with open(trace_path) as fh:
         doc = json.load(fh)
     lanes = {e["args"]["name"] for e in doc["traceEvents"]
@@ -2583,6 +2621,447 @@ def handoff_phase(np, torch, smi, seed):
         tick_launches=mon["tick_launches"],
         seconds=time.perf_counter() - t0))
     return runs, mon
+
+# -- phase 16: multi-replica serving ------------------------------------------
+
+# the BERT fleet: phase 3's model twice on the one card. Replica 0 fails
+# its first three batch attempts (replica_error) inside a retry policy of
+# four attempts, so that its breaker (threshold 3) opens and no request
+# fails; the breaker's cooldown outlasts the traffic
+FLEET_REPLICAS = 2
+FLEET_ERRORS = 3
+FLEET_COOLDOWN_S = 600.0
+# requests held, after the rolling swap, to a single engine over the
+# second seed's weights
+FLEET_SWAP_CHECK = 8
+# the decode fleets: phase 13's model, engine and sampled traffic over 1,
+# 2 and 3 replicas on the one card (the loadgen's run_fleet); then
+# supervised runs in which replica 1 hangs (replica_hang, FLEET_HANG_S)
+# and the supervisor's verdict comes once its tick is FLEET_INFLIGHT_MS
+# old. In a scripted run replica 1's ticks run on a thread of this
+# script, its engine's own loop with one check between ticks, from the
+# moment all the traffic is offered, and the hang is injected at the
+# first boundary with lanes seated and requests queued, so that a
+# failover has both to move; with 3 replicas, replica 2 then gets a
+# preemption notice. In the free run every replica ticks on its engine's
+# own thread and the hang lands wherever replica 1 is. A hang in a
+# prefill strands that request, which a failover does not move (ROADMAP.md
+# Queue C) and which completes on replica 1 once the hang ends: every
+# run counts those
+DECODE_FLEET_REPLICAS = (1, 2, 3)
+FLEET_HANG_S = 5.0
+FLEET_INFLIGHT_MS = 1000.0
+FLEET_SUPERVISOR_S = 0.05
+FLEET_WAIT_S = 60.0
+
+
+def wait_for(cond, what, timeout=FLEET_WAIT_S, poll=0.005):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"fleet: timed out waiting for "
+                                           f"{what}")
+        time.sleep(poll)
+
+
+def spy_moves(engine):
+    """Record the requests ``engine`` hands over when the fleet migrates
+    its work: ``{"disown_inflight": [...], "steal_pending": [...]}``."""
+    log = {}
+    for name in ("disown_inflight", "steal_pending"):
+        orig = getattr(engine, name)
+        log[name] = []
+
+        def spy(*a, _orig=orig, _log=log[name], **kw):
+            out = _orig(*a, **kw)
+            _log.extend(out)
+            return out
+
+        setattr(engine, name, spy)
+    return log
+
+
+def bert_fleet(np, torch, smi, seed, reqs, outs32):
+    """The BERT-base fleet: phase 3's traffic with replica 0 failing until
+    its breaker opens, the supervisor's half-open probe readmitting it,
+    then a rolling swap to a second seed's weights under traffic."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models import Bert, BertConfig
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.retry import RetryPolicy
+    from paddle_tpu_torch.serving import MultiDeviceEngine, ServingEngine
+    t0 = time.perf_counter()
+    ptt.seed(seed)
+    model = Bert(BertConfig.base()).eval()
+    fleet = MultiDeviceEngine(
+        Predictor(model), devices=["cuda:0"] * FLEET_REPLICAS,
+        buckets=[8, 32], max_batch=32, timeout_ms=2,
+        breaker_cooldown_s=FLEET_COOLDOWN_S,
+        retry_policy=RetryPolicy(max_attempts=FLEET_ERRORS + 1,
+                                 base_delay=0.001, max_delay=0.001,
+                                 jitter=0.0))
+    try:
+        fresh = fleet.warmup([((128,), "int32")] * 3,
+                             [((512,), "int32")] * 3)
+        spec = faults.inject("replica_error", replica=0, times=FLEET_ERRORS)
+        n128 = REQUESTS_128
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launches()
+        b0 = sum(e.stats()["batches"] for e in fleet.engines)
+        outs128, _, wall128 = drive(np, fleet, reqs[:n128])
+        routed0 = fleet.engines[0].stats()["submitted"]
+        outs512, _, _ = drive(np, fleet, reqs[n128:])
+        launches = dict(kernels.launches)
+        st = fleet.stats()
+        faults.clear()
+        batches = st["batches"] - b0
+        outs = outs128 + outs512
+        check(all(o is not None for o in outs),
+              "bert fleet: a future did not resolve")
+        check(spec.fired == FLEET_ERRORS and st["breakers"][0] == "open",
+              f"bert fleet: replica_error fired {spec.fired} times, "
+              f"breakers {st['breakers']}")
+        check(st["replicas"][0]["submitted"] == routed0,
+              "bert fleet: traffic reached replica 0 past its open breaker")
+        for r in st["replicas"]:
+            check(r["failed"] == 0 and r["expired"] == 0
+                  and r["isolated"] == 0, f"bert fleet: a replica failed "
+                                          f"or isolated requests: {r}")
+        check(st["compiles"] == fresh,
+              "bert fleet: traffic met a signature warmup did not run")
+        errs = [max(float(np.abs(a - b).max()) for a, b in zip(o, w))
+                for o, w in zip(outs, outs32)]
+        check(max(errs) <= SERVE_F32_TOL,
+              f"bert fleet: outputs differ from the single engine's by "
+              f"{max(errs)}")
+        for name, k in LAUNCHES_PER_BATCH.items():
+            check(launches[name] == k * batches,
+                  f"bert fleet: {name} launched {launches[name]} times in "
+                  f"{batches} batches, want {k} per batch")
+        # the operator shortens replica 0's cooldown: the supervisor's
+        # half-open probe runs on the card and readmits it
+        fleet._replicas[0].breaker.cooldown_s = 0.0
+        wait_for(lambda: "reclose" in [d["decision"] for d in
+                                       fleet.supervisor.decisions],
+                 "replica 0's reclose")
+        # a rolling swap to the second seed's weights under traffic
+        ptt.seed(seed + 1)
+        model2 = Bert(BertConfig.base()).eval()
+        single = ServingEngine(Predictor(model2), buckets=[8, 32],
+                               max_batch=32, timeout_ms=2)
+        want2 = [single.run(*reqs[i], timeout=600)
+                 for i in range(FLEET_SWAP_CHECK)]
+        single.close()
+        stop, during, errors = threading.Event(), [], []
+
+        def client():
+            i = 0
+            while not stop.is_set():
+                try:
+                    during.append(fleet.submit(*reqs[i % n128])
+                                  .result(600))
+                except Exception as e:   # noqa: BLE001 - checked below
+                    errors.append(repr(e))
+                i += 1
+
+        th = threading.Thread(target=client)
+        th.start()
+        ts = time.perf_counter()
+        version = fleet.swap_weights(model2.state_dict())
+        swap_s = time.perf_counter() - ts
+        stop.set()
+        th.join(600)
+        check(not errors and during and all(
+            np.isfinite(a).all() for o in during for a in o),
+            f"bert fleet: requests during the swap failed: {errors[:3]}")
+        post = [fleet.run(*reqs[i], timeout=600)
+                for i in range(FLEET_SWAP_CHECK)]
+        swap_err = max(float(np.abs(a - b).max()) for o, w in
+                       zip(post, want2) for a, b in zip(o, w))
+        check(version == 1 and [e.weights_version for e in fleet.engines]
+              == [1] * FLEET_REPLICAS and swap_err <= SERVE_F32_TOL,
+              f"bert fleet: after the swap, version {version}, outputs "
+              f"{swap_err} from the second seed's")
+        st2 = fleet.stats()
+        decisions = [dict(d, t=None) for d in fleet.supervisor.decisions]
+    finally:
+        faults.clear()
+        fleet.close()
+    rec = dict(phase="fleet_bert", card=smi, replicas=FLEET_REPLICAS,
+               requests=len(reqs), batches=batches, launches=launches,
+               replica_error_fired=spec.fired,
+               routed=[r["submitted"] for r in st["replicas"]],
+               breakers_after_traffic=st["breakers"],
+               max_abs_err_vs_single=max(errs), tol=SERVE_F32_TOL,
+               qps=n128 / wall128, requests_during_swap=len(during),
+               swap_s=swap_s, swap_max_abs_err=swap_err,
+               hedged=st2["hedged"], hedge_wins=st2["hedge_wins"],
+               hedge_budget=fleet.hedge_budget,
+               submitted=sum(r["submitted"] for r in st2["replicas"]),
+               breakers=st2["breakers"], decisions=decisions,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    del model, model2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hang_ticker(engine, stop, state):
+    """Replica 1's tick loop (its engine's own, ``GenerateEngine._worker``,
+    with a check between ticks), from the moment the traffic is all
+    offered: at the first tick boundary where lanes are seated and
+    requests queued, ``replica_hang`` is injected, so that the next tick
+    hangs with both to move: in its step where every lane is taken (long
+    sampled requests), else in the prefill of the next queued request,
+    which the hang strands (short speculative ones; counted)."""
+    from paddle_tpu_torch.resilience import faults
+    state["offered"].wait(FLEET_WAIT_S)
+    while not stop.is_set():
+        busy = engine.tick()
+        hb = engine.heartbeat()
+        if "spec" not in state and hb["active"] and hb["queue_depth"]:
+            state["spec"] = faults.inject("replica_hang", replica=1,
+                                          delay=FLEET_HANG_S)
+            state["hang_t"] = time.time()
+            state["seated_queued"] = [hb["active"], hb["queue_depth"]]
+        if not busy:
+            time.sleep(0.002)
+
+
+def check_fleet_run(label, wl, outs, post_warmup_signatures, launches,
+                    layers, prefills):
+    """A decode fleet's run: every request complete with its token count,
+    no signature met after warmup, and #3 launched ``layers`` times a
+    prefill and never in a tick."""
+    check([len(o) for o in outs] == [n for _, n in wl],
+          f"fleet {label}: a request did not complete with its token count")
+    check(post_warmup_signatures == 0,
+          f"fleet {label}: traffic met {post_warmup_signatures} signatures "
+          f"warmup did not")
+    want = {"flash_attention_fwd": layers * prefills}
+    check(launches == want, f"fleet {label}: launches {launches}, want "
+                            f"{want} ({layers} a prefill, none a tick)")
+
+
+def decode_fleet(np, torch, smi, model, wl, sampling, replicas, label,
+                 draft=None, scripted=True, preempt=False):
+    """A supervised ``MultiDecodeEngine`` over ``replicas`` copies of
+    ``model`` on the one card, the workload offered all at once (request
+    i seeded 1000 + i where sampled), its engines warmed and the launch
+    counts zeroed just before the traffic, in which replica 1 hangs: in a
+    step (``scripted``, :func:`hang_ticker`) or wherever it is once the
+    traffic is offered. After the failover verdict, where ``preempt``,
+    replica 2 gets a preemption notice. Returns (record, streams)."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import MultiDecodeEngine
+    fleet = MultiDecodeEngine(
+        model, devices=["cuda:0"] * replicas, slots=GEN_SLOTS, page=32,
+        factor=2.0, max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS,
+        queue_depth=GEN_REQUESTS + 8, shed=False, draft_model=draft,
+        spec_k=SPEC_K, supervise=True,
+        supervisor_interval_s=FLEET_SUPERVISOR_S,
+        inflight_timeout_ms=FLEET_INFLIGHT_MS,
+        breaker_cooldown_s=FLEET_COOLDOWN_S,
+        restart_after_s=FLEET_COOLDOWN_S, start=not scripted)
+    stop, ticker = threading.Event(), None
+    state = {"offered": threading.Event()}
+    try:
+        fresh = fleet.warmup()
+        execs = [e.executables() for e in fleet.engines]
+        spies = [spy_moves(e) for e in fleet.engines]
+        done_at = [None] * len(wl)
+        if scripted:
+            for i, e in enumerate(fleet.engines):
+                if i != 1:
+                    e.start()
+            ticker = threading.Thread(target=hang_ticker,
+                                      args=(fleet.engines[1], stop, state))
+            ticker.start()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        futs = []
+        for i, (p, n) in enumerate(wl):
+            f = fleet.submit(p, max_new_tokens=n, sampling=sampling,
+                             seed=(GEN_SEED_BASE + i) if sampling else None)
+            f.add_done_callback(
+                lambda _f, i=i: done_at.__setitem__(i, time.time()))
+            futs.append(f)
+        if not scripted:
+            # at replica 1's next fault site: a prefill's or a step's
+            state["spec"] = faults.inject("replica_hang", replica=1,
+                                          delay=FLEET_HANG_S)
+            state["hang_t"] = time.time()
+        state["offered"].set()
+        decided = lambda kind: kind in [  # noqa: E731
+            d["decision"] for d in fleet.supervisor.decisions]
+        wait_for(lambda: decided("failover"), "the failover verdict")
+        # replica 1 is hung: what it completes from here on, the hang
+        # stranded
+        completed_at_verdict = fleet.engines[1].stats()["completed"]
+        # the supervisor's probe of the hung replica: its step on the
+        # card, on a side thread, while the replica's tick is wedged
+        t_probe = time.perf_counter()
+        state["probe"] = fleet.engines[1].probe(timeout_s=FLEET_WAIT_S)
+        state["probe_s"] = time.perf_counter() - t_probe
+        state["probe_while_hung"] = \
+            fleet.engines[1].heartbeat()["inflight_age_s"] is not None
+        if preempt:
+            faults.inject("preempt_replica", replica=2, times=1)
+            wait_for(lambda: decided("drain"), "replica 2's drain")
+        outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
+        wall_s = time.perf_counter() - t0
+        # the hung tick wakes and ends before the fleet closes
+        stop.set()
+        if ticker is not None:
+            ticker.join(FLEET_HANG_S + FLEET_WAIT_S)
+            check(not ticker.is_alive(), f"fleet {label}: replica 1's "
+                                         f"hung tick did not end")
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        st = fleet.stats()
+        after = [e.executables() for e in fleet.engines]
+        decisions = list(fleet.supervisor.decisions)
+    finally:
+        stop.set()
+        faults.clear()
+        fleet.close(drain=False, timeout=10.0)
+    layers = model.layers + (draft.layers if draft is not None else 0)
+    prefills = sum(r["prefills"] for r in st["replicas"])
+    check_fleet_run(label, wl, outs, sum(
+        (a[0] - b[0]) + (a[1] - b[1]) for a, b in zip(after, execs)),
+        launches, layers, prefills)
+    tokens = sum(len(o) for o in outs)
+    idx = {id(f): i for i, f in enumerate(futs)}
+    moved = [log["disown_inflight"] + log["steal_pending"] for log in spies]
+    verdict = next(d for d in decisions if d["decision"] == "failover")
+    hung = [idx[id(r.future)] for r in moved[1]]
+    stranded = st["replicas"][1]["completed"] - completed_at_verdict
+    check(state["spec"].fired == 1 and verdict["moved"] == len(hung)
+          and (hung or stranded),
+          f"fleet {label}: the hang fired {state['spec'].fired} times, "
+          f"moved {len(hung)}, stranded {stranded}")
+    # a scripted hang moves seated lanes and queued requests both
+    inflight = len(spies[1]["disown_inflight"])
+    check(not scripted or 0 < inflight < len(hung),
+          f"fleet {label}: the hang moved {inflight} seated of {len(hung)}")
+    check(not preempt or (st["draining_replicas"] == 1
+                          and len(moved[2]) > 0),
+          f"fleet {label}: replica 2's drain moved nothing")
+    check(state["probe"] is True and state["probe_while_hung"],
+          f"fleet {label}: the probe of the hung replica gave "
+          f"{state['probe']} (while hung: {state['probe_while_hung']})")
+    rec = dict(phase="fleet_decode", case=label, card=smi,
+               replicas=replicas, sampling=sampling, requests=len(wl),
+               hang="in a step" if scripted else "where it fell",
+               tokens=tokens, wall_s=wall_s, tokens_per_s=tokens / wall_s,
+               prefills=prefills, launches=launches,
+               warmed_signatures=fresh,
+               routed=[r["submitted"] for r in st["replicas"]],
+               ticks=[r["ticks"] for r in st["replicas"]],
+               breakers=st["breakers"], failovers=st["failovers"],
+               draining=st["draining_replicas"],
+               moved=[len(m) for m in moved],
+               moved_inflight=[len(log["disown_inflight"])
+                               for log in spies],
+               stranded=stranded,
+               seated_queued_at_hang=state.get("seated_queued"),
+               decisions=[dict(d, t=round(d["t"] - verdict["t"], 4))
+                          for d in decisions],
+               failover_s=(max(done_at[i] for i in hung) - verdict["t"]
+                           if hung else None),
+               # scripted: from the hang's injection at a tick boundary;
+               # free: from its injection, which fires at replica 1's
+               # next fault site
+               hang_to_verdict_s=verdict["t"] - state["hang_t"],
+               probe_while_hung_s=state["probe_s"])
+    emit(rec)
+    return rec, outs
+
+
+def fleet_phase(np, torch, smi, seed, reqs, outs32, gen13, spec14):
+    """Phase 16: the BERT fleet, then the decode fleets: phase 13's sampled
+    traffic over 1, 2 and 3 replicas, again over 3 with a hang and a
+    preemption under the supervisor, and phase 14's pair at k = 8, greedy,
+    over 2 replicas with a hang; every stream held to the single engine's
+    of phases 13 and 14, each departure counted and a near-tie."""
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    t0 = time.perf_counter()
+    bert = bert_fleet(np, torch, smi, seed, reqs, outs32)
+    model = demo_model(**GEN_MODEL)
+    wl = gen13["workload"]
+    clean = gen13["outs"]["sampled", "continuous"]
+    runs, departures = {}, {}
+    for n in DECODE_FLEET_REPLICAS:
+        label = f"sampled_x{n}"
+        runs[n] = r = LG.run_fleet(model, wl, n, GEN_SLOTS, GEN_MAX_LEN,
+                                   GEN_PROMPT_BUCKETS, sampling=GEN_SAMPLING,
+                                   seed_base=GEN_SEED_BASE)
+        outs = r.pop("outputs")
+        check_fleet_run(label, wl, outs, r["post_warmup_signatures"],
+                        r["launches"], model.layers, sum(r["prefills"]))
+        emit(dict(phase="fleet_decode", case=label, card=smi, **r))
+        departures[n] = handoff_departures(torch, model, wl, clean, outs,
+                                           GEN_SAMPLING)
+    chaos, outs = decode_fleet(np, torch, smi, model, wl, GEN_SAMPLING, 3,
+                               "sampled_hang_preempt", preempt=True)
+    departures["chaos"] = handoff_departures(torch, model, wl, clean, outs,
+                                             GEN_SAMPLING)
+    check(chaos["failovers"] == 1 and chaos["breakers"][1] == "open",
+          f"fleet: hang and preemption: {chaos}")
+    free, outs = decode_fleet(np, torch, smi, model, wl, GEN_SAMPLING, 3,
+                              "sampled_hang_free", scripted=False)
+    departures["free"] = handoff_departures(torch, model, wl, clean, outs,
+                                            GEN_SAMPLING)
+    check(free["failovers"] == 1 and free["breakers"][1] == "open",
+          f"fleet: the free hang: {free}")
+    target, draft = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN)
+    spec, outs = decode_fleet(np, torch, smi, target, spec14["workload"],
+                              None, 2, "spec_greedy_hang", draft=draft)
+    departures["spec"] = spec_departures(
+        np, torch, target, spec14["workload"],
+        spec14["outs"]["plain", "greedy"], outs, None)
+    check(spec["failovers"] == 1, f"fleet: the pair's hang: {spec}")
+    emit(dict(
+        phase="fleet_summary", card=smi,
+        decode_tokens_per_s={n: r["tokens_per_s"] for n, r in runs.items()},
+        decode_speedup_x={n: r["tokens_per_s"] / runs[1]["tokens_per_s"]
+                          for n, r in runs.items()},
+        decode_wall_ms_per_tick={n: r["wall_ms_per_tick"]
+                                 for n, r in runs.items()},
+        failover_s={"sampled": chaos["failover_s"],
+                    "sampled_free": free["failover_s"],
+                    "spec_greedy": spec["failover_s"]},
+        hang_to_verdict_s={"sampled": chaos["hang_to_verdict_s"],
+                           "sampled_free": free["hang_to_verdict_s"],
+                           "spec_greedy": spec["hang_to_verdict_s"]},
+        decisions={"bert": [d["decision"] for d in bert["decisions"]],
+                   "sampled": [d["decision"] for d in chaos["decisions"]],
+                   "sampled_free": [d["decision"] for d in
+                                    free["decisions"]],
+                   "spec_greedy": [d["decision"] for d in
+                                   spec["decisions"]]},
+        breakers={"bert": bert["breakers"], "sampled": chaos["breakers"],
+                  "sampled_free": free["breakers"],
+                  "spec_greedy": spec["breakers"]},
+        moved={"sampled": chaos["moved"], "sampled_free": free["moved"],
+               "spec_greedy": spec["moved"]},
+        moved_inflight={"sampled": chaos["moved_inflight"],
+                        "sampled_free": free["moved_inflight"],
+                        "spec_greedy": spec["moved_inflight"]},
+        stranded={"sampled": chaos["stranded"],
+                  "sampled_free": free["stranded"],
+                  "spec_greedy": spec["stranded"]},
+        departures={k: len(v) for k, v in departures.items()},
+        departure_detail={k: v for k, v in departures.items() if v},
+        bert_hedged=[bert["hedged"], bert["hedge_budget"] * bert[
+            "submitted"]],
+        single_engine_tokens_per_s=gen13["runs"]["sampled", "continuous"][
+            "tokens_per_s"],
+        bert_qps=bert["qps"], bert_swap_s=bert["swap_s"],
+        seconds=time.perf_counter() - t0))
+
 
 
 def main(argv=None):
@@ -2809,15 +3288,18 @@ def main(argv=None):
 
     # 13. generative serving
     torch.cuda.empty_cache()
-    generate_phase(np, torch, FA, smi, args.seed, gen)
+    gen13 = generate_phase(np, torch, FA, smi, args.seed, gen)
 
     # 14. speculative decoding
-    spec_phase(np, torch, FA, smi, args.seed, gen)
+    spec14 = spec_phase(np, torch, FA, smi, args.seed, gen)
 
     # 15. the KV hand-off, and the monitor
     handoff_phase(np, torch, smi, args.seed)
 
-    # 16. the kernels line, the card, and the verdict
+    # 16. multi-replica serving: the BERT fleet, the decode fleets
+    fleet_phase(np, torch, smi, args.seed, reqs, outs32, gen13, spec14)
+
+    # 17. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

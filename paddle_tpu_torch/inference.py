@@ -73,6 +73,13 @@ class Predictor:
         self.model = model.eval()
         self._compiled = set()
 
+    @property
+    def state(self):
+        """The served model's weights as ``{name: tensor}``, views of its
+        own (what a serving fleet's ``swap_weights`` takes, and copies
+        into each replica's model)."""
+        return dict(self.model.state_dict())
+
     @staticmethod
     def _signature(arrays):
         return tuple((tuple(a.shape), str(a.dtype)) for a in arrays)

@@ -21,22 +21,37 @@ Counterpart of ``paddle_tpu/serving`` for this slice:
   rolling SLO windows over the port's monitor
 * :mod:`~paddle_tpu_torch.serving.reqtrace`  — one ``serving.request``
   record a request, its latency split into stages (TTFT, TPOT)
+* :mod:`~paddle_tpu_torch.serving.multi`     — :class:`MultiDeviceEngine`:
+  health-aware fan-out over per-device replicas (breakers, hang
+  failover, hedging, drains, rolling weight swaps); :func:`replicate`
+* :mod:`~paddle_tpu_torch.serving.breaker`   — :class:`CircuitBreaker`,
+  the per-replica closed / open / half-open state machine
+* :mod:`~paddle_tpu_torch.serving.supervisor` — :class:`ServingSupervisor`,
+  the control loop that trips, fails over, probes, restarts and scales
 
-Fault injection, the multi-replica fleet and disaggregated serving are
-not ported yet (see ROADMAP.md).
+:class:`MultiDecodeEngine` (:func:`replicate_decode`) is the decode
+fleet over :class:`GenerateEngine` replicas. Disaggregated serving and
+the prefix cache are not ported yet (see ROADMAP.md).
 """
-from . import metrics, reqtrace
+from . import breaker, metrics, multi, reqtrace, supervisor
 from .admission import (AdmissionController, DeadlineExpired, PRIORITIES,
                         QueueFullError, ShedError)
 from .batcher import DynamicBatcher, Request
+from .breaker import CircuitBreaker
 from .engine import ServingEngine
-from .generate import (DecodeRequest, DemoLM, GenerateEngine, demo_model,
-                       demo_spec_pair)
+from .generate import (DecodeRequest, DemoLM, GenerateEngine,
+                       MultiDecodeEngine, demo_model, demo_spec_pair,
+                       replicate_decode)
 from .kv_cache import KVCachePool
+from .multi import MultiDeviceEngine, NoHealthyReplicaError, replicate
 from .sampling import SamplingParams
+from .supervisor import ServingSupervisor
 
 __all__ = ["AdmissionController", "DeadlineExpired", "PRIORITIES",
            "QueueFullError", "ShedError", "DynamicBatcher", "Request",
-           "ServingEngine", "DecodeRequest", "DemoLM", "GenerateEngine",
-           "demo_model", "demo_spec_pair", "KVCachePool", "SamplingParams",
-           "metrics", "reqtrace"]
+           "CircuitBreaker", "ServingEngine", "DecodeRequest", "DemoLM",
+           "GenerateEngine", "MultiDecodeEngine", "demo_model",
+           "demo_spec_pair", "replicate_decode", "KVCachePool",
+           "MultiDeviceEngine", "NoHealthyReplicaError", "replicate",
+           "SamplingParams", "ServingSupervisor", "breaker", "metrics",
+           "multi", "reqtrace", "supervisor"]

@@ -1,10 +1,10 @@
 """paddle_tpu_torch.serving.batcher — dynamic request coalescing.
 
 Counterpart of ``paddle_tpu/serving/batcher.py``, with its metrics, span
-and request-trace calls, and without the hooks the multi-replica fleet
-uses for supervision and failover (``inflight_age``, ``steal_pending``,
-``disown_inflight``, ``requeue``), which come back with
-``serving/multi.py`` (ROADMAP.md Queue A item 17.3). Callers submit ragged requests (1, 3,
+and request-trace calls, and the hooks the multi-replica fleet
+(``serving/multi.py``) supervises and fails over through
+(``inflight_age``, ``inflight_token``, ``steal_pending``,
+``disown_inflight``, ``requeue``). Callers submit ragged requests (1, 3,
 7, 13 rows ...) into a bounded queue; a background thread drains it,
 coalesces same-signature requests along the batch axis, and flushes when
 either ``max_batch`` rows accumulate or the oldest request has waited
@@ -109,9 +109,11 @@ class DynamicBatcher:
         self._closed = False      # no further submits
         self._draining = False
         self._thread = None
-        # the group currently inside _process (the close(drain=False)
-        # no-stranded-future guarantee)
+        # the group currently inside _process (supervision, and the
+        # close(drain=False) no-stranded-future guarantee)
         self._inflight = []
+        self._inflight_t0 = None
+        self._last_progress = time.monotonic()
 
     # -- producer side ----------------------------------------------------
 
@@ -135,6 +137,67 @@ class DynamicBatcher:
         with self._lock:
             return len(self._queue)
 
+    # -- supervision hooks ------------------------------------------------
+
+    def inflight_age(self, now=None):
+        """Seconds the current in-flight group has been inside
+        ``process`` (None when idle): the supervisor's hang signal."""
+        with self._lock:
+            t0 = self._inflight_t0
+        if t0 is None:
+            return None
+        return (now if now is not None else time.monotonic()) - t0
+
+    def inflight_token(self):
+        """Identity of the current in-flight dispatch (None when idle):
+        the supervisor fails one dispatch over once, however many of its
+        ticks see it hung."""
+        with self._lock:
+            return self._inflight_t0
+
+    def last_progress_age(self, now=None):
+        with self._lock:
+            t = self._last_progress
+        return (now if now is not None else time.monotonic()) - t
+
+    def steal_pending(self):
+        """Take every queued (not yet dispatched) request: failover moves
+        them to a healthy replica without re-admission."""
+        with self._lock:
+            taken = list(self._queue)
+            self._queue.clear()
+            metrics.record_queue_depth(0)
+        return taken
+
+    def disown_inflight(self):
+        """Take the currently dispatched group (failover: the requests run
+        again elsewhere, and the first resolution wins). After this,
+        neither the worker's failure path nor :meth:`close` touches their
+        futures."""
+        with self._lock:
+            taken = list(self._inflight)
+            self._inflight = []
+        return taken
+
+    def requeue(self, requests):
+        """Put already-admitted requests at the front of the queue
+        (failover re-dispatch), with no second admission: shedding them
+        now would turn a replica's fault into errors for their callers.
+        On a closed batcher each future fails instead."""
+        if not requests:
+            return
+        with self._cond:
+            if self._closed:
+                for r in requests:
+                    r.resolve_exception(
+                        RuntimeError("serving engine closed"))
+                return
+            for r in reversed(requests):
+                self._queue.appendleft(r)
+            depth = len(self._queue)
+            self._cond.notify()
+        metrics.record_queue_depth(depth)
+
     # -- lifecycle --------------------------------------------------------
 
     def start(self):
@@ -152,10 +215,11 @@ class DynamicBatcher:
         ``drain=True`` (default) queued requests are flushed first;
         anything still queued afterwards (``drain=False``, or no thread
         ever started) fails with RuntimeError. If the drain thread is
-        wedged inside ``process`` (a hung card) the join times out and
-        the *dispatched* group's unresolved futures fail too — a future
-        is never silently lost, even when its executor never comes
-        back."""
+        wedged inside ``process`` (a hung replica) the join times out
+        and the *dispatched* group's unresolved futures fail too — a
+        future is never silently lost, even when its executor never
+        comes back. Disowned in-flight requests (failover took them) are
+        someone else's to resolve and are left alone."""
         with self._cond:
             if self._closed:
                 return
@@ -192,6 +256,7 @@ class DynamicBatcher:
             if group:
                 with self._lock:
                     self._inflight = group
+                    self._inflight_t0 = time.monotonic()
                 try:
                     with _monitor.trace.span("serving.batch",
                                              requests=len(group)):
@@ -199,12 +264,18 @@ class DynamicBatcher:
                 except BaseException as e:  # noqa: BLE001 - to futures
                     # process() resolves its own failures; this is the
                     # belt-and-braces path for an unexpected escape, so
-                    # the group can never strand
-                    for r in group:
+                    # the group can never strand. Disowned requests
+                    # (failover took them mid-dispatch) resolve on their
+                    # new replica.
+                    with self._lock:
+                        owned = list(self._inflight)
+                    for r in owned:
                         r.resolve_exception(e)
                 finally:
                     with self._lock:
                         self._inflight = []
+                        self._inflight_t0 = None
+                        self._last_progress = time.monotonic()
                 continue
             with self._cond:
                 if not self._running:

@@ -2,10 +2,10 @@
 
 Counterpart of ``paddle_tpu/serving/engine.py``, with its monitor spans,
 ``serving/metrics.py`` records and ``serving/reqtrace.py`` request
-traces, and without fault injection and the fleet's supervision surface
-(heartbeat, probe, failover hand-offs, ``replica_id``, ``on_outcome``),
-which come back with ``serving/multi.py`` (ROADMAP.md Queue A item
-17.3).
+traces, the fault-injection site in batch execution, and the supervision
+surface a ``MultiDeviceEngine`` fleet drives (``replica_id``,
+``on_outcome``, :meth:`~ServingEngine.heartbeat`,
+:meth:`~ServingEngine.probe` and the failover hand-offs).
 
 ``ServingEngine`` composes the pieces: the batcher decides *when* a
 coalesced group flushes (``max_batch`` rows or ``timeout_ms``,
@@ -38,6 +38,7 @@ import torch
 from .. import monitor as _monitor
 from ..inference import to_host
 from ..io.bucketing import next_bucket, pad_to_bucket, split_rows
+from ..resilience import faults as _faults
 from ..resilience.deadline import Deadline
 from . import metrics
 from . import reqtrace
@@ -85,14 +86,17 @@ class ServingEngine:
     shed / slo_goodput_floor : walk the priority shed ladder before the
         hard queue cap; one rung higher while the monitor's ``slo.*``
         goodput window is below the floor.
+    replica_id : identity inside a ``MultiDeviceEngine`` fleet (fault
+        targeting, request records); None for a standalone engine.
+    on_outcome : breaker feedback, called with ``(ok, exc or None)``
+        after each batch execution attempt settles.
 
     The reference's other options are accepted at their defaults and
     raise ``NotImplementedError`` otherwise: ``metrics_port`` (the
-    ``/metrics`` endpoint, ROADMAP.md Queue A item 20), ``replica_id`` and
-    ``on_outcome`` (the fleet, item 17.3), and ``seq_buckets``
-    (sequence-axis padding for token prompts, item 17.5; wrong for BERT,
-    whose repeated last ``attention_mask`` column would make a padded key
-    visible whenever the last real token is).
+    ``/metrics`` endpoint, ROADMAP.md Queue A item 20) and
+    ``seq_buckets`` (sequence-axis padding for token prompts, item 17.5;
+    wrong for BERT, whose repeated last ``attention_mask`` column would
+    make a padded key visible whenever the last real token is).
     """
 
     def __init__(self, predictor, buckets=None, max_batch=32,
@@ -101,16 +105,16 @@ class ServingEngine:
                  replica_id=None, on_outcome=None, shed=True,
                  slo_goodput_floor=0.90, seq_buckets=None):
         for name, value, item in (("metrics_port", metrics_port, "20"),
-                                  ("replica_id", replica_id, "17.3"),
-                                  ("on_outcome", on_outcome, "17.3"),
                                   ("seq_buckets", seq_buckets, "17.5")):
             if value is not None:
                 raise NotImplementedError(
                     f"{name}: not ported yet (ROADMAP.md Queue A item "
                     f"{item})")
-        self.replica_id = None
-        # the served weights' version, stamped into each request record
+        self.replica_id = replica_id
+        # the served weights' version: bumped by the fleet's rolling swap
+        # and stamped into each request record
         self.weights_version = 0
+        self.on_outcome = on_outcome
         self.predictor = predictor
         self.max_batch = int(max_batch)
         if self.max_batch < 1:
@@ -139,6 +143,10 @@ class ServingEngine:
                        "batches": 0, "coalesced_rows": 0,
                        "padded_rows": 0, "compiles": 0, "retries": 0,
                        "isolated": 0}
+        # a 1-row copy of the first submit's inputs: the supervisor's
+        # half-open probe replays it as budgeted test traffic
+        self._probe_template = None
+        self._last_ok_t = time.monotonic()
         if start:
             self.start()
 
@@ -180,6 +188,8 @@ class ServingEngine:
     def submit_request(self, req):
         """Enqueue an already-built ``Request``; returns its future.
         Raises ``ShedError`` / ``QueueFullError`` from admission."""
+        if self._probe_template is None:
+            self._probe_template = tuple(a[:1].copy() for a in req.inputs)
         with _monitor.trace.span("serving.enqueue", rows=req.n):
             fut = self._batcher.submit(req)
             if req.trace is not None:
@@ -230,6 +240,13 @@ class ServingEngine:
                 for b in self.buckets:
                     self.predictor.warmup(
                         [((b,) + shape, dtype) for shape, dtype in norm])
+                if self._probe_template is None and norm:
+                    # a fresh (or restarted) replica has served nothing:
+                    # probe input from the warmup signature, so that the
+                    # supervisor can still test it back to health
+                    self._probe_template = tuple(
+                        np.zeros((1,) + tuple(shape), dtype=np.dtype(dtype))
+                        for shape, dtype in norm)
         fresh = len(self.predictor._compiled) - before
         if fresh:
             metrics.record_compiles(fresh)
@@ -249,6 +266,87 @@ class ServingEngine:
 
     def __exit__(self, *exc):
         self.close()
+
+    # -- supervision surface ----------------------------------------------
+
+    def heartbeat(self, now=None):
+        """Liveness signals for the ``ServingSupervisor``: queue depth,
+        whether a batch is dispatched and for how long, time since the
+        drain thread last made progress, and time since the last
+        successful batch."""
+        now = time.monotonic() if now is None else now
+        age = self._batcher.inflight_age(now)
+        return {
+            "queue_depth": self._batcher.depth(),
+            "inflight_age_s": age,
+            "inflight_token": self._batcher.inflight_token(),
+            "last_progress_age_s": self._batcher.last_progress_age(now),
+            "last_ok_age_s": now - self._last_ok_t,
+            # in-flight groups: what a drain waits to reach zero
+            "active": 0 if age is None else 1,
+        }
+
+    def probe(self, timeout_s=1.0):
+        """Half-open test traffic: replay a 1-row copy of real input
+        through assemble and execute on a side thread (the drain thread
+        may be the thing that is wedged) and report whether it finished
+        in time; None when nothing was served or warmed. No future and no
+        queue: the probe neither competes with nor waits for real work."""
+        template = self._probe_template
+        if template is None:
+            return None
+        done = threading.Event()
+        err = []
+
+        def _go():
+            try:
+                sig = tuple((a.shape[1:], str(a.dtype)) for a in template)
+                req = Request(tuple(a.copy() for a in template), 1, sig)
+                arrays, _real, _bucket = self._assemble([req])
+                outs, _multi = self._run_batch(arrays)
+                for o in outs:
+                    to_host(o)      # the result has reached the host
+            except BaseException as e:  # noqa: BLE001 - the verdict
+                err.append(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=_go, daemon=True,
+                         name="paddle_tpu_torch-serving-probe").start()
+        ok = done.wait(timeout_s) and not err
+        if ok:
+            self._last_ok_t = time.monotonic()
+        return bool(ok)
+
+    def steal_pending(self):
+        """Failover: hand every queued request to the caller."""
+        return self._batcher.steal_pending()
+
+    def disown_inflight(self):
+        """Failover: hand over the currently dispatched group."""
+        return self._batcher.disown_inflight()
+
+    def requeue(self, requests):
+        """Failover: take already-admitted requests at the queue's
+        front."""
+        for r in requests:
+            tr = getattr(r, "trace", None)
+            if tr is not None:
+                # back to queue wait, on this replica; the fleet records
+                # the failover hop itself
+                tr.to("queue")
+                tr.hop("requeue", replica=self.replica_id)
+        self._batcher.requeue(requests)
+
+    def _note_outcome(self, ok, exc=None):
+        if ok:
+            self._last_ok_t = time.monotonic()
+        cb = self.on_outcome
+        if cb is not None:
+            try:
+                cb(ok, exc)
+            except Exception:   # noqa: BLE001 - an observer must not kill
+                pass            # the drain thread
 
     def _admission_event(self, event):
         key = {"rejected": "rejected", "expired": "expired",
@@ -307,6 +405,10 @@ class ServingEngine:
         outputs plus whether the model is multi-output. Counts signatures
         met for the first time into ``compiles`` (zero after warmup)."""
         before = len(self.predictor._compiled)
+        if _faults.enabled():
+            # the fleet's fault site: replica_error raises, replica_hang
+            # and replica_slow stall where a wedged device would
+            _faults.maybe_serving_fault(self.replica_id)
         with _monitor.trace.span("serving.execute",
                                  rows=int(arrays[0].shape[0])):
             out = self.predictor.run_device(*arrays)
@@ -327,8 +429,11 @@ class ServingEngine:
         while True:
             try:
                 reqtrace.transition(requests, "execute")
-                return self._run_batch(arrays)
+                out = self._run_batch(arrays)
+                self._note_outcome(True)
+                return out
             except Exception as e:  # noqa: BLE001 - triaged below
+                self._note_outcome(False, e)
                 if policy.is_transient(e) \
                         and attempt + 1 < policy.max_attempts:
                     metrics.record_retry(where="serving.execute")

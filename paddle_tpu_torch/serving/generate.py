@@ -60,11 +60,15 @@ The engine reports through the port's monitor (``serving/metrics.py``,
 every record reads host numbers only, and with the monitor off each
 site is one flag check.
 
-Not ported: the fleet (``MultiDecodeEngine``) and the supervision
-surface (heartbeat, probe, fault injection, ``replica_id=``,
-``on_outcome=``: ROADMAP.md Queue A item 17.3). Those arguments are
-accepted at the reference's defaults and raise ``NotImplementedError``
-otherwise.
+A fleet of engines (:class:`MultiDecodeEngine`, one ``GenerateEngine``
+a replica, each with its own copy of the weights, :func:`replicate_decode`)
+rides ``serving/multi.py``'s supervision spine: each engine reports to
+its replica's breaker (``on_outcome=``), answers the supervisor's
+:meth:`~GenerateEngine.heartbeat` and :meth:`~GenerateEngine.probe`, and
+carries the fault-injection site (``resilience/faults.py``) at the
+reference's four places: a prefill, a segment import, a decode tick and
+a speculative tick. A failed-over request moves bare and re-prefills on
+its new replica, which regenerates the same stream.
 
 The model contract (duck-typed; :class:`DemoLM` implements it)::
 
@@ -84,6 +88,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import copy
 import functools
 import itertools
 import math
@@ -98,6 +103,7 @@ from .. import device as _device
 from .. import monitor as _monitor
 from ..io.bucketing import next_bucket
 from ..ops.kernels.flash_attention import flash_attention
+from ..resilience import faults as _faults
 from ..resilience.deadline import Deadline
 from . import metrics
 from . import reqtrace
@@ -105,6 +111,7 @@ from . import sampling as sampling_mod
 from .admission import AdmissionController, resolve_priority
 from .batcher import _outcome
 from .kv_cache import KVCachePool, device_memory_limit
+from .multi import MultiDeviceEngine, fleet_devices
 
 _seed_counter = itertools.count(1)
 
@@ -230,8 +237,11 @@ class GenerateEngine:
         capacity-family pad, so that an imported segment meets no new
         signature.
     start : launch the tick thread now (False: tests call :meth:`tick`).
-    replica_id / on_outcome : the fleet's; not ported (ROADMAP.md Queue A
-        item 17.3), and anything but None raises ``NotImplementedError``.
+    replica_id : identity inside a :class:`MultiDecodeEngine` fleet (fault
+        targeting, request records, the ``kv{id}`` trace lanes); None for
+        a standalone engine.
+    on_outcome : breaker feedback, called with ``(ok, exc or None)`` after
+        each prefill, import and tick settles.
     """
 
     def __init__(self, model, slots=8, page=64, factor=2.0, max_len=512,
@@ -240,17 +250,12 @@ class GenerateEngine:
                  start=True, replica_id=None, on_outcome=None,
                  sampling=None, draft_model=None, spec_k=4,
                  kv_import=False):
-        for name, value in (("replica_id", replica_id),
-                            ("on_outcome", on_outcome)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}: not ported yet (ROADMAP.md Queue A item "
-                    f"17.3)")
         if refill not in ("continuous", "drain"):
             raise ValueError(
                 f"refill must be 'continuous' or 'drain', got {refill!r}")
         self.model = model
-        self.replica_id = None
+        self.replica_id = replica_id
+        self.on_outcome = on_outcome
         self.kv_import = bool(kv_import)
         # the served weights' version, stamped into each request record
         self.weights_version = 0
@@ -295,8 +300,9 @@ class GenerateEngine:
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._slots = [_Slot() for _ in range(self.slots)]
-        # the Chrome export's resource lanes, one a KV slot ("kv.slot3")
-        self._lane = "kv"
+        # the Chrome export's resource lanes, one a KV slot ("kv.slot3",
+        # or "kv1.slot3" inside a fleet)
+        self._lane = "kv" if replica_id is None else f"kv{replica_id}"
         # (kind, *buckets) met so far, and each with its operands'
         # shapes and dtypes: a new entry in either after warmup is a
         # signature that traffic met first (a first-call cost on the card)
@@ -315,6 +321,11 @@ class GenerateEngine:
         self._closed = False
         self._draining = False
         self._thread = None
+        # supervision: when the running tick began (None between ticks),
+        # and when the engine last made progress and last succeeded
+        self._tick_t0 = None
+        self._last_progress = time.monotonic()
+        self._last_ok_t = time.monotonic()
         if start:
             self.start()
 
@@ -717,6 +728,74 @@ class GenerateEngine:
     def __exit__(self, *exc):
         self.close()
 
+    # -- supervision surface (the fleet's) ---------------------------------
+
+    def heartbeat(self, now=None):
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            t0 = self._tick_t0
+            depth = len(self._queue)
+            seated = sum(1 for s in self._slots if s.req is not None)
+        return {
+            "queue_depth": depth,
+            "inflight_age_s": None if t0 is None else now - t0,
+            "inflight_token": t0,
+            "last_progress_age_s": now - self._last_progress,
+            "last_ok_age_s": now - self._last_ok_t,
+            # seated (still generating) sequences: what a drain waits to
+            # reach zero
+            "active": seated,
+        }
+
+    def probe(self, timeout_s=1.0):
+        """Half-open test traffic: one decode step (on a speculative
+        engine, one draft-then-verify step) over an all-inactive batch, on
+        a side thread (the tick thread may be the thing that is wedged),
+        and whether it finished in time; None before warmup or traffic met
+        the step. The step runs over zero arenas of its own: the engine's
+        arena, which a wedged tick may still hold, is never touched."""
+        cap = self.pool.capacity
+        kind = ("decode" if ("decode", cap) in self._exec
+                else "verify" if ("verify", cap) in self._exec else None)
+        if kind is None:
+            return None
+        done = threading.Event()
+        err = []
+
+        def _go():
+            try:
+                zeros = np.zeros((self.slots,), np.int32)
+                inactive = np.zeros((self.slots,), bool)
+                knobs = self._knobs(self.slots)
+                if kind == "decode":
+                    self._decode_step(self.pool.zeros(cap), zeros, zeros,
+                                      inactive, knobs)
+                else:
+                    self._spec_step(self.pool.zeros(cap),
+                                    self.draft_pool.zeros(cap), zeros,
+                                    zeros, inactive, knobs)
+            except BaseException as e:   # noqa: BLE001 - the verdict
+                err.append(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=_go, daemon=True,
+                         name="paddle_tpu_torch-decode-probe").start()
+        ok = done.wait(timeout_s) and not err
+        if ok:
+            self._last_ok_t = time.monotonic()
+        return bool(ok)
+
+    def _note_outcome(self, ok, exc=None):
+        if ok:
+            self._last_ok_t = time.monotonic()
+        cb = self.on_outcome
+        if cb is not None:
+            try:
+                cb(ok, exc)
+            except Exception:   # noqa: BLE001 - an observer must not kill
+                pass            # the tick thread
+
     # -- hand-off between engines ------------------------------------------
 
     def steal_pending(self):
@@ -833,9 +912,17 @@ class GenerateEngine:
         """One engine step: admit into free lanes (per the refill
         discipline), then advance every live sequence one token. Returns
         whether any work happened."""
-        admitted = self._admit()
-        stepped = (self._spec_once() if self.draft_model is not None
-                   else self._decode_once())
+        t0 = time.monotonic()
+        with self._lock:
+            self._tick_t0 = t0
+        try:
+            admitted = self._admit()
+            stepped = (self._spec_once() if self.draft_model is not None
+                       else self._decode_once())
+        finally:
+            with self._lock:
+                self._tick_t0 = None
+                self._last_progress = time.monotonic()
         return bool(admitted or stepped)
 
     # -- admission into lanes ----------------------------------------------
@@ -875,6 +962,7 @@ class GenerateEngine:
                 self._prefill_into_slot(req)
                 admitted += 1
             except BaseException as e:   # noqa: BLE001 - to the future
+                self._note_outcome(False, e)
                 with self._stats_lock:
                     self._stats["failed"] += 1
                 req.resolve_exception(e)
@@ -927,6 +1015,8 @@ class GenerateEngine:
             raise RuntimeError("no free slot after free_slots() > 0")
         pc_seat = time.perf_counter()
         try:
+            if _faults.enabled():
+                _faults.maybe_serving_fault(self.replica_id)
             t0 = time.monotonic()
             tokens = np.zeros((1, bucket), np.int32)
             tokens[0, :p] = req.prompt
@@ -953,6 +1043,7 @@ class GenerateEngine:
         except BaseException:
             self._release(s)
             raise
+        self._note_outcome(True)
         # the first token: the prefill's last logits sampled
         if tr is not None:
             tr.first_token()
@@ -1006,12 +1097,15 @@ class GenerateEngine:
             raise RuntimeError("no free slot after free_slots() > 0")
         pc_seat = time.perf_counter()
         try:
+            if _faults.enabled():
+                _faults.maybe_serving_fault(self.replica_id)
             self.pool.import_slot(s, seg, insert_fn=self._insert)
             with self._stats_lock:
                 self._stats["kv_imports"] += 1
         except BaseException:
             self._release(s)
             raise
+        self._note_outcome(True)
         # the first token was stamped where it came out; entering "decode"
         # closes the hand-off's queue wait
         if tr is not None:
@@ -1074,13 +1168,17 @@ class GenerateEngine:
         assigned, tokens, lengths, active, knobs, max_needed = batch
         self._ensure_capacity(max_needed)
         try:
+            if _faults.enabled():
+                _faults.maybe_serving_fault(self.replica_id)
             t0 = time.monotonic()
             nxt = self._decode_step(self.pool.buffers, tokens, lengths,
                                     active, knobs)
             step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
+            self._note_outcome(False, e)
             self._fail_active(assigned, e)
             return True
+        self._note_outcome(True)
         finished = []
         with self._lock:
             n_active = 0
@@ -1146,14 +1244,18 @@ class GenerateEngine:
         self._ensure_capacity(min(max_needed, self.pool.max_len))
         cap = self.pool.capacity
         try:
+            if _faults.enabled():
+                _faults.maybe_serving_fault(self.replica_id)
             t0 = time.monotonic()
             a, resampled, proposals = self._spec_step(
                 self.pool.buffers, self.draft_pool.buffers, tokens, lengths,
                 active, knobs)
             step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
+            self._note_outcome(False, e)
             self._fail_active(assigned, e)
             return True
+        self._note_outcome(True)
         finished = []
         emitted_total = accepted_total = n_active = 0
         with self._lock:
@@ -1247,6 +1349,83 @@ class GenerateEngine:
         with self._stats_lock:
             self._stats["completed"] += 1
         req.resolve_result(np.asarray(tokens, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# fleet fan-out
+
+
+def replicate_decode(model, devices=None):
+    """One decode model a device, each its own copy of ``model`` (weights
+    included) on that device, so that a rolling swap changes exactly one
+    replica; the hyperparameters and the prefill/decode functions are the
+    model's. ``devices`` as :func:`~paddle_tpu_torch.serving.multi.
+    fleet_devices` takes it (default: every CUDA card)."""
+    return [copy.deepcopy(model).to(d) for d in fleet_devices(devices)]
+
+
+class MultiDecodeEngine(MultiDeviceEngine):
+    """Breaker-aware decode fan-out: one :class:`GenerateEngine` per
+    replica (:func:`replicate_decode`; ``devices`` may name one card more
+    than once), behind the same supervision spine as fixed-shape serving
+    — per-replica circuit breakers, hang failover (evicted sequences
+    regenerate deterministically on the adopting replica), half-open
+    probes, restart, and supervisor scaling (goodput floor plus
+    ``tokens_floor``). Engine kwargs (``slots``, ``draft_model``, ...)
+    apply per replica.
+
+    Hedging defaults OFF for decode (``hedge_ms=0``): a decode request
+    occupies a slot for its whole lifetime, so a hedge doubles slot
+    pressure for the duration rather than shaving a straggler's tail —
+    exactly the wrong trade under load. Pass ``hedge_ms`` explicitly to
+    re-enable it for latency-critical, lightly-loaded fleets."""
+
+    def __init__(self, model, devices=None, hedge_ms=0, **kwargs):
+        super().__init__(model, devices=devices, hedge_ms=hedge_ms,
+                         **kwargs)
+
+    def _replicate(self, model, devices):
+        return replicate_decode(model, devices)
+
+    def _new_engine(self, model, index, on_outcome):
+        return GenerateEngine(model, replica_id=index,
+                              on_outcome=on_outcome,
+                              **self._engine_kwargs)
+
+    def _serving_module(self, r):
+        return r.engine.model
+
+    def _serve_module(self, r, module):
+        # each step reads ``model.state`` once and passes it down
+        r.predictor = r.engine.model = module
+
+    def submit(self, prompt, max_new_tokens=32, eos_token=None,
+               deadline_ms=None, priority=None, trace=None,
+               sampling=None, seed=None):
+        rep = self._pick_replica()
+        return self._dispatch(rep, rep.engine.make_request(
+            prompt, max_new_tokens=max_new_tokens, eos_token=eos_token,
+            deadline_ms=deadline_ms, priority=priority, trace=trace,
+            sampling=sampling, seed=seed))
+
+    def run(self, prompt, max_new_tokens=32, eos_token=None,
+            deadline_ms=None, timeout=None, priority=None,
+            sampling=None, seed=None):
+        return self.submit(prompt, max_new_tokens=max_new_tokens,
+                           eos_token=eos_token, deadline_ms=deadline_ms,
+                           priority=priority, sampling=sampling,
+                           seed=seed).result(timeout)
+
+    @staticmethod
+    def _shadow(req, trace):
+        """A decode hedge re-prefills the same prompt on a second replica:
+        the shadow carries the primary's resolved ``sampling`` (seed
+        included), so both replicas derive the same counter keys and
+        produce the same tokens; the first resolution wins."""
+        return DecodeRequest(req.prompt, req.max_new_tokens,
+                             eos_token=req.eos_token, deadline=req.deadline,
+                             priority=req.priority, sampling=req.sampling,
+                             trace=trace)
 
 
 # ---------------------------------------------------------------------------

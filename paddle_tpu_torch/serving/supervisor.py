@@ -1,0 +1,308 @@
+"""paddle_tpu_torch.serving.supervisor — the closed-loop self-healing
+brain.
+
+Counterpart of ``paddle_tpu/serving/supervisor.py``.
+
+A loop that watches each replica's heartbeat and acts, running
+*continuously* rather than per crash:
+
+* **hang detection** — a dispatch stuck inside a replica longer than
+  ``inflight_timeout_s`` is declared hung: the replica's breaker trips
+  (no more traffic), its queued *and* in-flight requests fail over to
+  healthy peers. The verdict is keyed on the dispatch identity, so one
+  hang produces exactly one failover, however many ticks observe it.
+* **recovery probing** — a breaker in half_open gets one budgeted probe
+  per tick (a 1-row replay of real input on a side thread, see
+  ``ServingEngine.probe``); success closes the breaker and the replica
+  rejoins the rotation.
+* **restart** — a replica still wedged ``restart_after_s`` after its
+  hang verdict gets rebuilt: its weights copied again onto the device,
+  a fresh engine warmed and swapped in, the wedged one reaped in the
+  background.
+* **scaling** — when the live ``slo.goodput`` window sags below the
+  floor — or, for decode fleets, when the rolling ``slo.tokens_per_s``
+  window drops under ``tokens_floor`` — and inactive replicas exist,
+  one is activated per tick; a fleet idle for ``idle_ticks_down``
+  consecutive ticks gives one back (never below ``min_replicas``).
+
+Every verdict is recorded — a ``serving.supervisor`` event on the
+port's monitor plus :func:`last_decision` — so a snapshot can answer
+"why did the fleet change shape?".
+"""
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+
+from . import metrics
+from ..resilience import faults as _faults
+
+#: most recent decision across all supervisors (the /snapshot block)
+_LAST_DECISION = None
+
+
+def last_decision():
+    return _LAST_DECISION
+
+
+class ServingSupervisor:
+    """Control loop over one :class:`~paddle_tpu_torch.serving.multi.
+    MultiDeviceEngine`. Holds its owner weakly — a dropped engine kills
+    the loop instead of the loop immortalizing the engine."""
+
+    def __init__(self, owner, interval_s=0.25, probe_timeout_s=1.0,
+                 goodput_floor=0.90, restart_after_s=None,
+                 idle_ticks_down=120, scale=True, start=True,
+                 tokens_floor=None, ttft_ceiling_ms=None,
+                 queue_depth_ceiling=None):
+        self._owner = weakref.ref(owner)
+        self.interval_s = float(interval_s)
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.goodput_floor = float(goodput_floor)
+        # decode SLO floor: scale up while the rolling slo.tokens_per_s
+        # window sits below this (None = goodput-only scaling)
+        self.tokens_floor = (float(tokens_floor)
+                             if tokens_floor is not None else None)
+        # prefill SLO ceilings (disaggregated pools): scale up while the
+        # rolling slo.ttft_p99_ms window sits ABOVE ttft_ceiling_ms, or
+        # the pool's aggregate queue depth above queue_depth_ceiling —
+        # TTFT is prefill's SLO the way tokens/s is decode's
+        self.ttft_ceiling_ms = (float(ttft_ceiling_ms)
+                                if ttft_ceiling_ms is not None else None)
+        self.queue_depth_ceiling = (int(queue_depth_ceiling)
+                                    if queue_depth_ceiling is not None
+                                    else None)
+        # default: a hung replica gets 3 supervision timeouts of grace
+        # after failover before the heavyweight rebuild
+        self.restart_after_s = (float(restart_after_s)
+                                if restart_after_s is not None
+                                else 3.0 * owner.inflight_timeout_s)
+        self.idle_ticks_down = int(idle_ticks_down)
+        self.scale = bool(scale)
+        self._idle_ticks = 0
+        self._stop = threading.Event()
+        self._thread = None
+        self.decisions = []     # bounded local history (snapshot block)
+        self._seen_anomalies = set()  # finding names already noted
+        if start:
+            self.start()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self):
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="paddle_tpu_torch-serving-supervisor",
+            daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout=2.0):
+        self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout)
+
+    def _loop(self):
+        while not self._stop.wait(self.interval_s):
+            owner = self._owner()
+            if owner is None:
+                return
+            try:
+                self.tick(owner)
+            except Exception:   # noqa: BLE001 - the loop must survive
+                pass            # any single bad tick
+
+    # -- decisions ---------------------------------------------------------
+
+    def _decide(self, decision, **fields):
+        global _LAST_DECISION
+        entry = {"decision": decision, "t": time.time(), **fields}
+        # cite the anomaly board: a drain/scale verdict issued while the
+        # detector has findings in force carries WHICH anomaly was live
+        # (the "why" an operator reads off the decision ledger)
+        anomalies = self._active_anomalies()
+        if anomalies and "anomalies" not in entry:
+            entry["anomalies"] = anomalies
+            fields = dict(fields, anomalies=anomalies)
+        _LAST_DECISION = entry
+        self.decisions.append(entry)
+        del self.decisions[:-50]
+        metrics.record_supervisor(decision, **fields)
+
+    @staticmethod
+    def _active_anomalies():
+        """Names of the findings currently on the anomaly board
+        (``monitor/alerts.py``, ROADMAP.md Queue A item 20), lazily —
+        supervision must not drag the alerting plane in when nobody armed
+        it; without it there are none."""
+        import sys
+        _alerts = sys.modules.get("paddle_tpu_torch.monitor.alerts")
+        if _alerts is None:
+            return []
+        try:
+            return [f["name"] for f in _alerts.active_findings()]
+        except Exception:
+            return []
+
+    def last_decision(self):
+        return self.decisions[-1] if self.decisions else None
+
+    # -- one control-loop step --------------------------------------------
+
+    def tick(self, owner=None, now=None):
+        """One supervision pass; callable directly by tests (pass the
+        owner) or driven by the daemon loop."""
+        owner = owner or self._owner()
+        if owner is None:
+            return
+        now = time.monotonic() if now is None else now
+        rollup = metrics.slo_rollup(now)
+        decode = metrics.decode_rollup(now)
+        owner._refresh_hedge_delay(rollup.get("p99_ms"))
+        self._note_anomalies()
+        busy = False
+        for replica in list(owner._replicas):
+            busy |= self._supervise_replica(owner, replica, now)
+        if self.scale:
+            self._autoscale(owner, rollup, busy, decode)
+
+    def _note_anomalies(self):
+        """A finding newly on the anomaly board becomes a first-class
+        ``anomaly`` decision — the detector's verdict enters the same
+        ledger as drains and scale moves, once per finding edge."""
+        current = set(self._active_anomalies())
+        for name in sorted(current - self._seen_anomalies):
+            self._decide("anomaly", anomaly=name)
+        self._seen_anomalies = current
+
+    def _supervise_replica(self, owner, replica, now):
+        hb = replica.engine.heartbeat(now)
+        age = hb["inflight_age_s"]
+        token = hb["inflight_token"]
+        busy = bool(hb["queue_depth"]) or age is not None \
+            or bool(hb.get("active"))
+
+        # preemption notice (injected): graceful drain, not a hang —
+        # the replica is healthy, the scheduler just wants it back
+        if _faults.enabled() and _faults.fire(
+                "preempt_replica", None, replica=replica.index) is not None:
+            moved = owner.drain_replica(replica, reason="preempt_replica")
+            self._decide("drain", replica=replica.index, moved=moved)
+            return busy
+
+        # a draining replica is finishing (or has migrated) its work —
+        # no hang verdicts, no probes; readmission is the drain owner's
+        # call (undrain / swap completion), not the supervisor's
+        if replica.draining:
+            return busy
+
+        # hang: one verdict per dispatch (the token is the dispatch's
+        # start time — a NEW dispatch hanging gets its own verdict)
+        if age is not None and age > owner.inflight_timeout_s \
+                and token != replica.handled_token:
+            replica.handled_token = token
+            metrics.record_replica_hung(replica.index, age)
+            replica.breaker.trip("hung")
+            moved = owner._failover(replica, reason="hung")
+            self._decide("failover", replica=replica.index,
+                         inflight_age_s=round(age, 3), moved=moved)
+
+        # restart: the same dispatch still wedged well past the verdict
+        if age is not None and age > self.restart_after_s \
+                and token != replica.restart_token:
+            replica.restart_token = token
+            owner._restart(replica)
+            self._decide("restart", replica=replica.index,
+                         inflight_age_s=round(age, 3),
+                         restarts=replica.restarts)
+            return busy
+
+        # recovery: one budgeted probe per tick per half-open breaker
+        if replica.active and replica.breaker.state == "half_open":
+            ok = replica.engine.probe(timeout_s=self.probe_timeout_s)
+            if ok:
+                replica.breaker.record_success()
+                self._decide("reclose", replica=replica.index)
+            elif ok is not None:
+                replica.breaker.record_failure("probe")
+        return busy
+
+    def _autoscale(self, owner, rollup, busy, decode=None):
+        goodput = rollup.get("goodput")
+        submitted = rollup.get("submitted") or 0
+        # request-SLO context rides on every scale verdict: "goodput
+        # 0.84 at ttft_p99 310ms" is actionable where the bare ratio
+        # is not (reqtrace feeds these windows)
+        slo_ctx = {k: round(rollup[k], 3)
+                   for k in ("ttft_p99_ms", "tpot_p99_ms")
+                   if rollup.get(k) is not None}
+        # speculative context: a tokens/s sag with a healthy accept
+        # rate is slot starvation (scale up helps); a sag WITH a
+        # collapsed accept rate is a draft/target mismatch (scale up
+        # won't) — the verdict carries both so /snapshot can tell them
+        # apart
+        if decode:
+            for k in ("accept_rate", "spec_tokens_per_step"):
+                if decode.get(k) is not None:
+                    slo_ctx[k] = round(decode[k], 3)
+        if goodput is not None and submitted >= 20 \
+                and goodput < self.goodput_floor:
+            self._idle_ticks = 0
+            rep = owner._activate_one()
+            if rep is not None:
+                self._decide("scale_up", replica=rep.index,
+                             goodput=round(goodput, 4),
+                             active=owner._active_count(), **slo_ctx)
+            return
+        # prefill SLO (disaggregated pools): TTFT p99 over the ceiling
+        # or a backed-up prefill queue means prompt ingest is the
+        # bottleneck — add a prefill replica. An idle window reads as
+        # None, never as a breach.
+        if self.ttft_ceiling_ms is not None \
+                or self.queue_depth_ceiling is not None:
+            ttft = rollup.get("ttft_p99_ms")
+            depth = sum(r.engine.depth() for r in owner._replicas
+                        if r.active and hasattr(r.engine, "depth"))
+            breach_ttft = (self.ttft_ceiling_ms is not None
+                           and ttft is not None
+                           and ttft > self.ttft_ceiling_ms)
+            breach_depth = (self.queue_depth_ceiling is not None
+                            and depth > self.queue_depth_ceiling)
+            if breach_ttft or breach_depth:
+                self._idle_ticks = 0
+                rep = owner._activate_one()
+                if rep is not None:
+                    self._decide(
+                        "scale_up", replica=rep.index,
+                        queue_depth=depth,
+                        ttft_ceiling_ms=self.ttft_ceiling_ms,
+                        queue_depth_ceiling=self.queue_depth_ceiling,
+                        active=owner._active_count(), **slo_ctx)
+                return
+        # decode SLO: rolling token throughput below the floor means the
+        # fleet is slot-starved — add a replica. An idle engine reads as
+        # None (no decode traffic in the window), never as a breach.
+        tps = decode.get("tokens_per_s") if decode else None
+        if self.tokens_floor is not None and tps is not None \
+                and tps < self.tokens_floor:
+            self._idle_ticks = 0
+            rep = owner._activate_one()
+            if rep is not None:
+                self._decide("scale_up", replica=rep.index,
+                             tokens_per_s=round(tps, 3),
+                             tokens_floor=self.tokens_floor,
+                             active=owner._active_count(), **slo_ctx)
+            return
+        if busy or submitted:
+            self._idle_ticks = 0
+            return
+        self._idle_ticks += 1
+        if self._idle_ticks >= self.idle_ticks_down:
+            self._idle_ticks = 0
+            rep = owner._deactivate_one()
+            if rep is not None:
+                self._decide("scale_down", replica=rep.index,
+                             active=owner._active_count())

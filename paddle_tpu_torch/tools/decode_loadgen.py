@@ -43,6 +43,17 @@ device time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
 ``--monitor DIR`` turns the port's monitor and span tracer on: the JSONL
 events and a Chrome trace (``trace-<pid>.json``, the engine's slot lanes
 in it) land in ``DIR``.
+
+    python -m paddle_tpu_torch.tools.decode_loadgen --replicas 1,2,3
+        [--sampling ...] [--profile]
+
+runs the traffic instead through a ``MultiDecodeEngine`` over each count
+of replicas on the one device (:func:`run_fleet`: every replica its own
+copy of the weights, its own engine thread, the same engine settings),
+continuous refill: tokens/s, each replica's ticks and the run's wall time
+over them, and the port's kernel launches the traffic made; with
+``--profile`` the same run again under ``torch.profiler``, the card's
+busy time, idle share and profiled events over the whole run.
 """
 from __future__ import annotations
 
@@ -270,13 +281,15 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
     ``workload`` (each asking for the whole arena) are seated and two
     ticks run to warm; then :data:`PROFILE_TICKS` ticks are timed on the
     host clock (each ends by reading its tokens back) and as many more
-    under ``torch.profiler``. With ``draft`` the ticks are speculative
+    under ``torch.profiler``, after one in its warm-up step. With
+    ``draft`` the ticks are speculative
     (``spec_k`` proposals a lane), and fewer where a lane's budget could
     end before the last of them: every lane stays live throughout.
     Returns the wall time a tick, the tokens a tick, the card's busy time
     a tick (its kernels' and copies' device time, profiled), the idle
     share (1 - busy / wall), the profiled wall time a tick, launches a
-    tick and the kernels that took the most device time."""
+    tick, the kernels that took the most device time and the count of
+    each profiled event's name (``"events"``)."""
     from paddle_tpu_torch.serving import GenerateEngine
     eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
                          max_len=max_len, prompt_buckets=prompt_buckets,
@@ -286,7 +299,7 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
     limit = min(max_len, eng.seq_limit)
     # a tick emits at most spec_k tokens a lane; the prefill emits one
     room = limit - max(len(p) for p, _ in seated) - 1
-    ticks = min(PROFILE_TICKS, (room // (spec_k if draft else 1) - 2) // 2)
+    ticks = min(PROFILE_TICKS, (room // (spec_k if draft else 1) - 3) // 2)
     try:
         eng.warmup()
         for i, (prompt, _new) in enumerate(seated):
@@ -303,10 +316,18 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
         tokens = eng.stats()["tokens"] - tokens0
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        # the card's first events after tracing starts can be lost (a
+        # tick's first dozen, in some runs): one tick in the profiler's
+        # warm-up step goes first, and only the ticks after it count
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=ticks,
+                                        repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            eng.tick()
+            prof.step()
             t0 = time.perf_counter()
             for _ in range(ticks):
                 eng.tick()
+                prof.step()
             torch.cuda.synchronize()
             wall_profiled = time.perf_counter() - t0
         live = eng.pool.used_slots()
@@ -317,7 +338,9 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
                            f"ended inside the timed ticks")
     names = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the steps' own ranges are marked on the card's timeline too
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             ms, n = names.get(e.name, (0.0, 0))
             names[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in names.values()) / ticks
@@ -332,10 +355,75 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
         "idle_share": 1.0 - busy / tick_ms,
         "profiled_tick_ms": wall_profiled * 1e3 / ticks,
         "launches_per_tick": sum(n for _, n in names.values()) / ticks,
+        # every profiled event's name with its count over the ticks
+        "events": {name: n for name, (_ms, n) in names.items()},
         "top_kernels": [[name[:100], ms / ticks, n // ticks] for name, (ms, n)
                         in sorted(names.items(), key=lambda kv: -kv[1][0])
                         [:PROFILE_TOP]],
     }
+
+
+def run_fleet(model, workload, replicas, slots, max_len, prompt_buckets,
+              sampling=None, seed_base=None, profile=False):
+    """The workload offered all at once to a warmed ``MultiDecodeEngine``
+    over ``replicas`` copies of ``model`` on its device (continuous
+    refill, no supervision, no hedging), request ``i`` seeded
+    ``seed_base + i`` where sampled. Returns tokens/s, the wall time,
+    the requests each replica took, its prefills and ticks and the wall
+    time over them, the signatures met after warmup, the port's kernel
+    launches the traffic made (counted from zero after warmup) and every
+    request's tokens (``"outputs"``); with ``profile`` the run is under
+    ``torch.profiler`` and the card's busy time (kernels and copies),
+    idle share and profiled events over the run are added."""
+    import contextlib
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import MultiDecodeEngine
+    fleet = MultiDecodeEngine(
+        model, devices=[model.device] * replicas, slots=slots, page=PAGE,
+        factor=FACTOR, max_len=max_len, prompt_buckets=prompt_buckets,
+        queue_depth=len(workload) + 8, shed=False, supervise=False)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if model.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        fleet.warmup()
+        before = [e.executables() for e in fleet.engines]
+        ctx = (torch.profiler.profile(activities=acts) if profile
+               else contextlib.nullcontext())
+        kernels.reset_launches()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            futs = [fleet.submit(p, max_new_tokens=n, sampling=sampling,
+                                 seed=(seed_base + i) if seed_base is not
+                                 None else None)
+                    for i, (p, n) in enumerate(workload)]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        st = fleet.stats()
+        after = [e.executables() for e in fleet.engines]
+    finally:
+        fleet.close(drain=False, timeout=10.0)
+    tokens = int(sum(len(o) for o in outs))
+    ticks = [r["ticks"] for r in st["replicas"]]
+    out = {"replicas": replicas, "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall,
+           "routed": [r["submitted"] for r in st["replicas"]],
+           "prefills": [r["prefills"] for r in st["replicas"]],
+           "ticks": ticks,
+           "wall_ms_per_tick": [wall * 1e3 / max(t, 1) for t in ticks],
+           "post_warmup_signatures": sum(
+               (a[0] - b[0]) + (a[1] - b[1]) for a, b in zip(after, before)),
+           "launches": launches,
+           "outputs": [np.asarray(o).tolist() for o in outs]}
+    if profile:
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        out.update(profiled=True, busy_ms=busy,
+                   idle_share=1.0 - busy / (wall * 1e3),
+                   device_events=len(dev))
+    return out
 
 
 def nvidia_smi():
@@ -383,6 +471,9 @@ def main(argv=None):
     ap.add_argument("--monitor", default=None, metavar="DIR",
                     help="turn the port's monitor and span tracer on; the "
                          "events and a Chrome trace land in DIR")
+    ap.add_argument("--replicas", default=None, metavar="N,N,...",
+                    help="run the traffic through a MultiDecodeEngine over "
+                         "each count of replicas on the one device")
     args = ap.parse_args(argv)
     if args.profile and args.device == "cpu":
         ap.error("--profile reads the card's device time; drop --device cpu")
@@ -427,8 +518,25 @@ def main(argv=None):
 
 
 def _arms(args, result, model, draft, workload, sampling, seed_base):
-    """The CLI's runs into ``result``: the speculative or refill A/B, and
-    with ``--profile`` the ticks."""
+    """The CLI's runs into ``result``: the fleet runs, or the speculative
+    or refill A/B and with ``--profile`` the ticks."""
+    if args.replicas:
+        fleet = {}
+        for n in (int(x) for x in args.replicas.split(",")):
+            r = run_fleet(model, workload, n, args.slots, args.max_len,
+                          PROMPT_BUCKETS, sampling=sampling,
+                          seed_base=seed_base)
+            if args.profile:
+                p = run_fleet(model, workload, n, args.slots, args.max_len,
+                              PROMPT_BUCKETS, sampling=sampling,
+                              seed_base=seed_base, profile=True)
+                r["profile"] = {k: p[k] for k in (
+                    "wall_s", "tokens_per_s", "busy_ms", "idle_share",
+                    "device_events")}
+            r.pop("outputs")
+            fleet[n] = r
+        result["fleet"] = fleet
+        return
     if args.spec:
         # the same sampled traffic, continuous refill, draft off and on
         arms = {"nonspec": None, "spec": draft}

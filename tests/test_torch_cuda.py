@@ -1191,3 +1191,120 @@ def test_kv_hand_off_stream_on_card(cuda_device):
             top2[0])))
         parted += 1
     assert parted < len(jobs)
+
+
+@pytest.mark.cuda
+def test_bert_fleet_two_replicas_share_the_card(cuda_device):
+    """Two replicas of a small BERT on the one card, each with its own
+    weights there: replica 0 fails three batch attempts inside a
+    four-attempt retry policy, its breaker opens and traffic routes to
+    replica 1; every output matches the CPU's, and the kernels launch per
+    executed batch over both replicas (2 layers: 5 layer norms, 2
+    attentions)."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.retry import RetryPolicy
+    from paddle_tpu_torch.serving import MultiDeviceEngine
+    torch.manual_seed(0)
+    cpu = Bert(BertConfig.tiny()).eval()
+    card = copy.deepcopy(cpu)
+    fleet = MultiDeviceEngine(
+        Predictor(card), devices=["cuda:0", "cuda:0"], buckets=[4, 8],
+        max_batch=8, timeout_ms=1.0, hedge_ms=0, supervise=False,
+        breaker_cooldown_s=600.0,
+        retry_policy=RetryPolicy(max_attempts=4, base_delay=0.001,
+                                 max_delay=0.001, jitter=0.0))
+    rng = np.random.RandomState(0)
+    reqs = []
+    for rows in (1, 3, 2, 4, 1, 2):
+        ids = rng.randint(0, 1024, (rows, 16)).astype("int32")
+        tt = (rng.rand(rows, 16) < 0.5).astype("int32")
+        mask = np.ones((rows, 16), "int32")
+        reqs.append((ids, tt, mask))
+    try:
+        ptrs = [next(iter(r.predictor.state.values())).data_ptr()
+                for r in fleet._replicas]
+        assert len(set(ptrs)) == 2
+        assert all(r.device == torch.device("cuda", 0)
+                   for r in fleet._replicas)
+        fleet.warmup([((16,), "int32")] * 3)
+        spec = faults.inject("replica_error", replica=0, times=3)
+        kernels.reset_launches()
+        outs = [fleet.run(*r, timeout=120) for r in reqs]
+        st = fleet.stats()
+        assert spec.fired == 3 and st["breakers"][0] == "open"
+        assert [r["submitted"] for r in st["replicas"]] == [1, 5]
+        for r, out in zip(reqs, outs):
+            with torch.inference_mode():
+                want = cpu(*(torch.from_numpy(a) for a in r))
+            for a, b in zip(out, want):
+                assert np.abs(a - b.numpy()).max() <= 1e-4
+        assert kernels.launches["layer_norm_fwd"] == 5 * st["batches"]
+        assert kernels.launches["flash_attention_fwd"] == 2 * st["batches"]
+    finally:
+        faults.clear()
+        fleet.close()
+
+
+@pytest.mark.cuda
+def test_decode_fleet_fails_over_on_the_card(cuda_device):
+    """Two decode replicas on the one card: replica 1 hangs in a tick with
+    its lanes seated, the supervisor moves them to replica 0, and every
+    sampled stream equals a single engine's on the card, up to a counted
+    near-tie."""
+    import threading
+    import time
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import sampling as S
+    from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
+    model = serving.demo_model(vocab=64, dim=256, heads=4, layers=2,
+                               max_len=96, seed=1)
+    eng_kw = dict(slots=4, page=32, max_len=96, prompt_buckets=(4, 16),
+                  shed=False)
+    jobs = [([1 + i, 2, 3][: 1 + i % 3], 20 + i) for i in range(8)]
+    knobs = {"temperature": 1.0, "top_k": 20, "top_p": 0.9}
+    single = serving.GenerateEngine(model, **eng_kw)
+    want = [list(map(int, single.submit(p, max_new_tokens=n,
+                                        sampling=knobs, seed=200 + i)
+                     .result(timeout=60))) for i, (p, n) in enumerate(jobs)]
+    single.close()
+    fleet = serving.MultiDecodeEngine(
+        model, devices=["cuda:0", "cuda:0"], start=False,
+        supervisor_interval_s=0.02, inflight_timeout_ms=300,
+        restart_after_s=600.0, breaker_cooldown_s=600.0, **eng_kw)
+    hung = fleet.engines[1]
+    ticker = threading.Thread(target=hung.tick, daemon=True)
+    try:
+        fleet.warmup()
+        fleet.engines[0].start()
+        futs = [fleet.submit(p, max_new_tokens=n, sampling=knobs,
+                             seed=200 + i) for i, (p, n) in enumerate(jobs)]
+        hung.tick()                         # seats its four lanes
+        assert hung.heartbeat()["active"] == 4
+        faults.inject("replica_hang", replica=1, delay=3.0)
+        t0 = time.monotonic()
+        ticker.start()
+        got = [list(map(int, f.result(timeout=60))) for f in futs]
+        assert time.monotonic() - t0 < 2.5
+        assert fleet.stats()["failovers"] == 1
+    finally:
+        faults.clear()
+        fleet.close(drain=False, timeout=5.0)
+        ticker.join(10.0)
+    assert not ticker.is_alive()
+    parted = 0
+    for i, ((prompt, n), w, g) in enumerate(zip(jobs, want, got)):
+        assert len(g) == n
+        t = next((j for j in range(n) if w[j] != g[j]), None)
+        if t is None:
+            continue
+        z = torch.from_numpy(teacher_forced_logits(model, prompt,
+                                                   w[:t + 1])[t:])
+        filt = S.filter_logits(z, [1.0], [20], [0.9])
+        scored = (filt + S.gumbel(S.keys_for([200 + i], [t], S.SALT_TOKEN),
+                                  64))[0]
+        top2 = torch.topk(scored, 2).values
+        assert float(top2[0] - top2[1]) <= 1e-4 * max(1.0, abs(float(
+            top2[0])))
+        parted += 1
+    assert parted < len(jobs)

@@ -332,17 +332,18 @@ def test_requests_are_bounded_by_the_models_positions():
 
 
 def test_unported_options_raise(models):
-    """The fleet's arguments raise at anything but their defaults; a
-    request with a malformed KV segment (``kv_import`` and ``preset`` are
-    ported) fails its own future and frees its lane."""
+    """The fleet's arguments, once unported, are taken now (item 17.3):
+    ``replica_id`` names the engine's trace lanes and ``on_outcome`` hears
+    each settled step; a request with a malformed KV segment (``kv_import``
+    and ``preset`` are ported) fails its own future, frees its lane and
+    is reported as a failure."""
     _, lm = models
-    for kw in (dict(replica_id=0), dict(on_outcome=lambda ok, exc: None)):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            serving.GenerateEngine(lm, slots=1, page=16, max_len=32,
-                                   prompt_buckets=(4,), start=False, **kw)
-    eng = serving.GenerateEngine(lm, slots=1, page=16, max_len=32,
-                                 prompt_buckets=(4,), start=False,
-                                 kv_import=True)
+    outcomes = []
+    eng = serving.GenerateEngine(
+        lm, slots=1, page=16, max_len=32, prompt_buckets=(4,), start=False,
+        kv_import=True, replica_id=0,
+        on_outcome=lambda ok, exc: outcomes.append((ok, type(exc))))
+    assert eng.replica_id == 0 and eng._lane == "kv0"
     req = eng.make_request([1, 2], max_new_tokens=3)
     req.preset = {"segment": None}
     eng.submit_request(req)
@@ -350,6 +351,7 @@ def test_unported_options_raise(models):
     with pytest.raises(TypeError):
         req.future.result(timeout=10)
     assert eng.stats()["failed"] == 1 and eng.pool.free_slots() == 1
+    assert outcomes == [(False, TypeError)]
     eng.close()
 
 

@@ -18,7 +18,9 @@ Rules, each with its reason:
   reference's over the same ticks (``start=False``), and equal the
   engine's own ``stats()``;
 * the reference's keywords are accepted at their defaults (ROADMAP.md
-  Queue C, C1), and the unported ones raise ``NotImplementedError``
+  Queue C, C1); ``replica_id`` and ``on_outcome`` (the fleet's, item
+  17.3) also at the values a fleet passes, and the unported ones
+  (``metrics_port``, ``seq_buckets``) raise ``NotImplementedError``
   naming their item at any other value.
 
 Each monitor is process-wide: every test starts and ends with both off,
@@ -547,12 +549,18 @@ def test_reference_keywords_are_accepted_at_their_defaults():
                     name, p.name)
 
 
+def _on_outcome(ok, exc):
+    return None
+
+
+# the fleet's keywords (item 17.3) are ported: item None means accepted at
+# the reference's values, as a MultiDeviceEngine passes them
 UNPORTED = [
-    ("generate", "replica_id", 0, "item 17.3"),
-    ("generate", "on_outcome", lambda ok, exc: None, "item 17.3"),
+    ("generate", "replica_id", 0, None),
+    ("generate", "on_outcome", _on_outcome, None),
     ("serving", "metrics_port", 0, "item 20"),
-    ("serving", "replica_id", 1, "item 17.3"),
-    ("serving", "on_outcome", lambda ok, exc: None, "item 17.3"),
+    ("serving", "replica_id", 1, None),
+    ("serving", "on_outcome", _on_outcome, None),
     ("serving", "seq_buckets", [16, 32], "item 17.5"),
 ]
 
@@ -560,6 +568,9 @@ UNPORTED = [
 @pytest.mark.parametrize("which,name,value,item", UNPORTED,
                          ids=[f"{u[0]}-{u[1]}" for u in UNPORTED])
 def test_unported_keywords_raise_not_implemented(which, name, value, item):
+    """The keywords still unported raise naming their item at any value
+    but None; ``replica_id`` and ``on_outcome`` are taken at the values a
+    fleet passes, and kept."""
     if which == "generate":
         lm = serving.demo_model(vocab=32, dim=16, heads=2, layers=1,
                                 max_len=64, device="cpu")
@@ -571,8 +582,13 @@ def test_unported_keywords_raise_not_implemented(which, name, value, item):
                                    device="cpu")
         make = lambda **kw: ServingEngine(pred, start=False,  # noqa: E731
                                           **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        make(**{name: value})
+    if item is None:
+        eng = make(**{name: value})
+        assert getattr(eng, name) is value or getattr(eng, name) == value
+        eng.close()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            make(**{name: value})
     make(**{name: None}).close()
 
 
