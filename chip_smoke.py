@@ -87,7 +87,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    the masked-LM and NSP losses, and 1 ``fused_adam_multi`` for the 157
    tensors with a gradient; on the default route none of these), every
    loss finite, step time and tokens/s; then 11 steps on one batch, whose
-   loss must fall.
+   loss must fall. ``Trainer.step`` is ``jit.to_static``'s CUDA graph: the
+   first call runs eagerly and captures, the counted calls replay (a
+   replay adds the launches its capture recorded); phase 11 likewise.
 8. optimizer routes: one BERT-base f32 backward with token types (so that
    all 158 parameters get a gradient) steps four copies of the same
    weights 3 times, by the plain per-parameter AdamW, ``use_fused=True``
@@ -203,7 +205,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    half-open probe then readmits replica 0 on the card, and a rolling
    ``swap_weights`` to a second seed's weights runs under a client's
    traffic with no request failing, after which 8 requests equal a single
-   engine's over those weights. Then ``MultiDecodeEngine`` over 1, 2 and
+   engine's over those weights; each replica captures its warm signatures
+   over the new module before it binds it (``Predictor.prepare``), and no
+   call under the traffic captures or meets a new signature. Then ``MultiDecodeEngine`` over 1, 2 and
    3 copies of phase 13's model on the card (phase 13's engine settings)
    takes phase 13's 96 sampled requests (tokens/s each, through the
    loadgen's ``run_fleet``); again over 3 under the supervisor, where
@@ -222,7 +226,30 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    a near-tie of the teacher-forced logits; the failover time (verdict to
    the last moved request done), the supervisor's decisions, each
    breaker's state and the hedges against ``hedge_budget``.
-17. the ``kernels`` line (all 14), the card's name and power limit, and
+17. CUDA graphs (``jit.to_static``'s step and the ``Predictor``'s
+   executables): ``tools/bench_bert``'s BERT-base step at batch 64, seq
+   128, amp bf16, dropout 0, 2 steps a call, on the default route and on
+   the kernel route (the fused loss, ``AdamW(flat_arena=True)``, token
+   types), and ``tools/bench_resnet``'s ResNet-50 step (batch 128, NHWC,
+   the batch-norm kernels, 2 steps a call): one trainer steps eagerly,
+   one through its graph, from the same weights and state, beside a
+   second eager one (the control): the losses within ``GRAPH_LOSS_TOL``
+   and every BERT parameter within Adam's 2 lr a step (ResNet's update
+   within ``GRAPH_UPDATE_TOL``, relative L2), bit equality reported for
+   both pairs; the graph must have replayed, and its calls must count the
+   eager calls' launches; then each arm's step time and tokens/s (images/s)
+   in turns (eager, graph, graph, eager), and one call of each profiled:
+   wall against device time, the idle share, device events and the port's
+   launches; the graph pool's reserved bytes. At dropout 0.1 two replays
+   of a captured draw give other seed words and masks, each replay's
+   flash output the plain version's at its own words, and a BERT-base
+   forward in train mode with attention dropout alone differs between
+   two replays (and not in eval mode). BERT-base ``Predictor`` in f32 and
+   bf16 at batch 32, seq 128: the replay against the module's eager
+   forward within ``KERNEL_TOL``, 37 port launches a replay, replay and
+   eager forward times; phases 3 and 4 (qps, latency) and 16 (the swap's
+   captures) serve through the same graphs.
+18. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -232,6 +259,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import re
@@ -640,7 +668,11 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     sk = sk or s
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
-    seed = (20240601, -17)
+    # the words as the kernels read them: a (2,) int32 tensor on the card,
+    # through a pointer (a pair of ints would be copied from the host at
+    # each call, which the CUDA graphs of the timings cannot capture)
+    words = (20240601, -17)
+    seed = FA.seed_words(words, "cuda")
     kw = dict(causal=causal, dropout_p=dropout_p, seed=seed)
     sets = [st[:4] for st in flash_sets(
         torch, dtype, b, h, s, d, mask_kind, gen,
@@ -661,8 +693,12 @@ def flash_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
           f"flash_attention_fwd {label}: error {err} > tolerance")
     check_masked_rows(label, mask_kind, out, v)
     if dropout_p > 0:
-        kept = FA.dropout_keep_mask(seed, b * h, s, sk, dropout_p,
-                                    "cuda").float().mean().item()
+        keep = FA.dropout_keep_mask(seed, b * h, s, sk, dropout_p, "cuda")
+        check(torch.equal(keep, FA.dropout_keep_mask(words, b * h, s, sk,
+                                                     dropout_p, "cuda")),
+              f"flash_attention_fwd {label}: the mask of the seed tensor is "
+              f"not the mask of its int words")
+        kept = keep.float().mean().item()
         rec["kept_fraction"] = kept
         check(abs(kept - (1 - dropout_p)) <= KEEP_TOL,
               f"flash_attention_fwd {label}: kept fraction {kept}, want "
@@ -827,7 +863,7 @@ def flash_bwd_case(torch, FA, label, dtype, b, h, s, d, mask_kind, causal,
     sk = sk or s
     dt = getattr(torch, dtype)
     es = torch.empty((), dtype=dt).element_size()
-    seed = (7, 11)
+    seed = FA.seed_words((7, 11), "cuda")     # read through a pointer
     sets = flash_sets(torch, dtype, b, h, s, d, mask_kind, gen,
                       n_sets(4 * b * h * (s + sk) * d * es), sk=sk)
     fwd = [FA.flash_attention_fwd(q, k, v, mask, causal=causal,
@@ -1276,21 +1312,20 @@ def train(np, smi, route):
           tr.config.hidden_dropout_prob == 0.1 and
           tr.config.attention_probs_dropout_prob == 0.1,
           "training runs BERT-base with its default dropouts")
-    tr.step(*tr.data)                                 # warm-up
-    tr.losses[-1].item()
+    # warm-up: the step's eager run, then its capture into a CUDA graph
+    tr.step(*tr.data)[-1].item()
     warm_s = time.perf_counter() - t0
 
-    # the main path: counts zeroed just before, read just after
+    # the main path (graph replays): counts zeroed just before, read just
+    # after; a replay adds the launches its capture recorded
     kernels.reset_launches()
-    n0 = len(tr.losses)
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED_CALLS):
-        loss = tr.step(*tr.data)
-    loss.item()
+    outs = [tr.step(*tr.data) for _ in range(TRAIN_TIMED_CALLS)]
+    outs[-1][-1].item()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     steps = TRAIN_TIMED_CALLS * TRAIN_INNER
-    losses = [x.item() for x in tr.losses[n0:]]
+    losses = torch.cat(outs).tolist()
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"training ({route}): non-finite loss in {losses}")
     for name in kernels.SOURCES:
@@ -1320,6 +1355,7 @@ def train(np, smi, route):
                peak_memory_gib=peak_gb)
     emit(rec)
     del tr
+    gc.collect()    # the trainer and its graph form a cycle
     return rec
 
 
@@ -1633,21 +1669,20 @@ def train_resnet(np, smi, route, data_format):
     check(len(bns) == RESNET_BN_LAYERS and n_params == 25_557_032,
           f"training runs ResNet-50: {len(bns)} batch norms, {n_params} "
           f"parameters")
-    tr.step(*tr.data)                                 # warm-up
-    tr.losses[-1].item()
+    # warm-up: the step's eager run, then its capture into a CUDA graph
+    tr.step(*tr.data)[-1].item()
     warm_s = time.perf_counter() - t0
 
-    # the main path: counts zeroed just before, read just after
+    # the main path (graph replays): counts zeroed just before, read just
+    # after; a replay adds the launches its capture recorded
     kernels.reset_launches()
-    n0 = len(tr.losses)
     t0 = time.perf_counter()
-    for _ in range(RESNET_TIMED_CALLS):
-        loss = tr.step(*tr.data)
-    loss.item()
+    outs = [tr.step(*tr.data) for _ in range(RESNET_TIMED_CALLS)]
+    outs[-1][-1].item()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     steps = RESNET_TIMED_CALLS * RESNET_INNER
-    losses = [x.item() for x in tr.losses[n0:]]
+    losses = torch.cat(outs).tolist()
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"resnet training ({route}): non-finite loss in {losses}")
     for name in kernels.SOURCES:
@@ -1682,6 +1717,7 @@ def train_resnet(np, smi, route, data_format):
                peak_memory_gib=peak_gb)
     emit(rec)
     del tr
+    gc.collect()    # the trainer and its graph form a cycle
     return rec
 
 
@@ -2765,6 +2801,10 @@ def bert_fleet(np, torch, smi, seed, reqs, outs32):
                     errors.append(repr(e))
                 i += 1
 
+        preds = [r.predictor for r in fleet._replicas]
+        warm = [len(p._compiled) for p in preds]
+        captures0 = [p.captures for p in preds]
+        compiles0 = fleet.stats()["compiles"]
         th = threading.Thread(target=client)
         th.start()
         ts = time.perf_counter()
@@ -2784,6 +2824,19 @@ def bert_fleet(np, torch, smi, seed, reqs, outs32):
               f"bert fleet: after the swap, version {version}, outputs "
               f"{swap_err} from the second seed's")
         st2 = fleet.stats()
+        # the swap captured each replica's warm signatures over its new
+        # module before binding it; no call under traffic captured or met
+        # a new signature, and every signature has an entry of the new
+        # module (bound, or prepared for its first call)
+        recaptures = [p.captures - c for p, c in zip(preds, captures0)]
+        check(recaptures == warm and st2["compiles"] == compiles0 == fresh
+              and all({sig for entries in (p._compiled, p._prepared)
+                       for sig, e in entries.items()
+                       if e.module is p.model} == set(p._compiled)
+                      for p in preds),
+              f"bert fleet: the swap captured {recaptures} graphs for "
+              f"{warm} warm signatures; compiles {compiles0} -> "
+              f"{st2['compiles']}")
         decisions = [dict(d, t=None) for d in fleet.supervisor.decisions]
     finally:
         faults.clear()
@@ -2796,6 +2849,8 @@ def bert_fleet(np, torch, smi, seed, reqs, outs32):
                max_abs_err_vs_single=max(errs), tol=SERVE_F32_TOL,
                qps=n128 / wall128, requests_during_swap=len(during),
                swap_s=swap_s, swap_max_abs_err=swap_err,
+               swap_recaptures=recaptures,
+               compiles_under_traffic=st2["compiles"] - fresh,
                hedged=st2["hedged"], hedge_wins=st2["hedge_wins"],
                hedge_budget=fleet.hedge_budget,
                submitted=sum(r["submitted"] for r in st2["replicas"]),
@@ -3064,6 +3119,347 @@ def fleet_phase(np, torch, smi, seed, reqs, outs32, gen13, spec14):
 
 
 
+# -- phase 17: CUDA graphs ------------------------------------------------------
+
+GRAPH_INNER = 2              # BERT steps a call (the bench's default is 8)
+RESNET_GRAPH_INNER = 2
+GRAPH_CALLS = 3              # held graph vs eager: 1 eager + capture, 2 replays
+GRAPH_TIMED_CALLS = 2        # calls a turn, turns eager, graph, graph, eager
+# graph vs eager training, the same kernels on the same state. Where no
+# kernel of the path sums in a run-dependent order the two are bit-equal
+# (``bit_equal``). PyTorch's embedding backward sums with atomics (the
+# token-type table takes 8192 rows into 2 a step), so two eager trainers
+# part too (``eager_vs_eager``, measured in the same call), and where a
+# gradient is rounding noise Adam then steps the element by lr one way or
+# the other: BERT is held as the f32 step check holds it, the losses as
+# |diff| / max(1, |eager|) and every parameter within 2 lr a step;
+# ResNet-50 (Momentum, no such sign) by the whole update's relative L2
+GRAPH_LOSS_TOL = 1e-3
+GRAPH_UPDATE_TOL = 1e-2
+BERT_LR = 1e-4               # tools/bench_bert's AdamW
+PREDICT_BATCH, PREDICT_SEQ = 32, 128
+PREDICT_ITERS = 10
+
+
+def call_profile(torch, call):
+    """One ``call()`` (warmed once) under ``torch.profiler``: its host wall
+    time to the sync, its CUDA-event time, the device's busy time and idle
+    share over it, its device events, and the port's kernel launches it
+    counted."""
+    from paddle_tpu_torch.ops import kernels
+    call()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            n += 1
+    event_ms = start.elapsed_time(end)
+    return dict(wall_ms=wall, event_ms=event_ms, busy_ms=busy,
+                idle_share=1.0 - busy / event_ms, device_events=n,
+                port_launches=sum(kernels.launches.values()))
+
+
+def update_gap(torch, after, ref, before):
+    """The relative L2 gap between two updates of one model: parameters
+    ``after`` and ``ref`` less ``before``, over all of them."""
+    num = den = 0.0
+    for a, r, b in zip(after, ref, before):
+        a, r = a.detach(), r.detach()
+        num += float(((a - r).double() ** 2).sum())
+        den += float(((r - b).double() ** 2).sum())
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def held_gap(torch, got, want, after, ref, before):
+    """Two runs of one training from the same state: their losses'
+    largest |diff| / max(1, |ref|), their parameters' largest |diff|,
+    their updates' relative L2 gap, and whether all are bit-equal."""
+    return dict(
+        bit_equal=torch.equal(got, want) and all(
+            torch.equal(a, r) for a, r in zip(after, ref)),
+        loss_max_err=((got - want).abs() /
+                      want.abs().clamp_min(1.0)).max().item(),
+        param_max_abs_err=max((a - r).abs().max().item()
+                              for a, r in zip(after, ref)),
+        update_rel_l2=update_gap(torch, after, ref, before))
+
+
+def graph_training(np, torch, smi, label, make, per_step, unit, adam_lr):
+    """``make()`` builds a seeded trainer (the same weights each time): two
+    step eagerly (the control) and one through ``jit.to_static``'s graph,
+    from the same state, and are held together; then the graph and an
+    eager arm are timed in turns and one call of each is profiled.
+    ``per_step`` items (tokens, images) a step; ``adam_lr``, the Adam
+    learning rate that bounds a parameter's step (None for Momentum)."""
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager, other, graph = make(), make(), make()
+    inner = graph.inner
+    # to_static creates every slot (and the arena) before its first step:
+    # every arm starts from that layout
+    for tr in (eager, other, graph):
+        tr.opt._ensure_all_slots()
+    before = [p.detach().clone() for p in eager.model.parameters()]
+    again = torch.cat([other.eager_step(*other.data)
+                       for _ in range(GRAPH_CALLS)])
+    kernels.reset_launches()
+    want = torch.cat([eager.eager_step(*eager.data)
+                      for _ in range(GRAPH_CALLS)])
+    torch.cuda.synchronize()
+    eager_launches = dict(kernels.launches)
+    ref = list(eager.model.parameters())
+    control = held_gap(torch, again, want, list(other.model.parameters()),
+                       ref, before)
+    del other
+    kernels.reset_launches()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    got = [graph.step(*graph.data)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pool_bytes = torch.cuda.memory_reserved() - reserved
+    got += [graph.step(*graph.data) for _ in range(GRAPH_CALLS - 1)]
+    torch.cuda.synchronize()
+    graph_launches = dict(kernels.launches)
+    got = torch.cat(got)
+    (entry,) = graph.step._cache.values()
+    check(entry.graph is not None and entry.replays == GRAPH_CALLS - 1,
+          f"graphs ({label}): the step did not replay a captured graph")
+    check(graph_launches == eager_launches,
+          f"graphs ({label}): the graphed calls counted {graph_launches}, "
+          f"the eager ones {eager_launches}")
+    held = held_gap(torch, got, want, list(graph.model.parameters()), ref,
+                    before)
+    del before, ref
+    param_tol = None if adam_lr is None else \
+        2 * adam_lr * GRAPH_CALLS * inner
+    check(bool(torch.isfinite(got).all())
+          and held["loss_max_err"] <= GRAPH_LOSS_TOL
+          and (held["param_max_abs_err"] <= param_tol if param_tol
+               else held["update_rel_l2"] <= GRAPH_UPDATE_TOL),
+          f"graphs ({label}): graph vs eager {held}; two eager runs "
+          f"{control}")
+    times = {"eager": [], "graph": []}
+    for arm in ("eager", "graph", "graph", "eager"):
+        tr = eager if arm == "eager" else graph
+        fn = tr.eager_step if arm == "eager" else tr.step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIMED_CALLS):
+            out = fn(*tr.data)
+        out[-1].item()
+        times[arm].append((time.perf_counter() - t0) * 1e3 /
+                          (GRAPH_TIMED_CALLS * inner))
+    prof = {"eager": call_profile(torch, lambda: eager.eager_step(
+        *eager.data)), "graph": call_profile(torch, lambda: graph.step(
+            *graph.data))}
+    rec = dict(phase="graphs_train", case=label, card=smi, inner=inner,
+               calls_held=GRAPH_CALLS, eager_vs_eager=control, **held,
+               loss_tol=GRAPH_LOSS_TOL, param_tol=param_tol,
+               update_tol=None if param_tol else GRAPH_UPDATE_TOL,
+               port_launches_per_step={k: v // (GRAPH_CALLS * inner)
+                                       for k, v in graph_launches.items()
+                                       if v},
+               first_call_s=first_s, pool_reserved_bytes=pool_bytes,
+               capture_launches=entry.launches)
+    for arm in ("eager", "graph"):
+        step_ms = statistics.median(times[arm])
+        p = prof[arm]
+        rec[arm] = dict(step_ms=step_ms, step_ms_turns=times[arm],
+                        **{f"{unit}_per_s": per_step / step_ms * 1e3},
+                        call_wall_ms=p["wall_ms"],
+                        call_device_ms=p["event_ms"],
+                        call_busy_ms=p["busy_ms"],
+                        idle_share=p["idle_share"],
+                        device_events_per_step=p["device_events"] / inner,
+                        port_launches_per_step=p["port_launches"] / inner)
+    check(prof["graph"]["port_launches"] == prof["eager"]["port_launches"],
+          f"graphs ({label}): a replay counted {prof['graph']} launches, "
+          f"an eager call {prof['eager']}")
+    emit(rec)
+    del eager, graph, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def graph_dropout(np, torch, FA, smi, gen, model):
+    """Fresh dropout at every replay: a captured draw of the flash
+    kernels' seed words and a forward at BERT's training shape, replayed
+    twice; ``model`` (BERT-base with attention dropout alone) forward in
+    train mode, replayed twice (and in eval mode, where replays agree)."""
+    from paddle_tpu_torch import jit, random
+    q = torch.randn(TRAIN_BATCH, 12, TRAIN_SEQ, 64, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+
+    def draw(q):
+        words = random.next_seed_words(q.device)
+        out, _, _ = FA.flash_attention_fwd(q, q, q, dropout_p=DROPOUT_P,
+                                           seed=words)
+        return words, out
+
+    f = jit.to_static(draw)
+    f(q)
+    (w1, o1), (w2, o2) = f(q), f(q)
+    check(not torch.equal(w1, w2) and not torch.equal(o1, o2),
+          "graphs: two replays drew the same flash seed words")
+    bh = TRAIN_BATCH * 12
+    masks_differ = not torch.equal(
+        FA.dropout_keep_mask(w1, bh, TRAIN_SEQ, TRAIN_SEQ, DROPOUT_P,
+                             "cuda"),
+        FA.dropout_keep_mask(w2, bh, TRAIN_SEQ, TRAIN_SEQ, DROPOUT_P,
+                             "cuda"))
+    check(masks_differ, "graphs: two replays drew the same mask")
+    errs = []
+    for w, o in ((w1, o1), (w2, o2)):
+        ref, _, _ = FA.flash_attention_fwd_plain(q, q, q,
+                                                 dropout_p=DROPOUT_P, seed=w)
+        errs.append(scaled_err(o, ref))
+    check(max(errs) <= KERNEL_TOL["bfloat16"],
+          f"graphs: a replay's flash output is {errs} from the plain "
+          f"version at its words")
+    ids = torch.randint(0, 30522, (8, TRAIN_SEQ), device="cuda",
+                        generator=gen)
+    fwd = jit.to_static(lambda ids: model(ids)[0], models=[model])
+    fwd(ids)
+    train_differ = not torch.equal(fwd(ids), fwd(ids))
+    model.eval()
+    fwd(ids)
+    eval_equal = torch.equal(fwd(ids), fwd(ids))
+    check(train_differ and eval_equal,
+          f"graphs: BERT-base replays with attention dropout differ "
+          f"{train_differ}, without {not eval_equal}")
+    rec = dict(phase="graphs_dropout", card=smi, words=[w1.tolist(),
+                                                        w2.tolist()],
+               masks_differ=masks_differ, replay_vs_plain_err=errs,
+               tol=KERNEL_TOL["bfloat16"],
+               bert_train_replays_differ=train_differ,
+               bert_eval_replays_equal=eval_equal)
+    emit(rec)
+    del fwd
+    return rec
+
+
+def graph_predictor(np, torch, smi, seed, label, config, model):
+    """BERT-base ``model`` behind a ``Predictor`` at batch 32, seq 128: a
+    replay of its captured signature against the served module's eager
+    forward, and both timed."""
+    from paddle_tpu_torch.inference import Predictor
+    pred = Predictor(model.eval(), config)
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 30522, (PREDICT_BATCH, PREDICT_SEQ)).astype("int32")
+    tt = (rng.rand(PREDICT_BATCH, PREDICT_SEQ) < 0.5).astype("int32")
+    lens = rng.randint(16, PREDICT_SEQ + 1, PREDICT_BATCH)
+    mask = (np.arange(PREDICT_SEQ)[None, :] < lens[:, None]).astype("int32")
+    dev = [torch.from_numpy(a).cuda() for a in (ids, tt, mask)]
+    pred.warmup([((PREDICT_BATCH, PREDICT_SEQ), "int32")] * 3)
+    check(pred.captures == 1 and len(pred._compiled) == 1,
+          f"graphs ({label}): warmup captured {pred.captures} graphs")
+    got = pred.run_device(*dev)
+
+    def eager():
+        with torch.inference_mode():
+            return pred.model(*dev)
+
+    want = eager()
+    err = max(scaled_err(a, b) for a, b in zip(got, want))
+    check(err <= KERNEL_TOL[label],
+          f"graphs ({label}): Predictor replay vs eager error {err}")
+    ms = {}
+    for arm, call in (("graph", lambda: pred.run_device(*dev)),
+                      ("eager", eager)):
+        ms[arm] = _event_ms(torch, lambda: [call() for _ in range(
+            PREDICT_ITERS)], PREDICT_ITERS, 3)
+    prof = {"graph": call_profile(torch, lambda: pred.run_device(*dev)),
+            "eager": call_profile(torch, eager)}
+    want_launches = sum(LAUNCHES_PER_BATCH.values())
+    check(prof["graph"]["port_launches"] == want_launches ==
+          prof["eager"]["port_launches"],
+          f"graphs ({label}): a replay counted "
+          f"{prof['graph']['port_launches']} port launches, want "
+          f"{want_launches}")
+    check(pred.captures == 1, f"graphs ({label}): a call captured again")
+    rec = dict(phase="graphs_predict", precision=label, card=smi,
+               batch=PREDICT_BATCH, seq=PREDICT_SEQ, max_scaled_err=err,
+               tol=KERNEL_TOL[label], forward_ms=ms, profile=prof)
+    emit(rec)
+    del pred
+    return rec
+
+
+def graphs_phase(np, torch, FA, smi, seed, gen, rec32, rec16):
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools import bench_bert, bench_resnet
+    t0 = time.perf_counter()
+    no_dropout = dict(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    recs = {"bert_default": graph_training(
+        np, torch, smi, "bert_default", lambda: bench_bert.Trainer(
+            TRAIN_BATCH, TRAIN_SEQ, GRAPH_INNER, **no_dropout),
+        tokens, "tokens", BERT_LR)}
+    kernels.configure(softmax_xent=True, fused_adam_multi=True)
+    try:
+        recs["bert_kernels"] = graph_training(
+            np, torch, smi, "bert_kernels", lambda: bench_bert.Trainer(
+                TRAIN_BATCH, TRAIN_SEQ, GRAPH_INNER,
+                opt_kw=dict(flat_arena=True), token_types=True,
+                **no_dropout), tokens, "tokens", BERT_LR)
+    finally:
+        kernels.configure(softmax_xent=None, fused_adam_multi=None)
+    kernels.configure(batch_norm=True)
+    try:
+        recs["resnet_kernels"] = graph_training(
+            np, torch, smi, "resnet_kernels", lambda: bench_resnet.Trainer(
+                RESNET_BATCH, RESNET_GRAPH_INNER, "NHWC",
+                size=RESNET_SIZE), RESNET_BATCH, "images", None)
+    finally:
+        kernels.configure(batch_norm=None)
+    # one BERT-base, attention dropout alone, for the dropout check and then
+    # (in eval mode, where dropout is off) behind the Predictors
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models import Bert, BertConfig
+    ptt.seed(seed)
+    bert = Bert(BertConfig.base(hidden_dropout_prob=0.0)).to("cuda")
+    drop = graph_dropout(np, torch, FA, smi, gen, bert)
+    pred = {"float32": graph_predictor(np, torch, smi, seed, "float32",
+                                       None, bert),
+            "bfloat16": graph_predictor(np, torch, smi, seed, "bfloat16",
+                                        Config().enable_bf16(), bert)}
+    del bert
+    emit(dict(phase="graphs", card=smi, seconds=time.perf_counter() - t0,
+              train={k: dict(eager_step_ms=r["eager"]["step_ms"],
+                             graph_step_ms=r["graph"]["step_ms"],
+                             graph_idle_share=r["graph"]["idle_share"],
+                             eager_idle_share=r["eager"]["idle_share"],
+                             bit_equal=r["bit_equal"],
+                             eager_vs_eager_bit_equal=r["eager_vs_eager"][
+                                 "bit_equal"],
+                             update_rel_l2=r["update_rel_l2"])
+                     for k, r in recs.items()},
+              dropout_words_differ=True,
+              predict={k: r["forward_ms"] for k, r in pred.items()},
+              serve_qps={"float32": rec32["qps"], "bfloat16": rec16["qps"]},
+              serve_p50_ms={"float32": rec32["p50_ms"],
+                            "bfloat16": rec16["p50_ms"]},
+              flash_words=drop["words"]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -3299,7 +3695,12 @@ def main(argv=None):
     # 16. multi-replica serving: the BERT fleet, the decode fleets
     fleet_phase(np, torch, smi, args.seed, reqs, outs32, gen13, spec14)
 
-    # 17. the kernels line, the card, and the verdict
+    # 17. CUDA graphs: the training steps and the Predictor's executables
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphs_phase(np, torch, FA, smi, args.seed, gen, rec32, rec16)
+
+    # 18. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

@@ -62,6 +62,27 @@ __device__ __forceinline__ bool dropout_keep(uint32_t row_hash,
   return h >= threshold;
 }
 
+// Dropout word i (0: seed0, 1: seed1) of a kernel's Params `p`, read from
+// the device memory that `p.seed` points at: the wrapper draws the words
+// there on the card, so a CUDA graph's replay of the draw and the launch
+// gives fresh words. The load is issued at each use (a volatile read-only
+// load, which the compiler neither hoists nor merges), so that the words
+// hold no register across the main loop: the flash kernels have none to
+// spare, and as launch arguments the words lived in the constant bank.
+// Call only where dropout is on (the pointer is null otherwise).
+template <typename P>
+__device__ __forceinline__ uint32_t seed_word(const P& p, int i) {
+  uint32_t w;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(w) : "l"(p.seed + i));
+  return w;
+}
+
+// A word staged in shared memory, read at each use by a volatile load,
+// which the compiler neither hoists nor keeps in a register.
+__device__ __forceinline__ uint32_t volatile_word(const uint32_t* s) {
+  return *reinterpret_cast<const volatile uint32_t*>(s);
+}
+
 // Make `device` the calling thread's current device, calling
 // cudaSetDevice only when it is not already: PyTorch keeps the device of
 // the tensors it launches on current, so a launch usually costs just the

@@ -91,7 +91,7 @@ struct Params {
   int causal;
   int dropout;         // 0 or 1
   uint32_t threshold;  // keep where the hash >= threshold
-  uint32_t seed0, seed1;
+  const uint32_t* seed;  // the two dropout words, in device memory
   float keep_div;      // 1 - rate
 };
 
@@ -160,7 +160,8 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   uint32_t hrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+    hrow[i] =
+        p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, rows[i]) : 0u;
   const float inv_keep = 1.f / p.keep_div;
 
   // o[G][n][.]: the C tile of output n-tile n of column group G, whose
@@ -283,7 +284,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
         float pv = x <= NEG_INF ? 0.f : expf(x - msafe[e >> 1]);
         l[e >> 1] += pv;
         if (p.dropout)
-          pv = ptk::dropout_keep(hrow[e >> 1], p.seed0,
+          pv = ptk::dropout_keep(hrow[e >> 1], ptk::seed_word(p, 0),
                                  k0 + t * 8 + t4 * 2 + (e & 1), p.threshold)
                    ? pv * inv_keep
                    : 0.f;
@@ -406,7 +407,8 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
   uint32_t hrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+    hrow[i] =
+        p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, rows[i]) : 0u;
   const float inv_keep = 1.f / p.keep_div;
 
   uint32_t qf[KD][4];
@@ -498,7 +500,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 4 : 2)
         float pv = x <= NEG_INF ? 0.f : __expf(x - msafe[e >> 1]);
         l[e >> 1] += pv;
         if (p.dropout)
-          pv = ptk::dropout_keep(hrow[e >> 1], p.seed0,
+          pv = ptk::dropout_keep(hrow[e >> 1], ptk::seed_word(p, 0),
                                  k0 + t * 8 + t4 * 2 + (e & 1), p.threshold)
                    ? pv * inv_keep
                    : 0.f;
@@ -601,8 +603,11 @@ bool rows_aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
 // a multiple of 4 elements.
 // dropout 1 drops attention probabilities where the counter hash of
 // (seed0, seed1, bh, row, col) is below threshold, scaling the kept ones
-// by 1 / keep_div. Launches on `stream` and returns a CUDA error code;
-// allocates nothing.
+// by 1 / keep_div; `seed` points at the two words (seed0, seed1) in
+// device memory, which the kernel reads when it runs, so a CUDA graph
+// that replays the launch reads the words its replay drew (null and
+// unread when dropout is 0). Launches on `stream` and returns a CUDA
+// error code; allocates nothing.
 extern "C" int flash_attention_fwd(
     int device, const void* q, const void* k, const void* v,
     const void* mask, void* o, void* m, void* l, int B, int H, int Sq,
@@ -610,7 +615,7 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int mask_mode, int mb, int mh, float scale, int causal,
-    int bf16, int dropout, unsigned threshold, unsigned seed0, unsigned seed1,
+    int bf16, int dropout, unsigned threshold, const void* seed,
     float keep_div, void* stream) {
   cudaError_t err = ptk::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -639,8 +644,7 @@ extern "C" int flash_attention_fwd(
   p.causal = causal;
   p.dropout = dropout;
   p.threshold = threshold;
-  p.seed0 = seed0;
-  p.seed1 = seed1;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.keep_div = keep_div;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * H;

@@ -128,8 +128,9 @@ struct Params {
                        // bias, and ds is 0 above the diagonal
   int dropout;
   uint32_t threshold;
-  uint32_t seed0, seed1;
+  const uint32_t* seed;  // the two dropout words, in device memory
   float keep_div;
+  float inv_keep;        // 1 / keep_div, as the kernels would divide it
 };
 
 enum { Q = 0, K = 1, V = 2, DO = 3, DQ = 4, DK = 5, DV = 6, O = 7 };
@@ -169,8 +170,9 @@ constexpr int NT_TC = 128;  // 4 warps, 16 rows (dQ) or keys (dK/dV) each
 template <int D>
 constexpr int dkv_tf32_smem_bytes() {
   // k and v tiles; two q and two dO tiles (f32); two sets of the query
-  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row
-  return (2 * BK * D + 4 * BQ * D) * 4 + 2 * 4 * BQ * 4 + BK * 4;
+  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row;
+  // the dropout word seed0 (one slot, padded)
+  return (2 * BK * D + 4 * BQ * D) * 4 + 2 * 4 * BQ * 4 + BK * 4 + 16;
 }
 
 template <int D>
@@ -191,6 +193,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 2 : 1)
   float* Dl = Li + 2 * BQ;                         // [2][BQ] delta
   uint32_t* Hr = reinterpret_cast<uint32_t*>(Dl + 2 * BQ);  // [2][BQ]
   float* Bk = reinterpret_cast<float*>(Hr + 2 * BQ);        // [BK]
+  // seed0, staged here and read at each use: it holds no register
+  uint32_t* Sd = reinterpret_cast<uint32_t*>(Bk + BK);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -227,7 +231,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 2 : 1)
       Mr[buf * BQ + r] = in ? p.m[row] : 0.f;
       Li[buf * BQ + r] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
       Dl[buf * BQ + r] = in ? p.delta[row] : 0.f;
-      Hr[buf * BQ + r] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
+      Hr[buf * BQ + r] =
+          p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, qi) : 0u;
     }
   };
 
@@ -236,8 +241,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 2 : 1)
   if (p.mask_mode == 1)
     for (int c = tid; c < BK; c += NT_TC)
       Bk[c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  if (tid == 0 && p.dropout) Sd[0] = ptk::seed_word(p, 0);
   load_q_tile(0, q_first);
-  const float inv_keep = 1.f / p.keep_div;
 
   // dk[G][n], dv[G][n]: the C tile of n-tile n of column group G, whose
   // C column 2 t4 + c is column 32 G + 8 t4 + 4 c + n (tc::load_b_cols_f32)
@@ -314,9 +319,10 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 2 : 1)
           float pd = pv, dpv = dp[t][e];
           if (p.dropout) {
             const bool keep =
-                ptk::dropout_keep(hr[c], p.seed0, kj, p.threshold);
-            pd = keep ? pv * inv_keep : 0.f;
-            dpv = keep ? dpv * inv_keep : 0.f;
+                ptk::dropout_keep(hr[c], ptk::volatile_word(Sd), kj,
+                                 p.threshold);
+            pd = keep ? pv * p.inv_keep : 0.f;
+            dpv = keep ? dpv * p.inv_keep : 0.f;
           }
           s[t][e] = pd;
           dp[t][e] = fold && qi < kj ? 0.f : pv * (dpv - dl[c]);
@@ -449,7 +455,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 1)
     const int64_t r = (int64_t)bh * p.Sq + rows[i];
     mrow[i] = in ? p.m[r] : 0.f;
     linv[i] = in ? 1.f / fmaxf(p.l[r], 1e-20f) : 0.f;
-    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+    hrow[i] =
+        p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, rows[i]) : 0u;
   }
   const float inv_keep = 1.f / p.keep_div;
 
@@ -548,7 +555,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 1)
           const float pv = valid ? expf(x - mrow[i]) * linv[i] : 0.f;
           float dpv = dp[t][e];
           if (p.dropout)
-            dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
+            dpv = ptk::dropout_keep(hrow[i], ptk::seed_word(p, 0), kj,
+                                    p.threshold)
                       ? dpv * inv_keep
                       : 0.f;
           s[t][e] = fold && row < kj ? 0.f : pv * (dpv - dl[i]);
@@ -597,8 +605,9 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 1)
 template <int D>
 constexpr int dkv_tc_smem_bytes() {
   // k and v tiles; two q and two dO tiles (bf16); two sets of the query
-  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row
-  return (2 * BK * D + 4 * BQ * D) * 2 + 2 * 4 * BQ * 4 + BK * 4;
+  // tile's m, 1/l, delta and dropout row hashes; the key tile's bias row;
+  // the dropout word seed0 (one slot, padded)
+  return (2 * BK * D + 4 * BQ * D) * 2 + 2 * 4 * BQ * 4 + BK * 4 + 16;
 }
 
 // FOLD: causal 2, the edge in the bias (ds^T zeroed above the diagonal),
@@ -621,6 +630,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
   float* Dl = Li + 2 * BQ;                       // [2][BQ] delta
   uint32_t* Hr = reinterpret_cast<uint32_t*>(Dl + 2 * BQ);  // [2][BQ]
   float* Bk = reinterpret_cast<float*>(Hr + 2 * BQ);        // [BK]
+  // seed0, staged here and read at each use: it holds no register
+  uint32_t* Sd = reinterpret_cast<uint32_t*>(Bk + BK);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -656,7 +667,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
       Mr[buf * BQ + r] = in ? p.m[row] : 0.f;
       Li[buf * BQ + r] = in ? 1.f / fmaxf(p.l[row], 1e-20f) : 0.f;
       Dl[buf * BQ + r] = in ? p.delta[row] : 0.f;
-      Hr[buf * BQ + r] = p.dropout ? ptk::dropout_row(p.seed1, bh, qi) : 0u;
+      Hr[buf * BQ + r] =
+          p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, qi) : 0u;
     }
   };
 
@@ -665,8 +677,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
   if (p.mask_mode == 1)
     for (int c = tid; c < BK; c += NT_TC)
       Bk[c] = k0 + c < p.Sk ? mg[k0 + c] : 0.f;
+  if (tid == 0 && p.dropout) Sd[0] = ptk::seed_word(p, 0);
   load_q_tile(0, q_first);
-  const float inv_keep = 1.f / p.keep_div;
 
   float dk[ND][4], dv[ND][4];
 #pragma unroll
@@ -740,9 +752,10 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 3 : 2)
           float pd = pv, dpv = dp[t][e];
           if (p.dropout) {
             const bool keep =
-                ptk::dropout_keep(hr[c], p.seed0, kj, p.threshold);
-            pd = keep ? pv * inv_keep : 0.f;
-            dpv = keep ? dpv * inv_keep : 0.f;
+                ptk::dropout_keep(hr[c], ptk::volatile_word(Sd), kj,
+                                 p.threshold);
+            pd = keep ? pv * p.inv_keep : 0.f;
+            dpv = keep ? dpv * p.inv_keep : 0.f;
           }
           s[t][e] = pd;
           dp[t][e] = pv * (dpv - dl[c]);
@@ -873,7 +886,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
     const int64_t r = (int64_t)bh * p.Sq + rows[i];
     mrow[i] = in ? p.m[r] : 0.f;
     linv[i] = in ? 1.f / fmaxf(p.l[r], 1e-20f) : 0.f;
-    hrow[i] = p.dropout ? ptk::dropout_row(p.seed1, bh, rows[i]) : 0u;
+    hrow[i] =
+        p.dropout ? ptk::dropout_row(ptk::seed_word(p, 1), bh, rows[i]) : 0u;
   }
   const float inv_keep = 1.f / p.keep_div;
 
@@ -984,7 +998,8 @@ __global__ void __launch_bounds__(NT_TC, D == 64 ? 4 : 2)
           const float pv = valid ? __expf(x - mrow[i]) * linv[i] : 0.f;
           float dpv = dp[t][e];
           if (p.dropout)
-            dpv = ptk::dropout_keep(hrow[i], p.seed0, kj, p.threshold)
+            dpv = ptk::dropout_keep(hrow[i], ptk::seed_word(p, 0), kj,
+                                    p.threshold)
                       ? dpv * inv_keep
                       : 0.f;
           s[t][e] = p.causal == 2 && row < kj ? 0.f : pv * (dpv - dl[i]);
@@ -1100,7 +1115,7 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
         int H, int Sq,
         int Sk, int D, const long long* strides, int mask_mode, int mb,
         int mh, float scale, int causal, int bf16, int dropout,
-        unsigned threshold, unsigned seed0, unsigned seed1, float keep_div,
+        unsigned threshold, const void* seed, float keep_div,
         void* stream) {
   cudaError_t err = ptk::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1131,9 +1146,9 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.dropout = dropout;
   p.threshold = threshold;
-  p.seed0 = seed0;
-  p.seed1 = seed1;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.keep_div = keep_div;
+  p.inv_keep = 1.f / keep_div;
   const int per16 = bf16 ? 8 : 4;
   if (!(rows_aligned(q, strides + 3 * Q, B, H, Sq, per16) &&
         rows_aligned(k, strides + 3 * K, B, H, Sk, per16) &&
@@ -1172,12 +1187,12 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v,
       const void *dout, const void *o, void *dq, void *dk, void *dv,       \
       int B, int H, int Sq, int Sk, int D, const long long *strides,       \
       int mask_mode, int mb, int mh, float scale, int causal, int bf16,    \
-      int dropout, unsigned threshold, unsigned seed0, unsigned seed1,     \
-      float keep_div, void *stream
+      int dropout, unsigned threshold, const void *seed, float keep_div,   \
+      void *stream
 #define PTK_BWD_PASS                                                        \
   device, q, k, v, mask, m, l, delta, dout, o, dq, dk, dv, B, H, Sq, Sk,   \
       D, strides, mask_mode, mb, mh, scale, causal, bf16, dropout,         \
-      threshold, seed0, seed1, keep_div, stream
+      threshold, seed, keep_div, stream
 
 extern "C" int flash_attention_bwd_dq(PTK_BWD_ARGS) {
   return run(false, PTK_BWD_PASS);

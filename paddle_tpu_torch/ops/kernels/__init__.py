@@ -21,7 +21,11 @@ This module holds what the kernels share:
   source share its library.
 * :data:`launches` — one plain int per kernel, incremented by the wrapper
   where it launches the kernel and nowhere else, so a run can show that
-  its main path went through the kernels.
+  its main path went through the kernels. A CUDA graph
+  (:mod:`paddle_tpu_torch.graphs`) takes back what its capture counted
+  (the capture records the launches, the card runs none) and adds it at
+  each replay, which runs them all with no wrapper call
+  (:func:`add_launches`).
 * a build lock, so that the serving batcher's thread and the main thread
   never build or load at the same time.
 """
@@ -134,6 +138,14 @@ def count_launch(name):
         launches[name] += 1
 
 
+def add_launches(counts, sign=1):
+    """Add ``sign`` times ``counts`` ({kernel: launches}) to
+    :data:`launches`."""
+    with _count_lock:
+        for name, n in counts.items():
+            launches[name] += sign * n
+
+
 def _nvcc():
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ((Path(home) / "bin" / "nvcc") if home else None,
@@ -231,6 +243,7 @@ def device_index(t):
 from . import layer_norm, flash_attention, softmax_xent  # noqa: E402
 from . import fused_adam, batch_norm  # noqa: E402
 
-__all__ = ["build", "function", "launches", "reset_launches", "configure",
+__all__ = ["build", "function", "launches", "reset_launches",
+           "add_launches", "configure",
            "enabled", "layer_norm", "flash_attention", "softmax_xent",
            "fused_adam", "batch_norm", "SOURCES", "KERNELS", "BUILD_DIR"]

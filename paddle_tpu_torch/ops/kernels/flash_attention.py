@@ -33,7 +33,12 @@ cannot be reproduced, so the keep decision is a counter hash of ``(seed0,
 seed1, batch*head, row, col)`` (``csrc/common.cuh``), which the forward
 and both backward kernels regenerate, and which
 :func:`dropout_keep_mask` computes bit for bit with int64 tensor
-arithmetic. As in the Pallas kernels, dropout applies to the
+arithmetic. The two words reach the kernels as a (2,) int32 tensor on
+the card (:func:`paddle_tpu_torch.random.next_seed_words`), read through
+a pointer when the kernel runs, never as launch arguments: a CUDA graph
+that captured the draw and the launches draws fresh words at each replay.
+The forward saves that tensor for the backward, whose kernels read the
+same words. As in the Pallas kernels, dropout applies to the
 probabilities in the ``p @ v`` product and to ``dp`` in the backward; the
 normalizer ``l`` stays undropped. The plain versions also take an explicit
 ``keep`` mask, so that the tests can hand them the JAX package's own.
@@ -59,8 +64,9 @@ HEAD_DIMS = (64, 128)  # the kernels' instantiated head dims
 # zeroes ds above the diagonal (sdpa's ``where`` passes no gradient there)
 CAUSAL_IN_BIAS = 2
 
-_DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                     ctypes.c_uint, ctypes.c_float]
+# dropout on, threshold, the seed words' pointer, 1 - rate
+_DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+                     ctypes.c_float]
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
              [ctypes.c_longlong] * 12 +
              [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 +
@@ -95,13 +101,36 @@ def _absorb(h, v):
     return h ^ (h >> 13)
 
 
+def seed_words(seed, device):
+    """``seed`` as the kernels read it: a contiguous (2,) int32 tensor on
+    ``device``. A tensor of the two words (what
+    :func:`paddle_tpu_torch.random.next_seed_words` draws) is used as it
+    is; a pair of ints, each taken modulo 2^32, is copied there."""
+    if torch.is_tensor(seed):
+        if seed.shape != (2,) or seed.dtype != torch.int32 or \
+                seed.device != torch.device(device) or \
+                not seed.is_contiguous():
+            raise ValueError(f"flash_attention: the seed words must be a "
+                             f"contiguous (2,) int32 tensor on {device}, got "
+                             f"{tuple(seed.shape)} {seed.dtype} on "
+                             f"{seed.device}")
+        return seed
+    words = [((int(w) & _M32) ^ 0x80000000) - 0x80000000 for w in seed]
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
 def dropout_keep_mask(seed, bh, sq, sk, dropout_p, device="cpu"):
     """The keep mask the kernels draw, as a bool tensor (bh, sq, sk): the
     counter hash of ``csrc/common.cuh`` at every (batch*head, row, col),
-    in int64 arithmetic masked to 32 bits."""
-    s0, s1 = (int(s) & _M32 for s in seed)
+    in int64 arithmetic masked to 32 bits. ``seed`` is the two words, as
+    a pair of ints or as the (2,) int32 tensor the kernels read; the same
+    words give the same mask either way."""
+    if torch.is_tensor(seed):
+        s0, s1 = seed.to(device=device, dtype=torch.int64) & _M32
+    else:
+        # Python ints until the first xor: no host-to-device copy
+        s0, s1 = (int(s) & _M32 for s in seed)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    # seed1 stays a Python int until the first xor: no host-to-device copy
     h = _absorb(s1, ar(bh).view(-1, 1, 1))
     h = _absorb(h, ar(sq).view(1, -1, 1))
     h = _absorb(h, ar(sk).view(1, 1, -1)) ^ s0
@@ -332,10 +361,12 @@ def _kernel_operand(t):
 
 
 def _dropout_args(dropout_p, seed):
+    """The kernels' dropout arguments; ``seed`` is :func:`seed_words`'
+    tensor, which the caller keeps alive until the launch has run."""
     if dropout_p <= 0.0:
-        return 0, 0, 0, 0, 1.0
-    return (1, dropout_threshold(dropout_p), int(seed[0]) & _M32,
-            int(seed[1]) & _M32, 1.0 - dropout_p)
+        return 0, 0, None, 1.0
+    return (1, dropout_threshold(dropout_p), seed.data_ptr(),
+            1.0 - dropout_p)
 
 
 def _plain_keep(keep, seed, b, h, sq, sk, dropout_p, device):
@@ -393,6 +424,7 @@ def _fwd_kernel(q, k, v, cm, causal, scale, dropout_p, seed):
     sk = k.shape[2]
     mask3, mode, mb, mh = cm
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    seed = seed_words(seed, q.device) if dropout_p > 0.0 else None
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     m = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
@@ -502,6 +534,7 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
     q, k, v, g, out = (_kernel_operand(t.to(q.dtype))
                        for t in (q, k, v, g, out))
     causal = int(causal)
+    seed = seed_words(seed, q.device) if dropout_p > 0.0 else None
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     m, l = m.contiguous(), l.contiguous()
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
@@ -516,8 +549,9 @@ def _bwd_setup(q, k, v, cm, out, m, l, g, causal, scale, dropout_p, seed):
 
     def launch(name):
         # pointers and the stream are read at launch time from tensors this
-        # closure holds, so a launch never writes into freed storage and a
-        # CUDA graph being captured on the current stream records it
+        # closure holds (the seed words too, through ``dims``' pointer), so
+        # a launch never touches freed storage and a CUDA graph being
+        # captured on the current stream records it
         if b * h * sq == 0:
             return
         outs = ((dq.data_ptr(), None, None) if name == BWD_DQ
@@ -593,24 +627,30 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with autograd: the counterpart of the Pallas
     module's ``_flash`` custom vjp. The forward saves q, k, v, the
     canonical mask, ``out``, the row statistics ``m`` and ``l`` and the
-    dropout seed; the backward runs the dQ and dK/dV kernels (the plain
+    dropout seed words' tensor, so that the backward kernels read the
+    words the forward read (also under a CUDA graph's replay); the
+    backward runs the dQ and dK/dV kernels (the plain
     backward on a CPU tensor). The mask, an input-derived bias, gets no
     gradient, as in the reference."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask3, mode, mb, mh, causal, scale, dropout_p,
-                seed0, seed1):
+                seed, seed1=None):
+        # ``seed``: the words' tensor, or (with ``seed1``) the first of two
+        # int words, held as a tensor from here on
         cm = (mask3, mode, mb, mh)
-        seed = (seed0, seed1)
+        if dropout_p > 0.0:
+            seed = seed_words(seed if seed1 is None else (seed, seed1),
+                              q.device)
         out, m, l = _fwd(q, k, v, cm, causal, scale, dropout_p, seed)
-        ctx.save_for_backward(q, k, v, mask3, out, m, l)
-        ctx.args = (mode, mb, mh, causal, scale, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, mask3, out, m, l, seed)
+        ctx.args = (mode, mb, mh, causal, scale, dropout_p)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask3, out, m, l = ctx.saved_tensors
-        mode, mb, mh, causal, scale, dropout_p, seed = ctx.args
+        q, k, v, mask3, out, m, l, seed = ctx.saved_tensors
+        mode, mb, mh, causal, scale, dropout_p = ctx.args
         dq, dk, dv = _bwd(q, k, v, (mask3, mode, mb, mh), out, m, l, g,
                           causal, scale, dropout_p, seed)
         return (dq, dk, dv) + (None,) * 9
@@ -621,22 +661,23 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, scale=None,
     """The port's counterpart of ``paddle_tpu.ops.pallas.flash_attention``:
     returns the attention output. With ``training=True`` and
     ``dropout_p > 0`` the probabilities are dropped inside the kernels,
-    from a fresh seed pair (:func:`paddle_tpu_torch.random.next_seed_pair`)
-    per call. Where autograd records (grad mode on and q, k or v requires
-    grad) it runs :class:`FlashAttentionFunction`; otherwise the forward
-    alone, with no graph."""
+    from two fresh seed words per call, drawn on q's device
+    (:func:`paddle_tpu_torch.random.next_seed_words`). Where autograd
+    records (grad mode on and q, k or v requires grad) it runs
+    :class:`FlashAttentionFunction`; otherwise the forward alone, with no
+    graph."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
     p_drop = float(dropout_p) if training else 0.0
     if not 0.0 <= p_drop < 1.0:
         raise ValueError(f"flash_attention: dropout_p must be in [0, 1), "
                          f"got {dropout_p}")
-    seed = prandom.next_seed_pair() if p_drop > 0.0 else (0, 0)
+    seed = prandom.next_seed_words(q.device) if p_drop > 0.0 else None
     cm, rows, causal = _kernel_mask(attn_mask, b, h, sq, k.shape[2], causal)
     q = _zero_rows(q, rows)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, *cm, causal, scale,
-                                            p_drop, *seed)
+                                            p_drop, seed)
     out, _, _ = _fwd(q, k, v, cm, causal, scale, p_drop, seed)
     return out

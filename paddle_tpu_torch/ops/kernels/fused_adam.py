@@ -175,20 +175,25 @@ def fused_adam_update_multi(ps, gs, ms, vs, lr, beta1_pow, beta2_pow,
 
 
 def adam_step(p, g, m, v, lr, beta1_pow, beta2_pow, *, beta1=0.9,
-              beta2=0.999, eps=1e-8, use_fused=None):
+              beta2=0.999, eps=1e-8, use_fused=None, inplace=False):
     """THE Adam rule of the per-parameter optimizer: the ``fused_adam``
     kernel (in place, m and v float32) where ``enabled("fused_adam")`` or
     ``use_fused`` forces it, else the same arithmetic in PyTorch ops, new
-    tensors in the slots' dtypes, p cast back to its dtype. Returns
-    ``(new_p, new_m, new_v)``."""
+    tensors in the slots' dtypes (with ``inplace``, the moments written
+    into ``m`` and ``v``, rounded as the new tensors are), p cast back to
+    its dtype. Returns ``(new_p, new_m, new_v)``."""
     if use_fused is None:
         use_fused = enabled("fused_adam")
     if use_fused:
         return fused_adam_update(p, g, m.float(), v.float(), lr, beta1_pow,
                                  beta2_pow, beta1=beta1, beta2=beta2,
                                  eps=eps)
-    new_m = beta1 * m + (1 - beta1) * g
-    new_v = beta2 * v + (1 - beta2) * g * g
+    if inplace:
+        new_m = m.mul_(beta1).add_((1 - beta1) * g)
+        new_v = v.mul_(beta2).add_((1 - beta2) * g * g)
+    else:
+        new_m = beta1 * m + (1 - beta1) * g
+        new_v = beta2 * v + (1 - beta2) * g * g
     mhat = new_m / (1 - beta1_pow)
     vhat = new_v / (1 - beta2_pow)
     new_p = (p - lr * mhat / (torch.sqrt(vhat) + eps)).to(p.dtype)

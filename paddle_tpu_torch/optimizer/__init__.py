@@ -29,7 +29,19 @@ with the reference's step order, routes and update arithmetic rather than
   live parameters have stepped equally often, which a host-side step
   count per parameter tells without reading the pows from the card.
 
-Slots are created on each parameter's device at its first step. Gradient
+Every update writes into the storage it updates: parameters, slots,
+pows, the learning rate (``set_lr`` fills it) and the arena's buffers
+keep their addresses from one step to the next, so that a CUDA graph
+that captured a step (``jit.to_static``) replays it on the live state
+(the reference passes that state through its executable instead). A
+moment that a first step casts to float32 (a bf16 parameter's, on a
+kernel route) replaces its slot once. The host-side step counts are the
+one part a replay does not advance: ``jit.to_static`` advances them for
+it.
+
+Slots are created on each parameter's device at its first step, or all
+at once by :meth:`Optimizer._ensure_all_slots`, which ``jit.to_static``
+calls before it keys a step, as the reference's does. Gradient
 clipping, learning-rate schedulers and ``grad_sync`` are not ported yet
 and raise ``NotImplementedError``.
 """
@@ -112,6 +124,20 @@ class Optimizer:
     def _pre_param(self, p):
         pass
 
+    def _ensure_all_slots(self):
+        """Create every slot (or the flat arena) and the learning rate on
+        every device that holds a trainable parameter, as a first step
+        would: ``jit.to_static`` keys and captures a step on state that no
+        longer grows."""
+        trainables = [p for p in self._params() if p.requires_grad]
+        if self._flat_arena:
+            if trainables:
+                self._lr_on(self._ensure_arena().device)
+            return
+        for p in trainables:
+            self._pre_param(p)
+            self._lr_on(p.device)
+
     def _rule(self, p, g, slots, lr):
         raise NotImplementedError
 
@@ -189,7 +215,7 @@ class Optimizer:
                                           self._lr_on(p.device))
             if new_p is not p:
                 p.copy_(new_p)
-            slots.update(new_slots)
+            _store(slots, new_slots)
             self._steps[id(p)] = self._steps.get(id(p), 0) + 1
 
     def _batched_update(self, params_grads, lr):
@@ -200,6 +226,18 @@ class Optimizer:
     def clear_grad(self):
         for p in self._params():
             p.grad = None
+
+
+def _store(slots, new):
+    """Write each new slot value into its slot's own storage. A value of
+    another dtype or shape (a moment a first step cast to float32) takes
+    the slot's place instead."""
+    for name, v in new.items():
+        t = slots.get(name)
+        if t is None or t.dtype != v.dtype or t.shape != v.shape:
+            slots[name] = v
+        elif t is not v:
+            t.copy_(v)
 
 
 class SGD(Optimizer):
@@ -218,7 +256,8 @@ class Momentum(Optimizer):
         self._slot(p, "velocity")
 
     def _rule(self, p, g, slots, lr):
-        v = self._momentum * slots["velocity"] + g
+        # momentum * v + g, rounded as the out-of-place form, in place
+        v = slots["velocity"].mul_(self._momentum).add_(g)
         if self._nesterov:
             new_p = p - lr * (g + self._momentum * v)
         else:
@@ -253,13 +292,14 @@ class Adam(Optimizer):
 
     def _rule(self, p, g, slots, lr):
         b1, b2 = self._beta1, self._beta2
-        b1p = slots["beta1_pow"] * b1
-        b2p = slots["beta2_pow"] * b2
+        # the pows advance in their slots: pow * beta, as before, in place
+        b1p = slots["beta1_pow"].mul_(b1)
+        b2p = slots["beta2_pow"].mul_(b2)
         new_p, m, v = adam_step(p, g, slots["moment1"], slots["moment2"],
                                 lr, b1p, b2p, beta1=b1, beta2=b2,
-                                eps=self._eps, use_fused=self._use_fused)
-        return new_p, {"moment1": m, "moment2": v, "beta1_pow": b1p,
-                       "beta2_pow": b2p}
+                                eps=self._eps, use_fused=self._use_fused,
+                                inplace=True)
+        return new_p, {"moment1": m, "moment2": v}
 
     def _batched_update(self, params_grads, lr):
         """The multi-tensor route: one ``fused_adam_multi`` call updates
@@ -284,26 +324,31 @@ class Adam(Optimizer):
         for p, _ in params_grads:
             self._pre_param(p)
         slots = [self._accumulators[id(p)] for p, _ in params_grads]
-        b1p = slots[0]["beta1_pow"] * self._beta1
-        b2p = slots[0]["beta2_pow"] * self._beta2
+        # every live pow is equal (lockstep): each advances in its slot, in
+        # one batched multiply a pow
+        for name, beta in (("beta1_pow", self._beta1),
+                           ("beta2_pow", self._beta2)):
+            torch._foreach_mul_(list({id(t): t for t in (
+                s[name] for s in slots)}.values()), beta)
+        b1p, b2p = slots[0]["beta1_pow"], slots[0]["beta2_pow"]
         _, ms, vs = fused_adam_update_multi(
             [p for p, _ in params_grads], [g for _, g in params_grads],
             [s["moment1"] for s in slots], [s["moment2"] for s in slots],
             lr, b1p, b2p, beta1=self._beta1, beta2=self._beta2,
             eps=self._eps, weight_decay=getattr(self, "_wd", 0.0))
         for (p, _), s, m, v in zip(params_grads, slots, ms, vs):
-            s.update(moment1=m, moment2=v, beta1_pow=b1p, beta2_pow=b2p)
+            _store(s, {"moment1": m, "moment2": v})
             self._steps[id(p)] = self._steps.get(id(p), 0) + 1
         return True
 
     def _arena_apply(self, arena, packed, lr):
         """One ``adam_step_flat`` per dtype group, in place on the arena's
         buffers (the members' data are views of them), with the group's
-        shared pows."""
+        shared pows, which advance in place."""
         for grp, flat_g, mask in packed:
             m, v = grp.slots["moment1"], grp.slots["moment2"]
-            b1p = grp.pows["beta1_pow"] * self._beta1
-            b2p = grp.pows["beta2_pow"] * self._beta2
+            b1p = grp.pows["beta1_pow"].mul_(self._beta1)
+            b2p = grp.pows["beta2_pow"].mul_(self._beta2)
             new = adam_step_flat(
                 grp.flat, flat_g, m, v, lr, b1p, b2p, beta1=self._beta1,
                 beta2=self._beta2, eps=self._eps,
@@ -312,8 +357,6 @@ class Adam(Optimizer):
             for buf, value in zip((grp.flat, m, v), new):
                 if value is not buf:
                     buf.copy_(value)
-            grp.pows["beta1_pow"] = b1p
-            grp.pows["beta2_pow"] = b2p
 
 
 class AdamW(Adam):

@@ -6,9 +6,13 @@ global ``jax.random`` key; the port keeps one ``torch.Generator`` per
 device instead, all seeded by :func:`seed`: the CPU one, which
 initialisers draw from, and one for each CUDA card, created when a tensor
 on it first draws, so that dropout draws its mask on the tensor's own
-device with no copy from the host. :func:`next_seed_pair` gives the
-attention kernels two 32-bit words from the CPU generator (the counterpart
-of ``next_key_graph``), without touching the card. The JAX and PyTorch
+device with no copy from the host. :func:`next_seed_words` gives the
+attention kernels their two 32-bit dropout words as a tensor drawn on the
+tensor's own device from that device's generator (the counterpart of
+``next_key_graph``): a kernel reads them through a pointer, so a CUDA
+graph that captured the draw draws fresh words at every replay, since
+the capture registers the card's generator
+(:mod:`paddle_tpu_torch.graphs`). The JAX and PyTorch
 streams cannot match, so parity tests carry weights across
 (:mod:`paddle_tpu_torch.convert`) and run dropout at 0 or hand both sides
 the same mask.
@@ -48,9 +52,18 @@ def generator(device="cpu"):
     return g
 
 
+def next_seed_words(device="cpu"):
+    """Two int32 words for a kernel's counter-based dropout, as a
+    contiguous (2,) int32 tensor drawn on ``device`` from its generator:
+    on a card, no host work, no copy and no sync, and a draw that a CUDA
+    graph replays afresh."""
+    return torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                         device=torch.device(_key(device)),
+                         generator=generator(device))
+
+
 def next_seed_pair():
-    """Two int32 words for a kernel's counter-based dropout, drawn from
-    the CPU generator: no device work and no sync."""
-    lo, hi = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int64,
-                           generator=_generators["cpu"]).tolist()
+    """:func:`next_seed_words` on the CPU, as two Python ints."""
+    lo, hi = next_seed_words("cpu").tolist()
     return lo, hi
+

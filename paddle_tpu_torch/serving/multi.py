@@ -141,15 +141,15 @@ def _fresh_copy(module, tree):
 def replicate(predictor, devices=None):
     """One ``Predictor`` a device, each over its own copy of the model on
     that device (so a rolling swap changes exactly one replica), with its
-    own record of the signatures it has met. ``devices`` defaults to
+    own executables (graph entries). ``devices`` defaults to
     every CUDA card (:func:`fleet_devices`); naming one card twice puts
     two replicas on it."""
     replicas = []
     for d in fleet_devices(devices):
         p = copy.copy(predictor)
         p.model = copy.deepcopy(predictor.model).to(d)
-        p._compiled = set()
         p.device = d
+        p._fresh_executables()
         replicas.append(p)
     return replicas
 
@@ -610,8 +610,11 @@ class MultiDeviceEngine:
         return r.predictor.model
 
     def _serve_module(self, r, module):
-        """Serve ``module`` on replica ``r`` from its next call on: one
-        assignment, read once at the start of each call."""
+        """Serve ``module`` on replica ``r`` from its next call on: every
+        signature the replica serves is captured over it first
+        (``Predictor.prepare``), so that no call under traffic captures;
+        then one assignment, read once at the start of each call."""
+        r.predictor.prepare(module)
         r.predictor.model = module
 
     def _replica_empty(self, r, timeout_s, poll_s=0.005):

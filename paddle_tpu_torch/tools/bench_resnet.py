@@ -3,7 +3,8 @@
 
     python -m paddle_tpu_torch.tools.bench_resnet [--batch 128] [--steps 12]
         [--inner 4] [--data-format NCHW|NHWC] [--kernels NAME,...]
-        [--size 224] [--profile [--top 15]] [--out PATH]
+        [--size 224] [--arms graph,eager] [--profile [--top 15]]
+        [--out PATH]
 
 The same model, data and step as the reference: ``resnet50(data_format=
 ...)`` seeded with 0; ``Momentum(learning_rate=0.1, momentum=0.9)``;
@@ -12,9 +13,12 @@ The same model, data and step as the reference: ``resnet50(data_format=
 255 - 0.45) / 0.22``; each step runs the forward under
 ``amp.auto_cast(dtype="bfloat16")``, the cross entropy of the float32
 logits, ``loss.backward()``, ``step()`` and ``clear_grad()``, all wrapped
-in ``jit.to_static``. One call of the step runs ``inner`` steps. After one
-warm-up call and one more, ``steps // inner`` calls are timed on the host
-clock, ending in a sync; the result is images/s and the last loss.
+in ``jit.to_static``, whose CUDA graph is the ``graph`` arm; the ``eager``
+arm calls the same step unwrapped. One call of the step runs ``inner``
+steps and returns their losses stacked. After one warm-up call and one
+more, ``steps // inner`` calls are timed on the host clock, ending in a
+sync; the result is images/s and the last loss. ``--arms graph,eager``
+times both arms in turns (A B B A).
 
 Three routes, the rows of ``scripts/bench_nhwc_resnet.py``: ``--data-format
 NCHW`` (the default, ``bench.py``'s) and ``--data-format NHWC`` run the
@@ -23,17 +27,17 @@ batch-norm layers through the port's four batch-norm kernels.
 
 It runs on the CUDA card (``device=None``) and raises where there is
 none; ``device="cpu"`` runs the same steps on the CPU. The command line
-prints one JSON line with the step time, images/s, the loss, peak device
-memory and the card's name and power limit (with ``--profile``, also the
-device time of one step by kernel group, and the step's idle share, from
-``torch.profiler``).
+prints one JSON line with each arm's step time, images/s and loss, peak
+device memory and the card's name and power limit (with ``--profile``,
+also each arm's device time of one step by kernel group, its wall time,
+idle share and launches, from ``torch.profiler``; the graph arm's step
+is one replay).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -88,10 +92,10 @@ def make_data(batch, inner, data_format="NCHW", size=224, num_classes=1000,
 class Trainer:
     """The model, optimizer, data (on the device) and step of the bench.
     ``one(xb, yb)`` is one optimizer step on one batch and returns its
-    loss, which it also appends to ``losses`` (a device scalar: no sync);
-    ``step(x_k, y_k)`` (under ``jit.to_static``) runs ``inner`` of them and
-    returns the last loss. ``model_fn`` builds the network (default
-    ``resnet50``) from ``data_format`` and ``model_kw``."""
+    loss (a device scalar: no sync); ``eager_step(x_k, y_k)`` runs
+    ``inner`` of them and returns their losses stacked, and ``step`` is
+    the same under ``jit.to_static``. ``model_fn`` builds the network
+    (default ``resnet50``) from ``data_format`` and ``model_kw``."""
 
     def __init__(self, batch=128, inner=4, data_format="NCHW", device=None,
                  size=224, model_fn=resnet50, **model_kw):
@@ -106,9 +110,8 @@ class Trainer:
         self.data = tuple(torch.from_numpy(a).to(self.device) for a in
                           make_data(batch, inner, data_format, size,
                                     self.model.fc.out_features))
-        self.step = jit.to_static(self._step, models=[self.model],
+        self.step = jit.to_static(self.eager_step, models=[self.model],
                                   optimizers=[self.opt])
-        self.losses = []
 
     def one(self, xb, yb):
         with amp.auto_cast(dtype="bfloat16"):
@@ -117,37 +120,27 @@ class Trainer:
         loss.backward()
         self.opt.step()
         self.opt.clear_grad()
-        self.losses.append(loss.detach())
-        return self.losses[-1]
+        return loss.detach()
 
-    def _step(self, x_k, y_k):
-        loss = None
-        for i in range(self.inner):
-            loss = self.one(x_k[i], y_k[i])
-        return loss
+    def eager_step(self, x_k, y_k):
+        return torch.stack([self.one(x_k[i], y_k[i])
+                            for i in range(self.inner)])
 
 
 def bench_resnet(batch=128, steps=12, inner=4, data_format="NCHW",
                  device=None, size=224, **model_kw):
     """Images/s and the last loss of ``steps`` timed training steps
-    (``bench.py``'s ``bench_resnet``, on the port)."""
+    (``bench.py``'s ``bench_resnet``, on the port), through the step's
+    CUDA graph (a re-run of the step on the CPU)."""
     tr = Trainer(batch, inner, data_format, device, size, **model_kw)
-    tr.step(*tr.data)           # warm-up: builds the kernels, cuDNN plans
-    loss = tr.step(*tr.data)
-    loss.item()                 # sync
-    n_calls = max(1, steps // inner)
-    t0 = time.perf_counter()
-    for _ in range(n_calls):
-        loss = tr.step(*tr.data)
-    last = loss.item()
-    dt = (time.perf_counter() - t0) / (n_calls * inner)
+    dt, last = bench_bert.timed(tr, steps)
     return batch / dt, last
 
 
-def profile_step(tr, top=15):
+def profile_step(tr, top=15, graph=False):
     """``bench_bert.profile_step`` for this trainer, with the batch-norm
     and convolution kernel groups."""
-    return bench_bert.profile_step(tr, group=_group, top=top)
+    return bench_bert.profile_step(tr, group=_group, top=top, graph=graph)
 
 
 def main(argv=None):
@@ -163,6 +156,10 @@ def main(argv=None):
                     help="comma-separated kernels to turn on with "
                          "kernels.configure, e.g. batch_norm (which needs "
                          "--data-format NHWC to reach its kernels)")
+    ap.add_argument("--arms", default="graph",
+                    help="comma-separated arms to time: graph (the "
+                         "step's CUDA graph), eager; two arms run in "
+                         "turns, A B B A")
     ap.add_argument("--profile", action="store_true",
                     help="also split one step's device time by kernel "
                          "group")
@@ -170,6 +167,9 @@ def main(argv=None):
                     help="with --profile: how many kernels to list by name")
     ap.add_argument("--out", help="also write the record to this file")
     args = ap.parse_args(argv)
+    arms = [a for a in args.arms.split(",") if a]
+    if not arms or set(arms) - {"graph", "eager"}:
+        ap.error(f"--arms takes graph and eager, got {args.arms!r}")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -177,18 +177,26 @@ def main(argv=None):
     on = [k for k in args.kernels.split(",") if k]
     kernels.configure(**dict.fromkeys(on, True))
     torch.cuda.reset_peak_memory_stats()
-    img_s, loss = bench_resnet(args.batch, args.steps, args.inner,
-                               args.data_format, size=args.size)
+    trainers = {a: Trainer(args.batch, args.inner, args.data_format,
+                           size=args.size) for a in arms}
+    runs = {a: [] for a in arms}
+    for a in arms + arms[::-1] if len(arms) > 1 else arms:
+        runs[a].append(bench_bert.timed(trainers[a], args.steps,
+                                        a == "graph"))
+    del trainers
     rec = dict(batch=args.batch, size=args.size, steps=args.steps,
                inner=args.inner, data_format=args.data_format, kernels_on=on,
-               images_per_s=img_s, step_ms=args.batch / img_s * 1e3,
-               loss=loss,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               card=smi)
-    if args.profile:
-        rec["profile"] = profile_step(Trainer(args.batch, 1,
-                                              args.data_format,
-                                              size=args.size), args.top)
+               card=smi, arms={})
+    for a in arms:
+        dt = float(np.median([r[0] for r in runs[a]]))
+        rec["arms"][a] = dict(images_per_s=args.batch / dt,
+                              step_ms=dt * 1e3, loss=runs[a][-1][1],
+                              step_ms_runs=[r[0] * 1e3 for r in runs[a]])
+        if args.profile:
+            rec["arms"][a]["profile"] = profile_step(
+                Trainer(args.batch, 1, args.data_format, size=args.size),
+                args.top, graph=a == "graph")
     print(json.dumps(rec), flush=True)
     if args.out:
         with open(args.out, "w") as f:

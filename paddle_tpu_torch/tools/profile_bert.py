@@ -9,15 +9,19 @@ weights behind ``inference.Predictor``, in float32 and then through
 per precision with:
 
 * ``run_ms``: host wall time of ``Predictor.run`` (numpy in, numpy out:
-  the copy to the card, the forward, the copy back), mean of ``iters``;
+  the copy to the card, the replay of the signature's CUDA graph, the
+  copy back), mean of ``iters``;
 * ``forward_ms``: CUDA-event time of ``Predictor.run_device`` on inputs
-  already on the card, mean of ``iters``;
-* ``kernels_ms``: device time per forward by kernel group, from
+  already on the card (copy in, replay, clone out), mean of ``iters``;
+* ``kernels_ms``: device time per replay by kernel group, from
   ``torch.profiler`` (the port's two kernels, cuBLAS's matrix products,
   PyTorch's elementwise and gather kernels, copies), and ``busy_ms``,
-  their sum;
+  their sum, and ``launches``, the device events of one replay;
 * ``idle_share`` = 1 - busy_ms / forward_ms, the share of the forward in
-  which the card waits on the host.
+  which the card waits on the host;
+* ``eager``: the same forward called on the served module itself, with
+  no graph (``forward_ms``, ``busy_ms``, ``idle_share``, ``launches``):
+  the A/B of the graph.
 
 The last line names the card and its power limit. It needs a CUDA card.
 """
@@ -87,27 +91,52 @@ def profile(pred, inputs, iters):
     end.synchronize()
     forward_ms = start.elapsed_time(end) / iters
 
+    rec = dict(run_ms=run_ms, forward_ms=forward_ms,
+               **device_profile(lambda: pred.run_device(*dev), iters))
+    rec["idle_share"] = 1.0 - rec["busy_ms"] / forward_ms
+
+    def eager():
+        with torch.inference_mode():
+            return pred.model(*dev)
+
+    eager()
+    start.record()
+    for _ in range(iters):
+        eager()
+    end.record()
+    end.synchronize()
+    eager_ms = start.elapsed_time(end) / iters
+    prof = device_profile(eager, iters)
+    rec["eager"] = dict(forward_ms=eager_ms, busy_ms=prof["busy_ms"],
+                        idle_share=1.0 - prof["busy_ms"] / eager_ms,
+                        launches=prof["launches"])
+    return rec
+
+
+def device_profile(call, iters):
+    """Device time per ``call()`` by kernel group (``kernels_ms``), their
+    sum (``busy_ms``), device events per call (``launches``) and the top
+    kernels, from ``torch.profiler`` over ``iters`` calls."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
-            pred.run_device(*dev)
+            call()
         torch.cuda.synchronize()
     groups = collections.defaultdict(float)
     names = collections.defaultdict(float)
+    n = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             groups[_group(e.name)] += us / 1e3 / iters
             names[e.name] += us / 1e3 / iters
-    busy = sum(groups.values())
+            n += 1
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-    return dict(run_ms=run_ms, forward_ms=forward_ms,
-                kernels_ms=dict(sorted(groups.items(),
+    return dict(kernels_ms=dict(sorted(groups.items(),
                                        key=lambda kv: -kv[1])),
-                busy_ms=busy,
-                idle_share=(1.0 - busy / forward_ms) if busy else None,
-                top_kernels=[[n[:90], ms] for n, ms in top])
+                busy_ms=sum(groups.values()), launches=n / iters,
+                top_kernels=[[name[:90], ms] for name, ms in top])
 
 
 def main(argv=None):

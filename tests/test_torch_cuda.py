@@ -1308,3 +1308,138 @@ def test_decode_fleet_fails_over_on_the_card(cuda_device):
             top2[0])))
         parted += 1
     assert parted < len(jobs)
+
+
+# -- CUDA graphs: jit.to_static's step and the Predictor's executables ----------
+
+GRAPH_BERT = dict(num_hidden_layers=2, hidden_size=128, num_attention_heads=2,
+                  intermediate_size=256, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_kw", [None, dict(flat_arena=True)])
+def test_to_static_graph_equals_eager_for_a_bert_step(cuda_device, opt_kw,
+                                                      kernel_switch):
+    """Three calls of two 2-layer BERT steps at dropout 0, the first eager
+    and captured, two replayed, against the same calls made eagerly from
+    the same weights: the same losses and parameters within 1e-5, not
+    to the bit (PyTorch's embedding backward sums with atomics, so two
+    eager trainers part as well; ``chip_smoke.py`` phase 17 measures
+    both pairs at BERT-base), and the replays count the launches the
+    eager calls made."""
+    if opt_kw:
+        kernel_switch(softmax_xent=True, fused_adam_multi=True)
+    eager = bench_bert.Trainer(8, 64, 2, opt_kw=opt_kw, **GRAPH_BERT)
+    graph = bench_bert.Trainer(8, 64, 2, opt_kw=opt_kw, **GRAPH_BERT)
+    # to_static creates the slots (and builds the arena) before the first
+    # step; the eager trainer does so too, so both start from one layout
+    eager.opt._ensure_all_slots()
+    kernels.reset_launches()
+    want = torch.cat([eager.eager_step(*eager.data) for _ in range(3)])
+    torch.cuda.synchronize()
+    eager_launches = dict(kernels.launches)
+    kernels.reset_launches()
+    got = torch.cat([graph.step(*graph.data) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == eager_launches
+    (entry,) = graph.step._cache.values()
+    assert entry.graph is not None and entry.replays == 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for p, q in zip(graph.model.parameters(), eager.model.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_graph_replays_draw_fresh_flash_seed_words(cuda_device):
+    """Each replay of a captured dropout draw gives new seed words, and the
+    forward kernel under the replay reads them: its output is the plain
+    version's at that replay's words. A BERT forward in train mode with
+    attention dropout alone differs between two replays."""
+    from paddle_tpu_torch import jit, random, seed
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 2, 64, 64, device=cuda_device, generator=g)
+
+    def draw(q):
+        words = random.next_seed_words(q.device)
+        out, _, _ = FA.flash_attention_fwd(q, q, q, dropout_p=0.1,
+                                           seed=words)
+        return words, out
+
+    f = jit.to_static(draw)
+    f(q)
+    replays = [f(q) for _ in range(2)]
+    (w1, o1), (w2, o2) = replays
+    assert not torch.equal(w1, w2) and not torch.equal(o1, o2)
+    for w, o in replays:
+        ref, _, _ = FA.flash_attention_fwd_plain(q, q, q, dropout_p=0.1,
+                                                 seed=w)
+        assert _scaled_err(o, ref) <= TOL[torch.float32]
+    seed(0)
+    model = Bert(BertConfig.tiny(hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.1)).to(
+        cuda_device).train()
+    ids = torch.randint(0, 100, (2, 64), device=cuda_device, generator=g)
+    fwd = jit.to_static(lambda ids: model(ids)[0], models=[model])
+    fwd(ids)
+    a, b = fwd(ids), fwd(ids)
+    assert not torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_predictor_graphs_match_eager_and_follow_a_rebinding(cuda_device,
+                                                             precision):
+    """A 2-layer BERT Predictor's replays equal its module's eager forward
+    within the kernels' tolerance; a module captured ahead
+    (``prepare``) and then bound serves its own weights with no capture
+    on the call path."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import Config
+    seed(0)
+    cfg = Config().enable_bf16() if precision == "bfloat16" else None
+    pred = Predictor(Bert(BertConfig.tiny(**GRAPH_BERT)).eval(), cfg)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    ids = torch.randint(0, 100, (4, 64), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    pred.warmup([((4, 64), "int32")])
+    assert pred.captures == 1
+    got = pred.run_device(ids)
+    with torch.inference_mode():
+        want = pred.model(ids)
+    for a, b in zip(got, want):
+        assert _scaled_err(a, b) <= TOL[a.dtype]
+    fresh = copy.deepcopy(pred.model)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.mul_(0.5)
+    assert pred.prepare(fresh) == 1
+    pred.model = fresh
+    got = pred.run_device(ids)
+    assert pred.captures == 2 and len(pred._compiled) == 1
+    with torch.inference_mode():
+        want = fresh(ids)
+    for a, b in zip(got, want):
+        assert _scaled_err(a, b) <= TOL[a.dtype]
+
+
+@pytest.mark.cuda
+def test_a_step_with_item_raises_at_capture_and_does_not_fall_back(
+        cuda_device):
+    """``.item()`` inside a step cannot be captured: the first call's
+    eager run succeeds, its capture raises ``CaptureError`` naming the
+    line, and the step is not run a third time eagerly."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.graphs import CaptureError
+    runs = []
+
+    def step(x):
+        runs.append(1)
+        return x * float(x.sum().item())
+
+    f = jit.to_static(step)
+    with pytest.raises(CaptureError, match=r"x\.sum\(\)\.item\(\)"):
+        f(torch.ones(4, device=cuda_device))
+    assert len(runs) == 2
+    torch.cuda.synchronize()
+    assert float((torch.ones(4, device=cuda_device) * 2).sum()) == 8.0

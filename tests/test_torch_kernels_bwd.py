@@ -260,6 +260,45 @@ def test_dropout_hash_folds_coordinates_as_the_pallas_kernel():
         assert got == ref == _absorb_py(s1 & _M, v)
 
 
+@pytest.mark.parametrize("words", [(7, 2 ** 31 - 1), (-17, 20240601),
+                                   (2 ** 32 - 1, 2 ** 31)])
+def test_seed_words_tensor_gives_the_int_words_mask(words):
+    """The kernels read their two seed words from a (2,) int32 tensor on
+    the device (what a CUDA graph's replay draws afresh). Given that
+    tensor, ``dropout_keep_mask`` and the plain forward and backward give
+    bit for bit what the two int words give, and so does the autograd
+    Function with the tensor against its two-int form."""
+    t = FA.seed_words(words, "cpu")
+    assert t.dtype == torch.int32 and tuple(t.shape) == (2,)
+    assert [w & _M for w in t.tolist()] == [w & _M for w in words]
+    assert FA.seed_words(t, "cpu") is t
+    assert torch.equal(FA.dropout_keep_mask(t, 6, 33, 40, 0.1),
+                       FA.dropout_keep_mask(words, 6, 33, 40, 0.1))
+    rng = np.random.RandomState(5)
+    q, k, v, g = (_t(rng.randn(2, 3, 33, 16).astype("f4")) for _ in range(4))
+    by_words = FA.flash_attention_fwd_plain(q, k, v, dropout_p=0.2,
+                                            seed=words)
+    by_tensor = FA.flash_attention_fwd_plain(q, k, v, dropout_p=0.2, seed=t)
+    for a, b in zip(by_tensor, by_words):
+        assert torch.equal(a, b)
+    out, m, l = by_words
+    for a, b in zip(FA.flash_attention_bwd_plain(q, k, v, None, out, m, l, g,
+                                                 dropout_p=0.2, seed=t),
+                    FA.flash_attention_bwd_plain(q, k, v, None, out, m, l, g,
+                                                 dropout_p=0.2, seed=words)):
+        assert torch.equal(a, b)
+    cm = FA._canon_mask(None, 2, 3, 33, 33)
+    grads = []
+    for seed in ((t,), words):
+        qt, kt, vt = (x.clone().requires_grad_() for x in (q, k, v))
+        o = FA.FlashAttentionFunction.apply(qt, kt, vt, *cm, False, None,
+                                            0.2, *seed)
+        o.backward(g)
+        grads.append((o.detach(), qt.grad, kt.grad, vt.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 def test_dropout_keep_fraction_and_threshold():
     keep = FA.dropout_keep_mask((11, 22), 64, 128, 128, 0.1)
     assert abs(keep.float().mean().item() - 0.9) < 0.003

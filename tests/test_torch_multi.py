@@ -139,7 +139,7 @@ def test_replicate_gives_each_replica_its_own_weights():
     reps = multi.replicate(pred, ["cpu", "cpu"])
     assert [r.device for r in reps] == [torch.device("cpu")] * 2
     for r in reps:
-        assert r._compiled == set() and r.model is not pred.model
+        assert r._compiled == {} and r.model is not pred.model
         for (name, a), b in zip(r.state.items(), pred.state.values()):
             assert torch.equal(a, b) and a.data_ptr() != b.data_ptr(), name
     with torch.no_grad():
@@ -317,7 +317,7 @@ def test_notify_drains_every_live_fleet_and_close_unsubscribes():
     """A preemption notice drains every live fleet of its own package
     only; a closed fleet is unsubscribed."""
     rf, pf = _fleets()
-    _, pf2 = _fleets()
+    rf2, pf2 = _fleets()
     try:
         pf2.close(drain=False, timeout=2.0)
         preempt.PreemptionHandler(signals=()).request(signal.SIGTERM)
@@ -328,7 +328,9 @@ def test_notify_drains_every_live_fleet_and_close_unsubscribes():
         assert not any(r.draining for r in rf._replicas)
         assert multi.last_lifecycle()["event"] == "drain_fleet"
     finally:
-        _close(rf, pf)
+        # the second reference fleet too: left open, its engines' batchers
+        # would go on writing the reference's monitor in later files
+        _close(rf, pf, rf2)
     n = len(preempt._subscribers)
     preempt.notify(None)                    # dead fleets: no error
     assert len(preempt._subscribers) == n
@@ -561,6 +563,8 @@ def test_swap_whose_drain_times_out_leaves_the_running_batch_whole(probe):
                                 timeout_ms=1.0, hedge_ms=0, supervise=False)
     try:
         f.warmup(SIG)
+        pred = f._replicas[0].predictor
+        captured = pred.captures
         _GatedMLP.gate = gate
         gate["armed"] = True
         fut = f.submit(x)
@@ -568,10 +572,19 @@ def test_swap_whose_drain_times_out_leaves_the_running_batch_whole(probe):
         assert f.swap_weights(new.state_dict(), drain_timeout_s=0.05,
                               probe=probe) == 1
         assert not fut.done()
+        # the swap captured the warm signatures over the fresh module while
+        # the old module's entry was still replaying
+        assert pred.captures == captured + len(pred._compiled)
         gate["open"].set()
         np.testing.assert_allclose(fut.result(timeout=30), want_old, **TOL)
         np.testing.assert_allclose(f.run(x, timeout=30), want_new, **TOL)
         assert f.engines[0].weights_version == 1
+        # no call after the swap captured, and every signature has an
+        # entry of the new module (bound, or prepared for its first call)
+        assert pred.captures == captured + len(pred._compiled)
+        ready = {sig for entries in (pred._compiled, pred._prepared)
+                 for sig, e in entries.items() if e.module is pred.model}
+        assert ready == set(pred._compiled)
     finally:
         _GatedMLP.gate = None
         gate["open"].set()
@@ -630,7 +643,7 @@ def test_failed_probe_unwinds_the_whole_roll(monkeypatch):
 
 
 def test_swap_from_a_checkpoint_names_item_19(tmp_path):
-    _, pf = _fleets()
+    rf, pf = _fleets()
 
     class Manager:
         def _sharded_path(self, step):
@@ -642,13 +655,15 @@ def test_swap_from_a_checkpoint_names_item_19(tmp_path):
                 pf.swap_weights(source, step=1)
         assert pf.weights_version == 0
     finally:
-        _close(pf)
+        # the reference fleet too: left open, it writes the reference's
+        # monitor in later files
+        _close(rf, pf)
 
 
 # -- the module surface -------------------------------------------------------------
 
 def test_module_health_and_gauges_cover_live_fleets():
-    _, pf = _fleets()
+    rf, pf = _fleets()
     try:
         monitor.enable()
         pf._replicas[1].breaker.trip("test")
@@ -661,7 +676,9 @@ def test_module_health_and_gauges_cover_live_fleets():
         assert reg.value("serving.breaker_state.1") == 2
         assert reg.value("serving.active_replicas") == 2
     finally:
-        _close(pf)
+        # the reference fleet too: left open, it writes the reference's
+        # monitor in later files
+        _close(rf, pf)
     assert pf not in multi._ACTIVE
 
 

@@ -415,8 +415,10 @@ def test_to_static_puts_models_in_train_mode_and_runs_eagerly():
     def double(x):
         return 2 * x
     assert double(3) == 6
-    with pytest.raises(NotImplementedError):
-        jit.to_static(lambda x: x, bucket=True)
+    # bucketing is ported: a batch of 3 pads to the bucket of 4, and the
+    # output is sliced back to 3 rows
+    padded = jit.to_static(lambda x: 2 * x, bucket=True, buckets=[4])
+    assert torch.equal(padded(torch.ones(3, 2)), torch.full((3, 2), 2.0))
     # the reference's signature, for the names the port takes
     assert jjit.to_static.__code__.co_varnames[:4] == \
         jit.to_static.__code__.co_varnames[:4]
