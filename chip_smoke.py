@@ -147,6 +147,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    CPU and held to it as above, with one prefill's device time; and 10
    decode ticks on the host clock, then 10 under ``torch.profiler``,
    greedy and sampled: wall time a tick against the card's busy time.
+   Every engine of phases 13-16 runs its steps through the CUDA graphs
+   its warmup captured (phase 18), the flash kernel's launches counted
+   through the replays.
 14. speculative decoding: kernel #3 in float32, causal, at the pair's
    prefill shapes (1, 2, 4, 96) and (1, 2, 16, 96), zero-padded to 128,
    against its plain version and timed as in phase 2; then
@@ -213,7 +216,9 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    loadgen's ``run_fleet``); again over 3 under the supervisor, where
    replica 1 hangs (``replica_hang``, 5 s) in a tick with lanes seated and
    requests queued: the verdict trips its breaker and moves both, then a
-   ``preempt_replica`` notice drains replica 2 and moves its work; again
+   ``preempt_replica`` notice drains replica 2, held between ticks with
+   lanes seated and requests queued until the drain is decided
+   (``held_ticker``), and moves its work; again
    over 3 with every engine on its own thread and the hang left where it
    falls, counting the requests a hung prefill strands (they finish on
    the hung replica once the hang ends); then phase 14's pair at k = 8,
@@ -249,7 +254,31 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    forward within ``KERNEL_TOL``, 37 port launches a replay, replay and
    eager forward times; phases 3 and 4 (qps, latency) and 16 (the swap's
    captures) serve through the same graphs.
-18. the ``kernels`` line (all 14), the card's name and power limit, and
+18. the decode engine's steps as CUDA graphs. Phases 13-16 already run
+   every ``GenerateEngine`` through them: each decode step,
+   draft-then-verify step and prefill is captured at ``warmup()``, one
+   graph per signature and batch-wide branch, and every tick and
+   admission replays one. Here phase 13's traffic (greedy and sampled,
+   continuous and drain) and phase 14's sampled pair (plain, and drafted
+   at k = 8) run in both arms in turns (graph, eager, eager, graph; the
+   eager arm is ``decode_loadgen.EagerEngine``, the same step bodies run
+   launch by launch): every request complete with its token count, no
+   signature met and nothing captured after warmup, a graphed run's tick
+   replays equal to its ticks and its prefill replays to its prefills,
+   the flash kernel launched once a layer a prefill (through the
+   replays' counts) and never in a tick, and the graphed streams equal
+   to the eager ones, each departure counted and a near-tie of the
+   card's teacher-forced logits; tokens/s, latency, warmup seconds and
+   captures, the reserved bytes, the graph pool's bytes (its segments in
+   the allocator's snapshot) and the arenas' bytes. Then the four
+   ticks (greedy and sampled at 2 layers, plain and speculative at 8)
+   profiled in both arms: wall against busy, idle share, launches; the
+   decode fleet over 1, 2 and 3 replicas under the profiler (tokens/s,
+   idle share); and a 2-replica decode fleet's weight swap: each replica
+   captures its executables over the new module before binding it, and
+   the traffic after it captures nothing and gives a single engine's
+   streams on the new weights (departures near-ties).
+19. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -2884,6 +2913,29 @@ def hang_ticker(engine, stop, state):
             time.sleep(0.002)
 
 
+def held_ticker(engine, stop, state):
+    """Replica 2's tick loop in a preempting run (its engine's own ticks,
+    as :func:`hang_ticker`'s): from the moment the traffic is all offered
+    it ticks until lanes are seated and requests queued, then ticks no
+    more until the preemption's drain is decided, and after it serves on
+    until the run stops. The preemption lands after replica 1's hang
+    verdict, about FLEET_INFLIGHT_MS into the traffic, when graphed
+    replicas left free to tick would have finished their share; held
+    between ticks (no step in flight, so no hang verdict), replica 2 still
+    has work for the drain to move, however fast the replicas serve."""
+    state["offered"].wait(FLEET_WAIT_S)
+    while not stop.is_set():
+        if "held" in state and not state["drained"].is_set():
+            state["drained"].wait(0.01)
+            continue
+        busy = engine.tick()
+        hb = engine.heartbeat()
+        if "held" not in state and hb["active"] and hb["queue_depth"]:
+            state["held"] = [hb["active"], hb["queue_depth"]]
+        if not busy:
+            time.sleep(0.002)
+
+
 def check_fleet_run(label, wl, outs, post_warmup_signatures, launches,
                     layers, prefills):
     """A decode fleet's run: every request complete with its token count,
@@ -2907,33 +2959,36 @@ def decode_fleet(np, torch, smi, model, wl, sampling, replicas, label,
     counts zeroed just before the traffic, in which replica 1 hangs: in a
     step (``scripted``, :func:`hang_ticker`) or wherever it is once the
     traffic is offered. After the failover verdict, where ``preempt``,
-    replica 2 gets a preemption notice. Returns (record, streams)."""
+    replica 2, held between ticks with work (:func:`held_ticker`), gets a
+    preemption notice. Returns (record, streams)."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.resilience import faults
     from paddle_tpu_torch.serving import MultiDecodeEngine
     fleet = MultiDecodeEngine(
         model, devices=["cuda:0"] * replicas, slots=GEN_SLOTS, page=32,
         factor=2.0, max_len=GEN_MAX_LEN, prompt_buckets=GEN_PROMPT_BUCKETS,
-        queue_depth=GEN_REQUESTS + 8, shed=False, draft_model=draft,
+        queue_depth=len(wl) + 8, shed=False, draft_model=draft,
         spec_k=SPEC_K, supervise=True,
         supervisor_interval_s=FLEET_SUPERVISOR_S,
         inflight_timeout_ms=FLEET_INFLIGHT_MS,
         breaker_cooldown_s=FLEET_COOLDOWN_S,
         restart_after_s=FLEET_COOLDOWN_S, start=not scripted)
-    stop, ticker = threading.Event(), None
-    state = {"offered": threading.Event()}
+    stop, tickers = threading.Event(), []
+    state = {"offered": threading.Event(), "drained": threading.Event()}
     try:
         fresh = fleet.warmup()
         execs = [e.executables() for e in fleet.engines]
         spies = [spy_moves(e) for e in fleet.engines]
         done_at = [None] * len(wl)
         if scripted:
+            loops = {1: hang_ticker, **({2: held_ticker} if preempt else {})}
             for i, e in enumerate(fleet.engines):
-                if i != 1:
+                if i not in loops:
                     e.start()
-            ticker = threading.Thread(target=hang_ticker,
-                                      args=(fleet.engines[1], stop, state))
-            ticker.start()
+            for i, loop in loops.items():
+                tickers.append(threading.Thread(
+                    target=loop, args=(fleet.engines[i], stop, state)))
+                tickers[-1].start()
         kernels.reset_launches()
         t0 = time.perf_counter()
         futs = []
@@ -2963,16 +3018,18 @@ def decode_fleet(np, torch, smi, model, wl, sampling, replicas, label,
         state["probe_while_hung"] = \
             fleet.engines[1].heartbeat()["inflight_age_s"] is not None
         if preempt:
+            wait_for(lambda: "held" in state, "replica 2 held with work")
             faults.inject("preempt_replica", replica=2, times=1)
             wait_for(lambda: decided("drain"), "replica 2's drain")
+            state["drained"].set()
         outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
         wall_s = time.perf_counter() - t0
         # the hung tick wakes and ends before the fleet closes
         stop.set()
-        if ticker is not None:
+        for ticker in tickers:
             ticker.join(FLEET_HANG_S + FLEET_WAIT_S)
-            check(not ticker.is_alive(), f"fleet {label}: replica 1's "
-                                         f"hung tick did not end")
+            check(not ticker.is_alive(), f"fleet {label}: a scripted "
+                                         f"replica's tick did not end")
         launches = {k: v for k, v in kernels.launches.items() if v}
         st = fleet.stats()
         after = [e.executables() for e in fleet.engines]
@@ -3021,6 +3078,7 @@ def decode_fleet(np, torch, smi, model, wl, sampling, replicas, label,
                                for log in spies],
                stranded=stranded,
                seated_queued_at_hang=state.get("seated_queued"),
+               seated_queued_at_preempt=state.get("held"),
                decisions=[dict(d, t=round(d["t"] - verdict["t"], 4))
                           for d in decisions],
                failover_s=(max(done_at[i] for i in hung) - verdict["t"]
@@ -3460,6 +3518,232 @@ def graphs_phase(np, torch, FA, smi, seed, gen, rec32, rec16):
               flash_words=drop["words"]))
 
 
+# -- phase 18: the decode engine's steps as CUDA graphs -----------------------
+
+# graph against eager: each run of phase 13's traffic (greedy and sampled,
+# continuous and drain) and of phase 14's sampled A/B (plain and drafted at
+# k = 8) in both arms, in turns graph, eager, eager, graph (a host-bound
+# number drifts within a call: the order cancels a steady drift)
+DECODE_ARMS = ("graph", "eager", "eager", "graph")
+# a decode fleet's weight swap: replicas, and requests after it
+DECODE_SWAP_REPLICAS, DECODE_SWAP_REQUESTS = 2, 16
+
+
+def graph_ab(np, torch, smi, model, wl, mode, sampling, label, draft=None):
+    """``wl`` through ``run_load`` in each arm in turns: each graphed run
+    must replay an executable every tick and admission and capture none
+    after warmup, every run launch the flash kernel once a layer a prefill
+    and nothing else, and the graphed streams equal the eager ones, each
+    departure counted and a near-tie of the card's teacher-forced logits.
+    Returns (each arm's runs, the departures)."""
+    from paddle_tpu_torch.tools.decode_loadgen import run_load
+    layers = model.layers + (draft.layers if draft is not None else 0)
+    runs, outs = {"graph": [], "eager": []}, {}
+    for arm in DECODE_ARMS:
+        r = run_load(model, mode, wl, GEN_SLOTS, GEN_MAX_LEN,
+                     GEN_PROMPT_BUCKETS, sampling=sampling,
+                     seed_base=GEN_SEED_BASE if sampling else None,
+                     draft=draft, spec_k=SPEC_K, arm=arm)
+        got = [[int(t) for t in o] for o in r.pop("outputs")]
+        r.pop("records", None)
+        check(r["failed"] == 0 and [len(o) for o in got] ==
+              [n for _, n in wl], f"graphs {label} {arm}: a request did "
+                                  f"not complete with its token count")
+        check(r["post_warmup_signatures"] == 0
+              and r["post_warmup_captures"] == 0,
+              f"graphs {label} {arm}: {r['post_warmup_signatures']} "
+              f"signatures and {r['post_warmup_captures']} captures after "
+              f"warmup")
+        want = {"flash_attention_fwd": layers * r["prefills"]}
+        check(r["prefills"] == len(wl) and r["launches"] == want,
+              f"graphs {label} {arm}: launches {r['launches']}, want "
+              f"{want} ({layers} a prefill, none a tick)")
+        if arm == "graph":
+            check(r["tick_replays"] == r["ticks"] > 0
+                  and r["prefill_replays"] == r["prefills"]
+                  and r["draft_prefill_replays"] == (
+                      r["prefills"] if draft is not None else 0)
+                  and r["warmup_captures"] > 0,
+                  f"graphs {label}: {r['tick_replays']} tick replays for "
+                  f"{r['ticks']} ticks, {r['prefill_replays']} prefill "
+                  f"replays for {r['prefills']} prefills")
+        else:
+            check(r["warmup_captures"] == r["tick_replays"] == 0,
+                  f"graphs {label}: the eager arm captured or replayed")
+        if arm in outs:
+            check(got == outs[arm], f"graphs {label} {arm}: two runs of "
+                                    f"one arm differ")
+        outs[arm] = got
+        runs[arm].append(r)
+    if draft is None:
+        deps = handoff_departures(torch, model, wl, outs["eager"],
+                                  outs["graph"], sampling)
+    else:
+        deps = spec_departures(np, torch, model, wl, outs["eager"],
+                               outs["graph"], sampling)
+    med = {arm: statistics.median(r["tokens_per_s"] for r in rs)
+           for arm, rs in runs.items()}
+    g, e = runs["graph"][0], runs["eager"][0]
+    rec = dict(phase="decode_graphs", case=label, card=smi, mode=mode,
+               sampling=sampling, requests=len(wl),
+               tokens_per_s={arm: [r["tokens_per_s"] for r in rs]
+                             for arm, rs in runs.items()},
+               tokens_per_s_median=med,
+               graph_speedup_x=med["graph"] / med["eager"],
+               latency_p50_ms=[g["latency_p50_ms"], e["latency_p50_ms"]],
+               latency_p99_ms=[g["latency_p99_ms"], e["latency_p99_ms"]],
+               ticks=g["ticks"], tick_replays=g["tick_replays"],
+               prefills=g["prefills"], prefill_replays=g["prefill_replays"],
+               warmup_s={arm: [r["warmup_s"] for r in rs]
+                         for arm, rs in runs.items()},
+               warmup_captures=g["warmup_captures"],
+               reserved_bytes=[g["reserved_bytes"], e["reserved_bytes"]],
+               graph_pool_bytes=[g["graph_pool_bytes"],
+                                 e["graph_pool_bytes"]],
+               arena_bytes=g["arena_bytes"], launches=g["launches"],
+               departures=deps)
+    if draft is not None:
+        rec.update(accept_rate=[g["accept_rate"], e["accept_rate"]])
+    emit(rec)
+    return runs, deps
+
+
+def decode_swap(np, torch, smi, model, wl):
+    """A warmed ``MultiDecodeEngine`` of phase 13's model over
+    :data:`DECODE_SWAP_REPLICAS` replicas swaps to a second seed's weights:
+    each replica captures its executables over the new module before it
+    binds it; then traffic, under which nothing captures and no signature
+    is met, and whose streams equal a single engine's on the new
+    weights."""
+    from paddle_tpu_torch.serving import MultiDecodeEngine, demo_model
+    from paddle_tpu_torch.tools.decode_loadgen import run_load
+    other = demo_model(**dict(GEN_MODEL, seed=GEN_MODEL["seed"] + 1))
+    fleet = MultiDecodeEngine(
+        model, devices=["cuda:0"] * DECODE_SWAP_REPLICAS, slots=GEN_SLOTS,
+        page=32, factor=2.0, max_len=GEN_MAX_LEN,
+        prompt_buckets=GEN_PROMPT_BUCKETS, queue_depth=GEN_REQUESTS + 8,
+        shed=False, supervise=False)
+    wl = wl[:DECODE_SWAP_REQUESTS]
+    try:
+        t0 = time.perf_counter()
+        fleet.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        caps0 = [e.captures for e in fleet.engines]
+        held = [len(e._graphs.entries) for e in fleet.engines]
+        t0 = time.perf_counter()
+        version = fleet.swap_weights(other.state)
+        swap_s = time.perf_counter() - t0
+        caps1 = [e.captures for e in fleet.engines]
+        execs = [e.executables() for e in fleet.engines]
+        futs = [fleet.submit(p, max_new_tokens=n) for p, n in wl]
+        outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
+        caps2 = [e.captures for e in fleet.engines]
+        after = [e.executables() for e in fleet.engines]
+    finally:
+        fleet.close(drain=False, timeout=10.0)
+    check(version == 1 and [b - a for a, b in zip(caps0, caps1)] == held,
+          f"decode swap: captured {[b - a for a, b in zip(caps0, caps1)]} "
+          f"over the new weights, the replicas hold {held}")
+    check(caps2 == caps1 and after == execs,
+          f"decode swap: captures {caps1} -> {caps2}, signatures {execs} -> "
+          f"{after} under the traffic after the swap")
+    want = [[int(t) for t in o] for o in run_load(
+        other, "continuous", wl, GEN_SLOTS, GEN_MAX_LEN, GEN_PROMPT_BUCKETS)
+        ["outputs"]]
+    deps = handoff_departures(torch, other, wl, want, outs, None)
+    rec = dict(phase="decode_swap", card=smi,
+               replicas=DECODE_SWAP_REPLICAS, warmup_s=warmup_s,
+               warmup_captures=caps0, swap_s=swap_s,
+               swap_captures=[b - a for a, b in zip(caps0, caps1)],
+               requests=len(wl), departures=deps)
+    emit(rec)
+    return rec
+
+
+def decode_graphs_phase(np, torch, smi, seed, gen13, spec14):
+    """Phase 18: the decode engine's executables as CUDA graphs against
+    its eager arm (``decode_loadgen.EagerEngine``): phase 13's traffic
+    and phase 14's sampled A/B in turns, the four ticks profiled in both
+    arms, the 1/2/3-replica fleet under the profiler, and a decode fleet's
+    weight swap."""
+    from paddle_tpu_torch.serving import demo_model, demo_spec_pair
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    t0 = time.perf_counter()
+    model = demo_model(**GEN_MODEL)
+    wl = gen13["workload"]
+    ab, deps = {}, {}
+    for kind, sampling in (("greedy", None), ("sampled", GEN_SAMPLING)):
+        for mode in ("continuous", "drain"):
+            ab[kind, mode], deps[kind, mode] = graph_ab(
+                np, torch, smi, model, wl, mode, sampling,
+                f"{kind}_{mode}")
+    target, draft = demo_spec_pair(**LG.SPEC_PAIR, max_len=GEN_MAX_LEN)
+    swl = spec14["workload"]
+    for arm, d in (("plain", None), ("spec", draft)):
+        ab["pair", arm], deps["pair", arm] = graph_ab(
+            np, torch, smi, target, swl, "continuous", SPEC_SAMPLING,
+            f"pair_{arm}", draft=d)
+    # the four ticks, in both arms
+    ticks = {}
+    for name, m, w, sampling, d in (
+            ("greedy", model, wl, None, None),
+            ("sampled", model, wl, GEN_SAMPLING, None),
+            ("plain_8_layers", target, swl, SPEC_SAMPLING, None),
+            ("spec_k8", target, swl, SPEC_SAMPLING, draft)):
+        for arm in ("graph", "eager"):
+            t = LG.profile_decode(m, w, GEN_SLOTS, GEN_MAX_LEN,
+                                  GEN_PROMPT_BUCKETS, sampling=sampling,
+                                  draft=d, spec_k=SPEC_K, arm=arm)
+            check(t["tick_replays"] == (2 * t["ticks"] + 1
+                                        if arm == "graph" else 0),
+                  f"graphs tick {name} {arm}: {t['tick_replays']} replays "
+                  f"in {2 * t['ticks'] + 1} ticks")
+            t.pop("events")
+            ticks[name, arm] = t
+            emit(dict(t, phase="decode_graphs_tick", case=name, card=smi))
+    # the decode fleet over 1, 2 and 3 replicas, profiled
+    fleet = {}
+    for n in DECODE_FLEET_REPLICAS:
+        r = LG.run_fleet(model, wl, n, GEN_SLOTS, GEN_MAX_LEN,
+                         GEN_PROMPT_BUCKETS, sampling=GEN_SAMPLING,
+                         seed_base=GEN_SEED_BASE, profile=True)
+        outs = r.pop("outputs")
+        check_fleet_run(f"graphs_x{n}", wl, outs, r["post_warmup_signatures"],
+                        r["launches"], model.layers, sum(r["prefills"]))
+        fleet[n] = r
+        emit(dict(phase="decode_graphs_fleet", card=smi, **r))
+    swap = decode_swap(np, torch, smi, model, wl)
+
+    def med(key, arm):
+        return statistics.median(r["tokens_per_s"] for r in ab[key][arm])
+
+    emit(dict(
+        phase="decode_graphs_summary", card=smi,
+        tokens_per_s={f"{k[0]}_{k[1]}": [med(k, "graph"), med(k, "eager")]
+                      for k in ab},
+        spec_speedup_x=[med(("pair", "spec"), arm)
+                        / med(("pair", "plain"), arm)
+                        for arm in ("graph", "eager")],
+        tick_ms={f"{n}_{a}": t["tick_ms"] for (n, a), t in ticks.items()},
+        tick_busy_ms={f"{n}_{a}": t["busy_ms_per_tick"]
+                      for (n, a), t in ticks.items()},
+        tick_idle_share={f"{n}_{a}": t["idle_share"]
+                         for (n, a), t in ticks.items()},
+        tick_launches={f"{n}_{a}": t["launches_per_tick"]
+                       for (n, a), t in ticks.items()},
+        fleet_tokens_per_s={n: r["tokens_per_s"] for n, r in fleet.items()},
+        fleet_idle_share={n: r["idle_share"] for n, r in fleet.items()},
+        warmup_captures={f"{k[0]}_{k[1]}": ab[k]["graph"][0][
+            "warmup_captures"] for k in ab},
+        warmup_s={f"{k[0]}_{k[1]}": [ab[k]["graph"][0]["warmup_s"],
+                                      ab[k]["eager"][0]["warmup_s"]]
+                  for k in ab},
+        swap_s=swap["swap_s"], swap_captures=swap["swap_captures"],
+        departures={f"{k[0]}_{k[1]}": len(v) for k, v in deps.items()},
+        seconds=time.perf_counter() - t0))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -3700,7 +3984,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     graphs_phase(np, torch, FA, smi, args.seed, gen, rec32, rec16)
 
-    # 18. the kernels line, the card, and the verdict
+    # 18. the decode engine's steps as CUDA graphs, against its eager arm
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_graphs_phase(np, torch, smi, args.seed, gen13, spec14)
+
+    # 19. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

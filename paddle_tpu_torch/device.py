@@ -49,7 +49,6 @@ def resolve(device=None):
     return dev
 
 
-
 def to_device(array, device, dtype=None):
     """A host array as a tensor on ``device`` (in ``dtype`` where given).
     To a CUDA card the copy leaves from pinned memory without blocking, so
@@ -63,3 +62,12 @@ def to_device(array, device, dtype=None):
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def host_tensor(array, device):
+    """A host array as a CPU tensor to copy onto ``device``: in pinned
+    memory where ``device`` is a CUDA card (a copy from it leaves without
+    blocking, and the caching host allocator keeps the block until the
+    copy is done), else sharing the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t

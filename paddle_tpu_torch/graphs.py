@@ -36,10 +36,16 @@ What capture demands of the step, and what this module does about it:
 
 One capture runs at a time in the process (PyTorch's rule for graphs),
 under :data:`_CAPTURE_LOCK`; with ``capture_error_mode="thread_local"``
-other threads keep launching and replaying meanwhile.
+other threads keep launching and replaying meanwhile. The cyclic garbage
+collector is held off during a capture: run in the capturing thread, it
+could free an object that holds another graph (an engine no longer
+used), whose executable's destruction CUDA refuses while the stream
+captures, and the capture would fail.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
 import threading
 import traceback
@@ -75,6 +81,19 @@ def _culprit(exc):
     return "an unknown operation"
 
 
+@contextlib.contextmanager
+def _collector_off():
+    """The cyclic garbage collector disabled for the block (as it was
+    after)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _resolve(device):
     """``device`` with a CUDA card's index filled in."""
     dev = torch.device(device)
@@ -86,6 +105,18 @@ def _resolve(device):
 def static_like(t):
     """A contiguous buffer of ``t``'s shape, dtype and device."""
     return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def pool_bytes(pool):
+    """The bytes the caching allocator holds for the graph pool ``pool``
+    (a ``torch.cuda.graph_pool_handle()``): the segments of its memory
+    snapshot that belong to that pool, whatever the other pools hold or
+    have freed. None without a pool (on the CPU)."""
+    if pool is None:
+        return None
+    want = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == want)
 
 
 def eager_on_side_stream(fn, args, stream):
@@ -148,7 +179,7 @@ class GraphEntry:
         graph.register_generator_state(prandom.generator(self.device))
         before = dict(kernels.launches)
         try:
-            with _CAPTURE_LOCK:
+            with _CAPTURE_LOCK, _collector_off():
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
                                       capture_error_mode=mode):
                     outputs = self.fn(*self.inputs)
@@ -165,10 +196,14 @@ class GraphEntry:
         self.graph, self.outputs = graph, outputs
         return self
 
-    def replay(self, args):
+    def replay(self, args, clone=True):
         """Copy ``args`` into the static inputs, replay (on the card) or
         re-run ``fn`` (on the CPU), and return the output leaves with
-        every tensor cloned."""
+        every tensor cloned. ``clone=False`` returns the static outputs
+        themselves, for a caller that is the entry's only user and reads
+        them (or queues their copies) before the next replay of any entry
+        in the graph pool: another graph of the pool may use their memory
+        as scratch."""
         with self.lock:
             with torch.no_grad():
                 for buf, a in zip(self.inputs, args):
@@ -179,6 +214,8 @@ class GraphEntry:
             else:
                 self.outputs = self.fn(*self.inputs)
             self.replays += 1
+            if not clone:
+                return list(self.outputs)
             return [o.detach().clone() if isinstance(o, torch.Tensor)
                     else o for o in self.outputs]
 

@@ -27,10 +27,17 @@ draws are keyed by ``(seed, generation index)``
 (:mod:`~paddle_tpu_torch.serving.sampling`), come out the same under
 either refill discipline and any admission order.
 
-A tick synchronises with the card once, to read the next tokens; a
-prefill once, to read the first token. Lane state (lengths, last
-tokens, sampling knobs) lives on the host and goes to the device as a
-few small tensors a tick.
+Each step is an executable, as in the reference: one per signature and
+batch-wide sampling branch, captured at :meth:`GenerateEngine.warmup`
+into a CUDA graph (``paddle_tpu_torch.graphs.GraphEntry``) over a static
+lane array, the served weights and the KV arena, whose addresses never
+move (``KVCachePool.arena``); on the CPU the same entry re-runs the step
+over its static lane array. Lane state (lengths, last tokens, sampling
+knobs) lives on the host; a tick copies it in as one pinned array,
+replays, and synchronises with the card once, to read the next tokens;
+an admission replays its prefill, inserts the K/V and waits once, for
+the first token. A step that a graph cannot capture raises
+``CaptureError``: nothing falls back to eager steps on the card.
 
 Speculative decoding (``draft_model=``, ``spec_k=``): a cheaper model of
 the same vocabulary proposes ``k`` tokens a lane from its own arena (a
@@ -101,6 +108,7 @@ import torch
 
 from .. import device as _device
 from .. import monitor as _monitor
+from ..graphs import GraphEntry, eager_on_side_stream
 from ..io.bucketing import next_bucket
 from ..ops.kernels.flash_attention import flash_attention
 from ..resilience import faults as _faults
@@ -203,6 +211,115 @@ def _label(key, k):
     if kind in ("sdraft", "verify"):
         return f"{kind}[cap={b[0]}, k={k}]"
     return f"{kind}[cap={b[0]}]"
+
+
+# the batch-wide host branches of a sampling step, each its own executable:
+# every row greedy (the argmax), sampled with no filter, and sampled with
+# top-k or top-p on some row (``sampling.needs_filter``)
+BRANCHES = ("greedy", "sampled", "filtered")
+# a prefill's lane array: the bucket's tokens, then the length and five knobs
+_PROMPT_EXTRA = 6
+# the stats counter each executable kind's replays advance
+_REPLAYS = {"decode": "tick_replays", "spec": "tick_replays",
+            "prefill": "prefill_replays", "dprefill": "draft_prefill_replays"}
+
+
+def _gkey_label(gkey):
+    return f"{gkey[0]}[{', '.join(str(x) for x in gkey[1:])}]"
+
+
+def _bits(a):
+    """float32 values as their bits (int32), to ride in an int64 lane
+    array."""
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _lanes(tokens, lengths, active, knobs):
+    """A tick's lane array, int64 ``[8, slots]``: the tokens, lengths and
+    active flags, then the knobs as :func:`_knobs_of` reads them (top-k,
+    seed, generation index, and the temperature's and top-p's float32
+    bits)."""
+    temps, top_ks, top_ps, seeds, positions = knobs
+    return np.stack([np.asarray(a, np.int64) for a in (
+        tokens, lengths, active, top_ks, seeds, positions, _bits(temps),
+        _bits(top_ps))])
+
+
+def _prompt_lanes(tokens, length, knobs):
+    """A prefill's lane array, int64 ``[L + 6]``: the bucket's ``L``
+    tokens, the prompt's length, then the request's knobs as in
+    :func:`_lanes`."""
+    temps, top_ks, top_ps, seeds, positions = knobs
+    return np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in (
+        tokens, [length], top_ks, seeds, positions, _bits(temps),
+        _bits(top_ps))])
+
+
+def _knobs_of(rows):
+    """Device knobs ``(temps, top_ks, top_ps, seeds, positions)`` from the
+    five knob rows of a lane array (``[5, n]``)."""
+    f = rows[3:5].to(torch.int32).view(torch.float32)
+    return f[0], rows[0], f[1], rows[1], rows[2]
+
+
+def _branch(knobs, vocab):
+    """The batch-wide host branch (:data:`BRANCHES`) of host knobs."""
+    temps, top_ks, top_ps = knobs[:3]
+    if not (np.asarray(temps) > 0.0).any():
+        return "greedy"
+    return ("filtered" if sampling_mod.needs_filter(top_ks, top_ps, vocab)
+            else "sampled")
+
+
+def _masked_write(bufs, entry, pos, mask):
+    """Each lane's cache entry ``entry[leaf] [S, *tail]`` at arena position
+    ``pos [S]`` of its own row where ``mask [S]``; elsewhere the row keeps
+    what it held (the mask rides on the values, as in the reference's
+    ``_masked_write``): a write of fixed shape, one entry a row."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for name, buf in bufs.items():
+        old = buf[rows, pos]
+        m = mask.view((-1,) + (1,) * (old.ndim - 1))
+        buf[rows, pos] = torch.where(m, entry[name], old)
+
+
+def _window_write(bufs, entry, lengths, active):
+    """A verify's chunk ``entry[leaf] [S, C, *tail]`` at the positions
+    ``lengths + i`` that lie inside the arena. Each lane writes a window of
+    ``m = min(C, cap)`` consecutive positions of its row, slid back from
+    the arena's end where the chunk runs past it (``[w, w + m)``, ``w =
+    min(length, cap - m)``): a chunk entry where the window meets the
+    chunk, the row's own value before it. The shape never varies, no two
+    entries land on one row (the reference clamps the entries past its
+    arena onto the last row; CUDA's ``index_put_`` would leave the winner
+    undefined), and an entry past the arena lands nowhere."""
+    n, c = next(iter(entry.values())).shape[:2]
+    cap = next(iter(bufs.values())).shape[1]
+    m = min(c, cap)
+    dev = lengths.device
+    w = lengths.clamp(max=cap - m).clamp(min=0)
+    pos = w[:, None] + torch.arange(m, device=dev)[None, :]
+    idx = pos - lengths[:, None]            # the chunk entry there: <= c - 1
+    keep = active[:, None] & (idx >= 0)
+    src = idx.clamp(0, c - 1)
+    rows = torch.arange(n, device=dev)[:, None]
+    for name, buf in bufs.items():
+        old = buf[rows, pos]
+        k = keep.view(keep.shape + (1,) * (old.ndim - 2))
+        buf[rows, pos] = torch.where(k, entry[name][rows, src], old)
+
+
+class _Graphs:
+    """An engine's executables over one model: a ``GraphEntry`` per key
+    ``(kind, capacity or bucket[, branch])``, every one reading this
+    model's weights. They share a graph pool (on the card) and a lock."""
+
+    def __init__(self, model, device):
+        self.model = model
+        self.entries = {}
+        self.lock = threading.Lock()
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if device.type == "cuda" else None)
 
 
 class GenerateEngine:
@@ -308,6 +425,17 @@ class GenerateEngine:
         # signature that traffic met first (a first-call cost on the card)
         self._exec = set()
         self._traces = set()
+        # the executables: a GraphEntry a key, over the served model (and
+        # those a swap prepared over the next one), built under one lock,
+        # captured on one side stream
+        self._graphs = _Graphs(model, self.device)
+        self._prepared = None
+        self._build_lock = threading.Lock()
+        self._stream = None
+        self._names = [name for name, _t, _d in self.pool._leaf_list]
+        self._draft_names = ([name for name, _t, _d in
+                              self.draft_pool._leaf_list]
+                             if self.draft_pool is not None else [])
         self._stats_lock = threading.Lock()
         self._stats = {"submitted": 0, "completed": 0, "failed": 0,
                        "rejected": 0, "expired": 0, "shed": 0,
@@ -315,7 +443,8 @@ class GenerateEngine:
                        "prefill_tokens": 0, "compiles": 0, "grows": 0,
                        "draft_steps": 0, "verify_steps": 0,
                        "spec_proposed": 0, "spec_accepted": 0,
-                       "kv_imports": 0}
+                       "kv_imports": 0, "captures": 0, "tick_replays": 0,
+                       "prefill_replays": 0, "draft_prefill_replays": 0}
         self._occupancy_sum = 0.0
         self._running = False
         self._closed = False
@@ -449,6 +578,37 @@ class GenerateEngine:
             return len(self._queue)
 
     # -- the steps ---------------------------------------------------------
+    #
+    # Each of the reference's jitted closures is a step body here
+    # (``_decode_body``, ``_spec_body``, ``_prefill_body``,
+    # ``_draft_prefill_body``): a function of one int64 lane array on the
+    # device and of the arenas it writes in place. ``_run`` runs a body
+    # through its ``GraphEntry`` (``graphs.py``), one per executable key
+    # ``(kind, capacity or bucket, host branch)``: on the card a CUDA graph
+    # captured over the entry's static lane array, the served model's
+    # weights and the arenas at their fixed addresses
+    # (``KVCachePool.arena``); on the CPU a re-run over the static lane
+    # array. A step copies its lanes in from pinned memory, replays, and
+    # reads back once. What capture demands, and what the bodies do:
+    #
+    # * fixed shapes: every write covers all lanes, masked on the values
+    #   (``_masked_write``, as the reference's), and never puts two entries
+    #   on one row (``_window_write``: CUDA's ``index_put_`` leaves the
+    #   winner of two undefined);
+    # * no host work inside: tokens, lengths, the knobs, seeds and
+    #   generation indices ride in the lane array (the float knobs as
+    #   their float32 bits), keys and the draft's noise are derived on the
+    #   card, and the two batch-wide branches (all greedy; top-k or top-p
+    #   on some row) are part of the key (``_branch``), read from the
+    #   host's knobs;
+    # * weights: an entry belongs to the model it captured (``_Graphs``);
+    #   a rebinding captures over the new model first (``prepare``).
+    #
+    # The inserts and grows stay plain copies (one ``_foreach_copy_`` an
+    # insert; a grow, at most once a capacity in an engine's life, three
+    # copies a leaf): a graph of its own would add a replay to each
+    # admission, and folding the insert into the prefill's graph would
+    # multiply the prefill's executables by the capacities.
 
     def _note(self, key, *tensors):
         """Record a step's signature; a first meeting counts as a
@@ -466,219 +626,381 @@ class GenerateEngine:
         join/leave churn."""
         return len(self._exec), len(self._traces)
 
-    def _sample(self, logits, knobs):
-        """Next tokens from ``logits [n, V]`` under host knobs ``(temps,
-        top_ks, top_ps, seeds, positions)``. A batch with no sampled row
-        is its argmax: what the filter and the Gumbel draw give a greedy
-        row, whatever the noise."""
-        temps, top_ks, top_ps, seeds, positions = knobs
-        if not (temps > 0.0).any():
+    @property
+    def captures(self):
+        """The graphs (on the CPU, the re-run entries) built so far, each
+        executable key once a model, a swap's captures included: flat
+        after :meth:`warmup` under any traffic."""
+        with self._stats_lock:
+            return self._stats["captures"]
+
+    def _bound(self):
+        """The executables of the served model: after a rebinding of
+        ``model``, those :meth:`prepare` captured over it, else none yet
+        (each key then captures at its first step, under traffic)."""
+        model = self.model
+        g = self._graphs
+        if g.model is not model:
+            with self._build_lock:
+                g = self._graphs
+                if g.model is not model:
+                    p, self._prepared = self._prepared, None
+                    g = (p if p is not None and p.model is model
+                         else _Graphs(model, self.device))
+                    self._graphs = g
+        return g
+
+    def _plan(self, model, gkey):
+        """Executable ``gkey`` over ``model``: its body, the live arenas
+        it writes, and lanes that leave them as they are (every lane
+        inactive, the knobs taking the key's branch)."""
+        kind, size = gkey[:2]
+        branch = gkey[2] if len(gkey) > 2 else "greedy"
+        n = self.slots
+        if kind in ("decode", "spec"):
+            idle = _lanes(np.zeros((n,), np.int32), np.ones((n,), np.int32),
+                          np.zeros((n,), bool), self._knobs(n, branch))
+            if kind == "decode":
+                return (functools.partial(self._decode_body, model, branch),
+                        (self.pool.arena(size),), idle)
+            return (functools.partial(self._spec_body, model, branch),
+                    (self.pool.arena(size), self.draft_pool.arena(size)),
+                    idle)
+        idle = _prompt_lanes(np.zeros((1, size), np.int32), 1,
+                             self._knobs(1, branch))
+        if kind == "prefill":
+            return (functools.partial(self._prefill_body, model, branch), (),
+                    idle)
+        return self._draft_prefill_body, (), idle
+
+    def _run(self, g, gkey, host=None, warm=False):
+        """Executable ``gkey`` of ``g`` over the lane array ``host``:
+        returns its static outputs (read them, or queue their copies,
+        before the next step). A key met for the first time is captured;
+        on the card its body first runs eagerly on a side stream, over the
+        live arenas (that run is this call's result), or with ``warm`` (a
+        warmup's or a swap's, which must not touch the live arenas and
+        return nothing) over zero arenas of their shapes, from idle lanes
+        where ``host`` is None. No key falls back to an eager step: one
+        that cannot be captured raises ``CaptureError``."""
+        entry = g.entries.get(gkey)
+        if entry is None:
+            with self._build_lock:
+                entry = g.entries.get(gkey)
+                if entry is None:
+                    first, entry = self._capture(g, gkey, host, warm)
+                    if first is not None:
+                        return first
+        if warm:
+            return None
+        out = entry.replay([_device.host_tensor(host, self.device)],
+                           clone=False)
+        with self._stats_lock:
+            self._stats[_REPLAYS[gkey[0]]] += 1
+        return out
+
+    def _capture(self, g, gkey, host, warm):
+        """A new entry of ``g`` for ``gkey`` (under the build lock); on the
+        card the body's eager run, then its capture in ``g``'s pool, on
+        the engine's side stream, thread-locally (another replica on the
+        card keeps stepping meanwhile); on the CPU, where ``warm``, the
+        body's run over zero arenas alone. Returns (the eager run's
+        outputs, or None where ``warm`` or on the CPU, the entry)."""
+        body, arenas, idle = self._plan(g.model, gkey)
+        lanes = _device.to_device(idle if host is None else host,
+                                  self.device)
+
+        def run(x):
+            with torch.no_grad():
+                return body(x, *arenas)
+
+        entry = GraphEntry(run, [lanes], self.device, lock=g.lock,
+                           label=f"GenerateEngine {_gkey_label(gkey)}")
+        work = tuple({name: torch.zeros_like(t) for name, t in a.items()}
+                     for a in arenas) if warm else arenas
+
+        def eager(x):
+            with torch.no_grad():
+                return body(x, *work)
+
+        first = None
+        if not entry.card and warm:
+            # the card's warm run on the CPU too: the first step under
+            # traffic finds the step's operators warmed up, as on the card
+            eager(lanes)
+        elif entry.card:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            first = eager_on_side_stream(eager, [lanes], self._stream)
+            with torch.no_grad():
+                entry.inputs[0].copy_(lanes)
+            entry.capture(pool=g.pool, stream=self._stream,
+                          mode="thread_local")
+        g.entries[gkey] = entry
+        with self._stats_lock:
+            self._stats["captures"] += 1
+        return (None if warm else first), entry
+
+    def _sample(self, logits, knobs, branch):
+        """Next tokens from ``logits [n, V]`` under device knobs ``(temps,
+        top_ks, top_ps, seeds, positions)``, on the host's ``branch``. An
+        all-greedy batch is its argmax: what the filter and the Gumbel
+        draw give a greedy row, whatever the noise."""
+        if branch == "greedy":
             return torch.argmax(logits, dim=-1)
-        filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps)
+        temps, top_ks, top_ps, seeds, positions = knobs
+        filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps,
+                                          any_filter=branch == "filtered")
         return sampling_mod.sample_from_filtered(filt, seeds, positions)
 
-    def _decode_step(self, bufs, tokens, lengths, active, knobs):
-        """One token for every lane of arena ``bufs`` (written in place at
-        each active lane's ``length``); returns the next tokens on the
-        host. The lane arrays go to the device before any work is queued,
-        so that the tick waits for the card once, for its tokens."""
+    def _decode_body(self, model, branch, lanes, bufs):
+        """The decode step: one token for every lane of arena ``bufs``,
+        each active lane's entry written in place at its ``length``."""
         cap = next(iter(bufs.values())).shape[1]
-        tok, ln = _device.to_device(np.stack([tokens, lengths]),
-                                    self.device, torch.int64)
-        rows = _device.to_device(np.flatnonzero(active), self.device)
-        self._note(("decode", cap), tok, ln, *bufs.values())
-        with torch.no_grad():
-            logits, entry = self.model.decode_fn(self.model.state, tok,
-                                                 bufs, ln)
-            nxt = self._sample(logits, knobs)
-            if rows.numel():
-                # the masked write: only the active lanes' rows move
-                pos = ln.clamp(max=cap - 1)[rows]
-                for name, buf in bufs.items():
-                    buf.index_put_((rows, pos), entry[name][rows])
-            return nxt.cpu().numpy()
+        tok, ln, active = lanes[0], lanes[1], lanes[2] != 0
+        logits, entry = model.decode_fn(model.state, tok, bufs, ln)
+        nxt = self._sample(logits, _knobs_of(lanes[3:]), branch)
+        _masked_write(bufs, entry, ln.clamp(max=cap - 1), active)
+        return [nxt]
+
+    def _prefill_body(self, model, branch, lanes):
+        """The prompt's forward at one bucket: its K/V chunk, leaf by leaf,
+        and the first token sampled from its last logits."""
+        lb = lanes.shape[0] - _PROMPT_EXTRA
+        kv, last = model.prefill_fn(model.state, lanes[:lb][None],
+                                    lanes[lb:lb + 1])
+        first = self._sample(last, _knobs_of(lanes[lb + 1:, None]), branch)
+        return [kv[name] for name in self._names] + [first]
+
+    def _draft_prefill_body(self, lanes):
+        """The draft's prompt forward at one bucket: its K/V chunk only (the
+        first token is the target prefill's)."""
+        lb = lanes.shape[0] - _PROMPT_EXTRA
+        kv, _ = self.draft_model.prefill_fn(self._draft_state,
+                                            lanes[:lb][None],
+                                            lanes[lb:lb + 1])
+        return [kv[name] for name in self._draft_names]
+
+    def _spec_body(self, model, branch, lanes, bufs, dbufs):
+        """The draft-then-verify step: ``k`` draft steps over the draft
+        arena ``dbufs``, the target's verify of ``[last, d_1 .. d_k]`` over
+        ``bufs`` and the accept-prefix rule; ``[S, k + 2]``: the accepted
+        count, the resample and the proposals. Each step writes its cache
+        entries in place at the active lanes' positions inside the arena;
+        a lane within ``k`` of its budget computes the rest of its chunk
+        too, and those entries land nowhere."""
+        k, n = self.spec_k, self.slots
+        v = int(model.vocab)
+        cap = next(iter(bufs.values())).shape[1]
+        tok, ln, active = lanes[0], lanes[1], lanes[2] != 0
+        temps, top_ks, top_ps, seeds, positions = _knobs_of(lanes[3:])
+        filtered = branch == "filtered"
+        # every proposal's Gumbel noise at once: proposal i is keyed by
+        # (seed, position + i, SALT_TOKEN) alone, as the plain draw at that
+        # generation index is
+        noise = (sampling_mod.gumbel_ahead(seeds, positions, k, v)
+                 if branch != "greedy" else None)
+        d, proposals, qs = tok, [], []
+        for i in range(k):
+            at = ln + i
+            logits, entry = self.draft_model.decode_fn(self._draft_state, d,
+                                                       dbufs, at)
+            filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps,
+                                              any_filter=filtered)
+            scored = filt if noise is None else filt + noise[:, i]
+            d = torch.argmax(scored, dim=-1)
+            proposals.append(d)
+            qs.append(sampling_mod.probs_from_filtered(filt))
+            _masked_write(dbufs, entry, at.clamp(max=cap - 1),
+                          active & (at < cap))
+        proposals = torch.stack(proposals, dim=1)
+        qs = torch.stack(qs, dim=1)
+        chunk = torch.cat([tok[:, None], proposals], dim=1)
+        logits, entry = model.verify_fn(model.state, chunk, bufs, ln)
+        _window_write(bufs, entry, ln, active)
+
+        def each(a):            # a lane's knob at each of its k + 1 rows
+            return a[:, None].expand(n, k + 1).reshape(-1)
+
+        # the k+1 target distributions, each filtered with its lane's knobs
+        p = sampling_mod.probs_from_filtered(sampling_mod.filter_logits(
+            logits.reshape(n * (k + 1), v), each(temps), each(top_ks),
+            each(top_ps), any_filter=filtered)).view(n, k + 1, v)
+        a, resampled = sampling_mod.accept_prefix(p, qs, proposals, seeds,
+                                                  positions)
+        return [torch.cat([a[:, None], resampled[:, None], proposals],
+                          dim=1)]
+
+    def _decode_step(self, tokens, lengths, active, knobs):
+        """One token for every lane of the arena; returns the next tokens
+        on the host: the tick's one wait."""
+        g = self._bound()
+        cap = self.pool.capacity
+        host = _lanes(tokens, lengths, active, knobs)
+        self._note(("decode", cap), host, *self.pool.buffers.values())
+        nxt, = self._run(g, ("decode", cap, _branch(knobs, g.model.vocab)),
+                         host)
+        return nxt.cpu().numpy()
+
+    def _spec_step(self, tokens, lengths, active, knobs):
+        """One draft-then-verify step for every lane; returns
+        ``(n_accepted, resampled, proposals)`` on the host, read back in
+        the tick's one wait."""
+        g = self._bound()
+        cap = self.pool.capacity
+        host = _lanes(tokens, lengths, active, knobs)
+        self._note(("sdraft", cap), host, *self.draft_pool.buffers.values())
+        self._note(("verify", cap), host, *self.pool.buffers.values())
+        out, = self._run(g, ("spec", cap, _branch(knobs, g.model.vocab)),
+                         host)
+        out = out.cpu().numpy()
+        return out[:, 0], out[:, 1], out[:, 2:]
 
     def _prefill(self, tokens, length, knobs):
-        """Prompt ingest at one bucket: ``(kv, first token)``."""
-        toks = _device.to_device(tokens, self.device, torch.int64)
-        lens = _device.to_device(np.array([length]), self.device,
-                                 torch.int64)
-        self._note(("prefill", tokens.shape[1]), toks, lens)
-        with torch.no_grad():
-            kv, last = self.model.prefill_fn(self.model.state, toks, lens)
-            first = self._sample(last, knobs)
-            return kv, int(first[0])
+        """Prompt ingest at one bucket: ``(kv, first)``, the K/V chunk
+        ``{leaf: [1, L, *tail]}`` on the device (the step's outputs:
+        insert it before the next step) and the first token, its copy to
+        the host queued behind the step (read it after :meth:`_wait`)."""
+        g = self._bound()
+        host = _prompt_lanes(tokens, length, knobs)
+        self._note(("prefill", tokens.shape[1]), host)
+        out = self._run(g, ("prefill", tokens.shape[1],
+                            _branch(knobs, g.model.vocab)), host)
+        return (dict(zip(self._names, out[:-1])),
+                out[-1].to("cpu", non_blocking=True))
 
     def _draft_prefill(self, tokens, length):
-        """The draft's prompt ingest at one bucket: its K/V only (the first
-        token is the target prefill's)."""
-        toks = _device.to_device(tokens, self.device, torch.int64)
-        lens = _device.to_device(np.array([length]), self.device,
-                                 torch.int64)
-        self._note(("dprefill", tokens.shape[1]), toks, lens)
-        with torch.no_grad():
-            kv, _ = self.draft_model.prefill_fn(self._draft_state, toks,
-                                                lens)
-        return kv
+        """The draft's prompt ingest at one bucket: its K/V chunk on the
+        device, as :meth:`_prefill`'s."""
+        g = self._bound()
+        host = _prompt_lanes(tokens, length, self._knobs(1))
+        self._note(("dprefill", tokens.shape[1]), host)
+        return dict(zip(self._draft_names,
+                        self._run(g, ("dprefill", tokens.shape[1]), host)))
+
+    def _wait(self):
+        """Wait for the work queued so far (the copies to the host
+        included)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _insert(self, bufs, chunk, slot, kind="insert"):
         """Write a prefill's ``chunk {leaf: [1, L, *tail]}`` into arena
-        rows ``[slot, :L]``, in place (``kind`` "dinsert": the draft's)."""
+        rows ``[slot, :L]``, in place (``kind`` "dinsert": the draft's):
+        one multi-tensor copy."""
         lb = next(iter(chunk.values())).shape[1]
         cap = next(iter(bufs.values())).shape[1]
         self._note((kind, lb, cap), *chunk.values(), *bufs.values())
-        for name, buf in bufs.items():
-            buf[slot, :lb].copy_(chunk[name][0])
+        names = list(bufs)
+        torch._foreach_copy_([bufs[name][slot, :lb] for name in names],
+                             [chunk[name][0] for name in names])
 
     def _grow(self, pool, kind, bufs, old, new):
-        """``pool``'s arena at capacity ``new``: a zero arena with the old
-        rows copied in (``kind`` "grow", or "dgrow" for the draft's)."""
+        """``pool``'s arena at capacity ``new`` (``kind`` "grow", or "dgrow"
+        for the draft's): the arenas of both capacities are views of one
+        storage (``KVCachePool.arena``), so the old rows are copied out,
+        the new arena's positions past ``old`` zeroed, and the rows copied
+        in at their new places."""
         self._note((kind, old, new), *bufs.values())
-        out = pool.zeros(new)
+        out = pool.arena(new)
         for name, buf in bufs.items():
-            out[name][:, :old].copy_(buf)
+            rows = buf.clone()
+            out[name][:, old:].zero_()
+            out[name][:, :old].copy_(rows)
         return out
 
-    def _spec_step(self, bufs, dbufs, tokens, lengths, active, knobs):
-        """One draft-then-verify step for every lane: ``k`` draft steps over
-        the draft arena ``dbufs``, then the target's verify of ``[last,
-        d_1 .. d_k]`` over ``bufs`` and the accept-prefix rule. Each step
-        writes its cache entries in place at the active lanes' positions
-        below the capacity; a lane within ``k`` of its budget computes the
-        rest of its chunk too, and those writes are dropped (never two
-        onto one row). Returns ``(n_accepted, resampled, proposals)`` on
-        the host, read back in one sync."""
-        k, n = self.spec_k, self.slots
-        v = int(self.model.vocab)
-        cap = next(iter(bufs.values())).shape[1]
-        temps, top_ks, top_ps, seeds, positions = knobs
-        # lane s writes chunk entry i at lengths[s] + i: the writes that
-        # land inside the arena, grouped by i (the draft writes entries 0
-        # .. k-1, the verify 0 .. k)
-        at = lengths[:, None] + np.arange(k + 1)[None, :]
-        cols, rows = np.nonzero((active[:, None] & (at < cap)).T)
-        bounds = np.searchsorted(cols, np.arange(k + 2))
-        host = np.concatenate([tokens, at.T.ravel(), rows, cols,
-                               at[rows, cols]])
-        dev = _device.to_device(host, self.device, torch.int64)
-        tok, lens = dev[:n], dev[n:n * (k + 2)].view(k + 1, n)
-        rows_d, cols_d, at_d = dev[n * (k + 2):].view(3, -1)
-        filtered = sampling_mod.needs_filter(top_ks, top_ps, v)
-        knobs_d = [_device.to_device(a, self.device, dt) for a, dt in (
-            (temps, torch.float32), (top_ks, torch.int64),
-            (top_ps, torch.float32))]
-        sampled = bool((temps > 0.0).any())
-        self._note(("sdraft", cap), tok, lens[0], *dbufs.values())
-        with torch.no_grad():
-            # every proposal's Gumbel noise at once: proposal i is keyed
-            # by (seed, position + i, SALT_TOKEN) alone, as the plain draw
-            # at that generation index is
-            noise = (sampling_mod.gumbel_ahead(seeds, positions, k, v,
-                                               device=self.device)
-                     if sampled else None)
-            d, proposals, qs = tok, [], []
-            for i in range(k):
-                logits, entry = self.draft_model.decode_fn(
-                    self._draft_state, d, dbufs, lens[i])
-                filt = sampling_mod.filter_logits(logits, *knobs_d,
-                                                  any_filter=filtered)
-                scored = filt if noise is None else filt + noise[:, i]
-                d = torch.argmax(scored, dim=-1)
-                proposals.append(d)
-                qs.append(sampling_mod.probs_from_filtered(filt))
-                r = rows_d[bounds[i]:bounds[i + 1]]
-                pos = at_d[bounds[i]:bounds[i + 1]]
-                for name, buf in dbufs.items():
-                    buf.index_put_((r, pos), entry[name][r])
-            proposals = torch.stack(proposals, dim=1)
-            qs = torch.stack(qs, dim=1)
-            chunk = torch.cat([tok[:, None], proposals], dim=1)
-            self._note(("verify", cap), chunk, lens[0], *bufs.values(),
-                       proposals, qs)
-            logits, entry = self.model.verify_fn(self.model.state, chunk,
-                                                 bufs, lens[0])
-            for name, buf in bufs.items():
-                buf.index_put_((rows_d, at_d), entry[name][rows_d, cols_d])
-            # the k+1 target distributions, each filtered with its lane's
-            # knobs
-            p = sampling_mod.probs_from_filtered(sampling_mod.filter_logits(
-                logits.reshape(n * (k + 1), v), *(np.repeat(a, k + 1) for a
-                                                  in (temps, top_ks, top_ps)),
-                any_filter=filtered)).view(n, k + 1, v)
-            a, resampled = sampling_mod.accept_prefix(p, qs, proposals,
-                                                      seeds, positions)
-            out = torch.cat([a[:, None], resampled[:, None], proposals],
-                            dim=1).cpu().numpy()
-        return out[:, 0], out[:, 1], out[:, 2:]
-
     @staticmethod
-    def _knobs(n, sampled=False):
-        """Host sampling knobs of width ``n``: greedy, or sampled with
-        both filters on (warmup runs both branches)."""
+    def _knobs(n, branch="greedy"):
+        """Host sampling knobs of width ``n`` that take ``branch``
+        (:data:`BRANCHES`): greedy, sampled with no filter, or sampled
+        with both filters on."""
+        sampled, filt = branch != "greedy", branch == "filtered"
         temps = np.full((n,), 1.0 if sampled else 0.0, np.float32)
-        top_ks = np.full((n,), 1 if sampled else 0, np.int32)
-        top_ps = np.full((n,), 0.5 if sampled else 1.0, np.float32)
+        top_ks = np.full((n,), 1 if filt else 0, np.int32)
+        top_ps = np.full((n,), 0.5 if filt else 1.0, np.float32)
         return (temps, top_ks, top_ps, np.zeros((n,), np.uint32),
                 np.zeros((n,), np.int32))
 
     def warmup(self, *_signatures):
-        """Meet every signature the engine can need once: a decode step a
-        capacity (greedy and sampled), an insert per (prompt bucket,
-        capacity) that can co-occur (with ``kv_import``, also per
-        (capacity-family pad, capacity): a moved lane's segment is padded
-        to a capacity bucket), a grow per consecutive capacity pair, and a
-        prefill a prompt bucket (greedy and sampled), each on zero
-        operands that no request sees; with a draft, also the speculative
-        family: a draft-then-verify step a capacity (greedy and sampled),
-        and the draft's insert, grow and prefill on the same buckets. On
-        the card this builds the flash kernel and meets each cuBLAS shape
-        before traffic. Positional signatures (the fleet's) are accepted
+        """Meet every signature the engine can need once, and capture
+        every executable: a decode step a capacity and host branch (greedy,
+        sampled, filtered), an insert per (prompt bucket, capacity) that
+        can co-occur (with ``kv_import``, also per (capacity-family pad,
+        capacity): a moved lane's segment is padded to a capacity
+        bucket), a grow per consecutive capacity pair, and a prefill a
+        prompt bucket and host branch; with a draft, also the speculative
+        family: a draft-then-verify step a capacity and branch (one graph
+        for the reference's draft scan and verify), and the draft's
+        insert, grow and prefill on the same buckets. On the card each
+        executable's body runs once on zero arenas (it builds the flash
+        kernel and meets each cuBLAS shape) and is captured over the live
+        arenas, whose addresses no grow moves; after this no step of any
+        traffic captures. Positional signatures (the fleet's) are accepted
         and ignored: the engine's shapes come from its bucket families.
         Returns the number of signatures met for the first time."""
         before = len(self._exec)
+        g = self._bound()
         family = self.pool.seq_buckets
         speculative = self.draft_model is not None
-        zeros_i = np.zeros((self.slots,), np.int32)
-        ones_i = np.ones((self.slots,), np.int32)
-        inactive = np.zeros((self.slots,), bool)
         insert_pads = set(self.prompt_buckets)
         if self.kv_import:
             insert_pads |= set(family)
+        tick = self._plan(g.model, ("decode", family[0]))[2]
         with _monitor.trace.span("serving.warmup", buckets=len(family)):
             for cap in family:
-                for sampled in (False, True):
-                    knobs = self._knobs(self.slots, sampled)
-                    self._decode_step(self.pool.zeros(cap), zeros_i,
-                                      ones_i, inactive, knobs)
-                    if speculative:
-                        self._spec_step(self.pool.zeros(cap),
-                                        self.draft_pool.zeros(cap), zeros_i,
-                                        ones_i, inactive, knobs)
+                bufs = self.pool.arena(cap)
+                self._note(("decode", cap), tick, *bufs.values())
+                if speculative:
+                    dbufs = self.draft_pool.arena(cap)
+                    self._note(("sdraft", cap), tick, *dbufs.values())
+                    self._note(("verify", cap), tick, *bufs.values())
+                for branch in BRANCHES:
+                    self._run(g, ("spec" if speculative else "decode", cap,
+                                  branch), warm=True)
                 for lb in sorted(insert_pads):
                     if lb <= cap:
-                        self._insert(self.pool.zeros(cap),
-                                     self.pool.zeros(lb, rows=1), 0)
+                        self._note(("insert", lb, cap), *self.pool.zeros(
+                            lb, rows=1).values(), *bufs.values())
                 if speculative:
                     for lb in self.prompt_buckets:
                         if lb <= cap:
-                            self._insert(self.draft_pool.zeros(cap),
-                                         self.draft_pool.zeros(lb, rows=1),
-                                         0, kind="dinsert")
+                            self._note(("dinsert", lb, cap),
+                                       *self.draft_pool.zeros(
+                                           lb, rows=1).values(),
+                                       *dbufs.values())
             for old, new in zip(family, family[1:]):
-                self._grow(self.pool, "grow", self.pool.zeros(old), old,
-                           new)
+                self._note(("grow", old, new),
+                           *self.pool.arena(old).values())
                 if speculative:
-                    self._grow(self.draft_pool, "dgrow",
-                               self.draft_pool.zeros(old), old, new)
+                    self._note(("dgrow", old, new),
+                               *self.draft_pool.arena(old).values())
             for lb in self.prompt_buckets:
-                for sampled in (False, True):
-                    self._prefill(np.zeros((1, lb), np.int32), 1,
-                                  self._knobs(1, sampled))
+                prompt = self._plan(g.model, ("prefill", lb))[2]
+                self._note(("prefill", lb), prompt)
+                for branch in BRANCHES:
+                    self._run(g, ("prefill", lb, branch), warm=True)
                 if speculative:
-                    self._draft_prefill(np.zeros((1, lb), np.int32), 1)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                    self._note(("dprefill", lb), prompt)
+                    self._run(g, ("dprefill", lb), warm=True)
+            self._wait()
         return len(self._exec) - before
+
+    def prepare(self, model):
+        """Capture every executable this engine holds over ``model`` before
+        ``model`` is bound (a fleet's weight swap,
+        ``MultiDecodeEngine._serve_module``), so that no step after the
+        rebinding captures; the steps take them up when they find the
+        model rebound. The live arenas are captured and never written:
+        each body's eager run goes to zero arenas. Returns the number
+        captured."""
+        with self._build_lock:
+            keys = list(self._graphs.entries)
+        prepared = _Graphs(model, self.device)
+        for gkey in keys:
+            self._run(prepared, gkey, warm=True)
+        self._prepared = prepared
+        self._wait()
+        return len(prepared.entries)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -752,8 +1074,9 @@ class GenerateEngine:
         engine, one draft-then-verify step) over an all-inactive batch, on
         a side thread (the tick thread may be the thing that is wedged),
         and whether it finished in time; None before warmup or traffic met
-        the step. The step runs over zero arenas of its own: the engine's
-        arena, which a wedged tick may still hold, is never touched."""
+        the step. The step's body runs eagerly over zero arenas of its own,
+        greedy: neither the engine's arena, which a wedged tick may still
+        hold, nor its graphs, which the tick thread replays, are touched."""
         cap = self.pool.capacity
         kind = ("decode" if ("decode", cap) in self._exec
                 else "verify" if ("verify", cap) in self._exec else None)
@@ -764,16 +1087,14 @@ class GenerateEngine:
 
         def _go():
             try:
-                zeros = np.zeros((self.slots,), np.int32)
-                inactive = np.zeros((self.slots,), bool)
-                knobs = self._knobs(self.slots)
-                if kind == "decode":
-                    self._decode_step(self.pool.zeros(cap), zeros, zeros,
-                                      inactive, knobs)
-                else:
-                    self._spec_step(self.pool.zeros(cap),
-                                    self.draft_pool.zeros(cap), zeros,
-                                    zeros, inactive, knobs)
+                body, arenas, idle = self._plan(
+                    self.model, ("decode" if kind == "decode" else "spec",
+                                 cap, "greedy"))
+                own = [{name: torch.zeros_like(t) for name, t in a.items()}
+                       for a in arenas]
+                with torch.no_grad():
+                    body(_device.to_device(idle, self.device),
+                         *own)[0].cpu()
             except BaseException as e:   # noqa: BLE001 - the verdict
                 err.append(e)
             finally:
@@ -1035,6 +1356,9 @@ class GenerateEngine:
                              self._draft_prefill(tokens, p), s,
                              kind="dinsert")
                 self.draft_pool.note_length(s, p)
+            # the admission's one wait: the first token
+            self._wait()
+            first = int(first[0])
             ms = (time.monotonic() - t0) * 1e3
             metrics.record_prefill(p, ms, bucket)
             with self._stats_lock:
@@ -1171,8 +1495,7 @@ class GenerateEngine:
             if _faults.enabled():
                 _faults.maybe_serving_fault(self.replica_id)
             t0 = time.monotonic()
-            nxt = self._decode_step(self.pool.buffers, tokens, lengths,
-                                    active, knobs)
+            nxt = self._decode_step(tokens, lengths, active, knobs)
             step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
             self._note_outcome(False, e)
@@ -1247,9 +1570,8 @@ class GenerateEngine:
             if _faults.enabled():
                 _faults.maybe_serving_fault(self.replica_id)
             t0 = time.monotonic()
-            a, resampled, proposals = self._spec_step(
-                self.pool.buffers, self.draft_pool.buffers, tokens, lengths,
-                active, knobs)
+            a, resampled, proposals = self._spec_step(tokens, lengths,
+                                                      active, knobs)
             step_ms = (time.monotonic() - t0) * 1e3
         except BaseException as e:   # noqa: BLE001 - fail the wave
             self._note_outcome(False, e)
@@ -1396,7 +1718,10 @@ class MultiDecodeEngine(MultiDeviceEngine):
         return r.engine.model
 
     def _serve_module(self, r, module):
-        # each step reads ``model.state`` once and passes it down
+        # every executable the replica holds is captured over the new
+        # module before it is bound (GenerateEngine.prepare), so that no
+        # step under traffic captures; each step reads ``model`` once
+        r.engine.prepare(module)
         r.predictor = r.engine.model = module
 
     def submit(self, prompt, max_new_tokens=32, eos_token=None,

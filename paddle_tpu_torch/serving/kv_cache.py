@@ -17,8 +17,17 @@ step, and sequences of different lengths share one decode step:
 * **Budgeted, not discovered.** ``bytes()`` is exact arithmetic over the
   spec (``slots x capacity x`` bytes a token). A pool on the card checks
   its worst case (``max_bytes()``) against the card's memory
-  (``torch.cuda.mem_get_info``) when it is built, before the arena is
-  that large; ``fits_budget``/``plan_slots`` size a pool beforehand.
+  (``torch.cuda.mem_get_info``) when it is built; ``fits_budget``/
+  ``plan_slots`` size a pool beforehand.
+* **Addresses that never move.** Each leaf's storage is one flat buffer
+  of the worst case, allocated when the pool is built, and the arena at
+  every capacity is a contiguous view at its head (:meth:`arena`). A step
+  captured over a capacity's arena (a CUDA graph, which reads and writes
+  the addresses it saw) stays valid through every grow, so an engine
+  captures each capacity's steps once, at warmup. The price: the card
+  holds ``max_bytes()`` from the start, where the reference's arena
+  holds ``bytes()`` and steps up (old and new for the length of a grow's
+  copy).
 
 The pool owns the buffers and the slot ledger; the decode engine
 (``serving/generate.py``) owns the prefill, decode, insert and grow steps
@@ -117,7 +126,11 @@ class KVCachePool:
                 f"the arena at max_len={self.max_len} takes "
                 f"{self.max_bytes()} bytes, more than the device's {limit}: "
                 f"fewer slots (plan_slots) or a shorter max_len")
-        self.buffers = self.zeros(self.capacity)
+        self._flat = {name: torch.zeros(
+            (self.slots * self.max_len * math.prod(tail),), dtype=dt,
+            device=self.device) for name, tail, dt in self._leaf_list}
+        self._arenas = {}
+        self.buffers = self.arena(self.capacity)
         self._lock = threading.Lock()
         self._free = list(range(self.slots))[::-1]   # pop() -> slot 0 first
         # per-slot live length: how many leading arena positions hold
@@ -135,6 +148,28 @@ class KVCachePool:
         return {name: torch.zeros((n, int(capacity)) + tail, dtype=dt,
                                   device=self.device)
                 for name, tail, dt in self._leaf_list}
+
+    def arena(self, capacity):
+        """The arena at ``capacity``, ``{leaf: [slots, capacity, *tail]}``:
+        contiguous views at the head of the pool's flat storage, the same
+        tensors at every call (so the same addresses at every capacity).
+        The arenas of two capacities overlap: only the current one
+        (``buffers``) holds the slots' rows."""
+        cap = int(capacity)
+        if cap not in self._arenas:
+            if cap > self.max_len:
+                raise ValueError(f"capacity {cap} exceeds the pool's "
+                                 f"max_len={self.max_len}")
+            self._arenas[cap] = {
+                name: self._flat[name][:self.slots * cap * math.prod(tail)]
+                .view((self.slots, cap) + tail)
+                for name, tail, _dt in self._leaf_list}
+        return self._arenas[cap]
+
+    def reserved_bytes(self):
+        """What the pool's storage occupies: ``max_bytes()``, whatever the
+        capacity."""
+        return sum(f.numel() * f.element_size() for f in self._flat.values())
 
     # -- slot bookkeeping --------------------------------------------------
 

@@ -275,16 +275,20 @@ def sample_from_filtered(filtered, seeds, positions, salt=SALT_TOKEN):
 
 def gumbel_ahead(seeds, positions, k, v, device=None):
     """The token draws' Gumbel noise at ``k`` consecutive generation
-    indices a row, ``[S, k, V]`` float32 on ``device``: row ``s``'s
-    ``i``-th is, bit for bit, the noise :func:`sample_from_filtered` draws
-    under ``(seeds[s], positions[s] + i, SALT_TOKEN)``, here from one key
-    derivation and one draw (a speculative draft's proposals; host
-    ``seeds`` and ``positions``, ``[S]``)."""
-    seeds = np.asarray(seeds)
-    at = np.asarray(positions, np.int64)[:, None] + np.arange(k)[None, :]
-    keys = keys_for(np.repeat(seeds, k), at.reshape(-1), SALT_TOKEN,
-                    device=device)
-    return gumbel(keys, v).view(len(seeds), k, v)
+    indices a row, ``[S, k, V]`` float32 on ``device`` (default: the
+    seeds' own): row ``s``'s ``i``-th is, bit for bit, the noise
+    :func:`sample_from_filtered` draws under ``(seeds[s], positions[s] +
+    i, SALT_TOKEN)``, here from one key derivation and one draw (a
+    speculative draft's proposals; ``seeds`` and ``positions`` ``[S]``,
+    host arrays or tensors). Every step after the operands reach the
+    device runs there, so a CUDA graph captures it."""
+    seeds = _u32(seeds, device)
+    positions = _u32(positions, seeds.device)
+    n = seeds.shape[0]
+    at = positions[:, None] + torch.arange(k, device=seeds.device)[None, :]
+    keys = keys_for(seeds[:, None].expand(n, k).reshape(-1), at.reshape(-1),
+                    SALT_TOKEN)
+    return gumbel(keys, v).view(n, k, v)
 
 
 # -- the speculative accept-prefix rule ---------------------------------------

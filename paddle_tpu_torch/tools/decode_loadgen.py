@@ -44,6 +44,13 @@ device time, from ``torch.profiler`` (``chip_smoke.py`` prints it too).
 events and a Chrome trace (``trace-<pid>.json``, the engine's slot lanes
 in it) land in ``DIR``.
 
+The engine's steps are CUDA graphs captured at warmup (the ``graph``
+arm). ``--arms graph,eager`` measures each run in both arms, in turns
+(graph, eager, eager, graph), and reports each arm's median tokens/s;
+the ``eager`` arm is :class:`EagerEngine`, the same engine whose step
+bodies run launch by launch. With ``--profile`` each arm's tick is
+profiled.
+
     python -m paddle_tpu_torch.tools.decode_loadgen --replicas 1,2,3
         [--sampling ...] [--profile]
 
@@ -66,6 +73,10 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch import graphs
+from paddle_tpu_torch.serving import GenerateEngine
+
 # short answers dominate; the long tail is what run-to-completion
 # batching stalls a whole batch on
 SHORT_NEW = (4, 8)       # 85% of requests
@@ -74,10 +85,26 @@ LONG_FRAC = 0.15
 PROMPT_BUCKETS = (4, 16)
 PAGE, FACTOR = 32, 2.0   # the arena's page schedule, as the reference's
 PROFILE_TICKS, PROFILE_TOP = 10, 8
+ARMS = ("graph", "eager")
 # the speculative A/B's models (scripts/decode_loadgen.py:410-419)
 SPEC_PAIR = dict(vocab=64, dim=192, heads=2, draft_layers=1, extra_layers=7,
                  seed=1, distill=0.10)
 SPEC_SELF = dict(vocab=64, dim=192, heads=2, layers=2, seed=1)
+
+
+def _engine_class(arm):
+    if arm not in ARMS:
+        raise ValueError(f"arm must be one of {ARMS}, got {arm!r}")
+    return GenerateEngine if arm == "graph" else EagerEngine
+
+
+def _reserved(device):
+    """The caching allocator's reserved bytes on a CUDA ``device`` (None on
+    the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_reserved(device)
 
 
 def make_workload(n, prompt_buckets, max_len, seed=0):
@@ -117,10 +144,15 @@ def _rnd(v, n=3):
 
 
 def run_load(model, mode, workload, slots, max_len, prompt_buckets,
-             sampling=None, seed_base=None, draft=None, spec_k=4):
+             sampling=None, seed_base=None, draft=None, spec_k=4,
+             arm="graph"):
     """Drive one warmed engine in ``mode`` over the workload, offered all
     at once, and return its measurement, with every request's tokens
-    under ``"outputs"``. ``sampling`` (dict or SamplingParams) makes
+    under ``"outputs"``. ``arm`` is ``"graph"`` (the engine's steps
+    replayed from the CUDA graphs its warmup captured) or ``"eager"``
+    (:class:`EagerEngine`); the result carries the graphs captured at
+    warmup and after it, the replays, and on the card the reserved bytes
+    the engine's construction and warmup added. ``sampling`` (dict or SamplingParams) makes
     every request sampled, request ``i`` with seed ``seed_base + i``.
     ``draft`` drafts ``spec_k`` tokens a verify (speculative decoding);
     the result then carries the accept rate and tokens a verify. With
@@ -128,17 +160,23 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
     collected (``"records"``) and summarised (TTFT, TPOT)."""
     from paddle_tpu_torch import monitor
     from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.serving import GenerateEngine, metrics
+    from paddle_tpu_torch.serving import metrics
     metrics.reset_windows()
-    eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
-                         max_len=max_len, prompt_buckets=prompt_buckets,
-                         queue_depth=len(workload) + 8, refill=mode,
-                         shed=False, start=True, draft_model=draft,
-                         spec_k=spec_k)
+    reserved0 = _reserved(model.device)
+    eng = _engine_class(arm)(
+        model, slots=slots, page=PAGE, factor=FACTOR, max_len=max_len,
+        prompt_buckets=prompt_buckets, queue_depth=len(workload) + 8,
+        refill=mode, shed=False, start=True, draft_model=draft,
+        spec_k=spec_k)
     try:
         t0 = time.perf_counter()
         eng.warmup()
+        if model.device.type == "cuda":
+            torch.cuda.synchronize(model.device)
         warmup_s = time.perf_counter() - t0
+        reserved1 = _reserved(model.device)
+        graph_pool = graphs.pool_bytes(eng._graphs.pool)
+        captures = eng.captures
         n_exec, n_trace = eng.executables()
         sums0 = _decode_sums(monitor.snapshot())
         kernels.reset_launches()
@@ -221,7 +259,23 @@ def run_load(model, mode, workload, slots, max_len, prompt_buckets,
         "decode_p99_ms": _rnd(rollup["decode_p99_ms"]),
         "prefill_ratio": _rnd(rollup["prefill_ratio"], 4),
         "decode_rollup": rollup,
+        "arm": arm,
         "warmup_s": warmup_s,
+        "warmup_captures": captures,
+        "post_warmup_captures": stats["captures"] - captures,
+        "tick_replays": stats["tick_replays"],
+        "prefill_replays": stats["prefill_replays"],
+        "draft_prefill_replays": stats["draft_prefill_replays"],
+        # the engine's construction and warmup: its arenas (the pools'
+        # whole storage, kv_cache.KVCachePool.arena) and, in the graph
+        # arm, the graphs' pool and static buffers
+        "reserved_bytes": (None if reserved0 is None
+                           else reserved1 - reserved0),
+        # the segments of the graphs' own pool after warmup (0 in the
+        # eager arm, None on the CPU)
+        "graph_pool_bytes": graph_pool,
+        "arena_bytes": eng.pool.reserved_bytes() + (
+            eng.draft_pool.reserved_bytes() if draft is not None else 0),
         "executables": n_exec2,
         "post_warmup_signatures": (n_exec2 - n_exec) + (n_trace2 - n_trace),
         "pool_bytes": stats["pool_cache_bytes"],
@@ -276,7 +330,7 @@ def teacher_forced_logits(model, prompt, tokens, chunk=None):
 
 
 def profile_decode(model, workload, slots, max_len, prompt_buckets,
-                   sampling=None, draft=None, spec_k=4):
+                   sampling=None, draft=None, spec_k=4, arm="graph"):
     """Where a decode tick's time goes on the card: ``slots`` requests of
     ``workload`` (each asking for the whole arena) are seated and two
     ticks run to warm; then :data:`PROFILE_TICKS` ticks are timed on the
@@ -289,12 +343,14 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
     a tick (its kernels' and copies' device time, profiled), the idle
     share (1 - busy / wall), the profiled wall time a tick, launches a
     tick, the kernels that took the most device time and the count of
-    each profiled event's name (``"events"``)."""
-    from paddle_tpu_torch.serving import GenerateEngine
-    eng = GenerateEngine(model, slots=slots, page=PAGE, factor=FACTOR,
-                         max_len=max_len, prompt_buckets=prompt_buckets,
-                         start=False, shed=False, draft_model=draft,
-                         spec_k=spec_k)
+    each profiled event's name (``"events"``). ``arm`` as in
+    :func:`run_load`: a graphed tick is one replay between the lanes'
+    copy in and the tokens' read back; the replays the timed and
+    profiled ticks made are counted (``"tick_replays"``)."""
+    eng = _engine_class(arm)(
+        model, slots=slots, page=PAGE, factor=FACTOR, max_len=max_len,
+        prompt_buckets=prompt_buckets, start=False, shed=False,
+        draft_model=draft, spec_k=spec_k)
     seated = workload[:slots]
     limit = min(max_len, eng.seq_limit)
     # a tick emits at most spec_k tokens a lane; the prefill emits one
@@ -309,6 +365,7 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
         eng.tick()
         torch.cuda.synchronize()
         tokens0 = eng.stats()["tokens"]
+        replays0 = eng.stats()["tick_replays"]
         t0 = time.perf_counter()
         for _ in range(ticks):
             eng.tick()
@@ -331,6 +388,7 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
             torch.cuda.synchronize()
             wall_profiled = time.perf_counter() - t0
         live = eng.pool.used_slots()
+        replays = eng.stats()["tick_replays"] - replays0
     finally:
         eng.close(drain=False)
     if live != len(seated):
@@ -346,6 +404,8 @@ def profile_decode(model, workload, slots, max_len, prompt_buckets,
     busy = sum(ms for ms, _ in names.values()) / ticks
     tick_ms = wall * 1e3 / ticks
     return {
+        "arm": arm,
+        "tick_replays": replays,
         "sampled": sampling is not None,
         "spec_k": spec_k if draft is not None else None,
         "ticks": ticks,
@@ -471,10 +531,18 @@ def main(argv=None):
     ap.add_argument("--monitor", default=None, metavar="DIR",
                     help="turn the port's monitor and span tracer on; the "
                          "events and a Chrome trace land in DIR")
+    ap.add_argument("--arms", default="graph",
+                    help="comma-separated arms: graph (the steps' CUDA "
+                         "graphs), eager; two arms run in turns, A B B A")
     ap.add_argument("--replicas", default=None, metavar="N,N,...",
                     help="run the traffic through a MultiDecodeEngine over "
                          "each count of replicas on the one device")
     args = ap.parse_args(argv)
+    args.arms = [a for a in args.arms.split(",") if a]
+    if not args.arms or set(args.arms) - set(ARMS):
+        ap.error(f"--arms takes graph and eager, got {args.arms!r}")
+    if args.replicas and args.arms != ["graph"]:
+        ap.error("--replicas runs the graph arm only")
     if args.profile and args.device == "cpu":
         ap.error("--profile reads the card's device time; drop --device cpu")
 
@@ -519,7 +587,10 @@ def main(argv=None):
 
 def _arms(args, result, model, draft, workload, sampling, seed_base):
     """The CLI's runs into ``result``: the fleet runs, or the speculative
-    or refill A/B and with ``--profile`` the ticks."""
+    or refill A/B and with ``--profile`` the ticks. With two arms each
+    run is made in each, in turns (A B B A), and each entry holds one
+    record an arm: its first run, with the median tokens/s over its
+    runs and every run's (``tokens_per_s_runs``)."""
     if args.replicas:
         fleet = {}
         for n in (int(x) for x in args.replicas.split(",")):
@@ -537,40 +608,84 @@ def _arms(args, result, model, draft, workload, sampling, seed_base):
             fleet[n] = r
         result["fleet"] = fleet
         return
-    if args.spec:
-        # the same sampled traffic, continuous refill, draft off and on
-        arms = {"nonspec": None, "spec": draft}
-        for arm, d in arms.items():
-            r = run_load(model, "continuous", workload, args.slots,
-                         args.max_len, PROMPT_BUCKETS, sampling=sampling,
-                         seed_base=seed_base, draft=d, spec_k=args.spec_k)
+    arms = args.arms
+    order = arms + arms[::-1] if len(arms) > 1 else arms
+
+    def turns(**kw):
+        runs = {a: [] for a in arms}
+        for a in order:
+            r = run_load(model, workload=workload, slots=args.slots,
+                         max_len=args.max_len, prompt_buckets=PROMPT_BUCKETS,
+                         sampling=sampling, seed_base=seed_base, arm=a, **kw)
             r.pop("outputs")
             r.pop("records", None)
-            result[arm] = r
-        result["spec_speedup_x"] = (result["spec"]["tokens_per_s"]
-                                    / result["nonspec"]["tokens_per_s"])
-        result["accept_rate"] = result["spec"]["accept_rate"]
+            runs[a].append(r)
+        out = {}
+        for a, rs in runs.items():
+            out[a] = dict(rs[0], tokens_per_s=float(np.median(
+                [r["tokens_per_s"] for r in rs])),
+                tokens_per_s_runs=[r["tokens_per_s"] for r in rs])
+        return out if len(arms) > 1 else out[arms[0]]
+
+    def ratio(num, den):
+        if len(arms) == 1:
+            return num["tokens_per_s"] / den["tokens_per_s"]
+        return {a: num[a]["tokens_per_s"] / den[a]["tokens_per_s"]
+                for a in arms}
+
+    if args.spec:
+        # the same sampled traffic, continuous refill, draft off and on
+        for key, d in (("nonspec", None), ("spec", draft)):
+            result[key] = turns(mode="continuous", draft=d,
+                                spec_k=args.spec_k)
+        result["spec_speedup_x"] = ratio(result["spec"], result["nonspec"])
+        result["accept_rate"] = (
+            result["spec"]["accept_rate"] if len(arms) == 1 else
+            {a: result["spec"][a]["accept_rate"] for a in arms})
     else:
         modes = (["continuous", "drain"] if args.mode == "both"
                  else [args.mode])
         for mode in modes:
-            r = run_load(model, mode, workload, args.slots, args.max_len,
-                         PROMPT_BUCKETS, sampling=sampling,
-                         seed_base=seed_base)
-            r.pop("outputs")
-            r.pop("records", None)
-            result[mode] = r
+            result[mode] = turns(mode=mode)
         if len(modes) == 2:
-            result["speedup_x"] = (result["continuous"]["tokens_per_s"]
-                                   / result["drain"]["tokens_per_s"])
+            result["speedup_x"] = ratio(result["continuous"],
+                                        result["drain"])
     if args.profile:
-        result["profile"] = profile_decode(model, workload, args.slots,
-                                           args.max_len, PROMPT_BUCKETS,
-                                           sampling=sampling)
-        if args.spec:
-            result["profile_spec"] = profile_decode(
+        prof = {}
+        for a in arms:
+            prof[a] = {"plain": profile_decode(
                 model, workload, args.slots, args.max_len, PROMPT_BUCKETS,
-                sampling=sampling, draft=draft, spec_k=args.spec_k)
+                sampling=sampling, arm=a)}
+            if args.spec:
+                prof[a]["spec"] = profile_decode(
+                    model, workload, args.slots, args.max_len,
+                    PROMPT_BUCKETS, sampling=sampling, draft=draft,
+                    spec_k=args.spec_k, arm=a)
+        if len(arms) == 1:
+            result["profile"] = prof[arms[0]]["plain"]
+            if args.spec:
+                result["profile_spec"] = prof[arms[0]]["spec"]
+        else:
+            result["profile"] = prof
+
+
+class EagerEngine(GenerateEngine):
+    """The A/B's eager arm: the engine whose every step runs its body launch
+    by launch over the live arenas, as ``bench_bert``'s ``eager_step`` is
+    the body its graph arm replays. Its warmup meets the same signatures
+    and runs each body once over zero arenas (it builds the kernels and
+    meets each cuBLAS shape); it captures nothing."""
+
+    def _run(self, g, gkey, host=None, warm=False):
+        body, arenas, idle = self._plan(g.model, gkey)
+        if warm:
+            arenas = tuple({name: torch.zeros_like(t) for name, t in
+                            a.items()} for a in arenas)
+        lanes = _device.to_device(idle if host is None else host,
+                                  self.device)
+        with torch.no_grad():
+            out = body(lanes, *arenas)
+        return None if warm else out
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import paddle_tpu.tensor as ref_tensor
 import paddle_tpu as pt
 from paddle_tpu import nn as jnn
 from paddle_tpu import optimizer as jopt
@@ -39,6 +40,19 @@ from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops import nn_ops as F
 from paddle_tpu_torch.ops.kernels import batch_norm as BN
+
+
+@pytest.fixture(autouse=True)
+def _no_arena_hook():
+    """The reference's flat-arena hook cleared for each test and restored
+    after: an earlier file on the worker may leave it set, and then the
+    reference's ``Layer._run_forward`` calls ``jax.core.trace_state_clean``,
+    which this jax lacks (ROADMAP.md Queue C)."""
+    hook = ref_tensor._arena_hook
+    ref_tensor._arena_hook = None
+    yield
+    ref_tensor._arena_hook = hook
+
 
 F32_TOL = 3e-4
 BF16_TOL = 2e-2

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu.tensor as ref_tensor
 import paddle_tpu as pt
 from paddle_tpu import inference as jinference
 from paddle_tpu.io import bucketing as jbucketing
@@ -31,6 +32,19 @@ from paddle_tpu_torch.models import Bert, BertConfig, BertForPretraining
 from paddle_tpu_torch.resilience import deadline, retry
 from paddle_tpu_torch.serving import (DeadlineExpired, QueueFullError,
                                       ServingEngine)
+
+
+@pytest.fixture(autouse=True)
+def _no_arena_hook():
+    """The reference's flat-arena hook cleared for each test and restored
+    after: an earlier file on the worker may leave it set, and then the
+    reference's ``Layer._run_forward`` calls ``jax.core.trace_state_clean``,
+    which this jax lacks (ROADMAP.md Queue C)."""
+    hook = ref_tensor._arena_hook
+    ref_tensor._arena_hook = None
+    yield
+    ref_tensor._arena_hook = hook
+
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 SEQ = 16

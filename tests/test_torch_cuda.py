@@ -1443,3 +1443,67 @@ def test_a_step_with_item_raises_at_capture_and_does_not_fall_back(
     assert len(runs) == 2
     torch.cuda.synchronize()
     assert float((torch.ones(4, device=cuda_device) * 2).sum()) == 8.0
+
+
+@pytest.mark.cuda
+def test_a_decode_step_that_syncs_raises_capture_error(cuda_device):
+    """A ``GenerateEngine`` step whose body reads a value back to the host
+    cannot be captured: ``warmup`` raises ``CaptureError`` naming the
+    line, and no eager step takes over."""
+    from paddle_tpu_torch.graphs import CaptureError
+    from paddle_tpu_torch.serving import GenerateEngine
+    from paddle_tpu_torch.serving.generate import DemoLM
+
+    class SyncingLM(DemoLM):
+        def decode_fn(self, state, tokens, kv, lengths):
+            if float(lengths.max()) < 0:
+                raise AssertionError("a length below zero")
+            return super().decode_fn(state, tokens, kv, lengths)
+
+    lm = SyncingLM(vocab=32, dim=16, heads=2, layers=2, max_len=64,
+                   device=cuda_device)
+    eng = GenerateEngine(lm, slots=3, page=8, max_len=32,
+                         prompt_buckets=(4, 8), start=False)
+    with pytest.raises(CaptureError, match=r"float\(lengths\.max\(\)\)"):
+        eng.warmup()
+    assert eng.captures == 0
+    eng.close(drain=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_graphed_decode_engine_equals_its_eager_arm(cuda_device, spec):
+    """On the card every tick and admission of a warmed engine replays a
+    graph (no capture after warmup) and the streams equal the eager arm's
+    (the same bodies run launch by launch), greedy and sampled; the
+    graphs' pool holds memory after warmup, the eager arm's none."""
+    from paddle_tpu_torch import graphs
+    from paddle_tpu_torch.serving import GenerateEngine, demo_model
+    from paddle_tpu_torch.tools.decode_loadgen import EagerEngine
+    lm = demo_model(vocab=32, dim=64, heads=2, layers=2, max_len=64,
+                    device=cuda_device)
+    jobs = [([1, 2, 3], 28, {}), ([5, 4, 3], 9, {}),
+            ([3, 1, 4], 12, {"sampling": {"temperature": 1.0}, "seed": 2}),
+            ([9, 8], 20, {"sampling": {"temperature": 0.8, "top_k": 5,
+                                       "top_p": 0.9}, "seed": 3})]
+    out = {}
+    for cls in (GenerateEngine, EagerEngine):
+        eng = cls(lm, slots=3, page=8, max_len=32, prompt_buckets=(4, 8),
+                  start=False, draft_model=lm if spec else None, spec_k=4)
+        eng.warmup()
+        caps = eng.captures
+        pool = graphs.pool_bytes(eng._graphs.pool)
+        assert (pool > 0) == (cls is GenerateEngine)
+        futs = [eng.submit(p, max_new_tokens=n, **kw) for p, n, kw in jobs]
+        for _ in range(500):
+            if all(f.done() for f in futs):
+                break
+            eng.tick()
+        st = eng.stats()
+        out[cls] = [[int(t) for t in f.result(timeout=10)] for f in futs]
+        assert eng.captures == caps and st["grows"] == 2
+        if cls is GenerateEngine:
+            assert caps > 0 and st["tick_replays"] == st["ticks"]
+            assert st["prefill_replays"] == st["prefills"] == len(jobs)
+        eng.close(drain=False)
+    assert out[GenerateEngine] == out[EagerEngine]

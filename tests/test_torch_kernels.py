@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+import paddle_tpu.tensor as ref_tensor
 import paddle_tpu as pt
 from paddle_tpu.ops.pallas import flash_attention as jax_flash
 from paddle_tpu.ops.pallas.flash_attention import (_canon_mask,
@@ -24,6 +25,19 @@ from paddle_tpu.ops.pallas.layer_norm import _layer_norm2, _run_fwd
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import layer_norm as LN
+
+
+@pytest.fixture(autouse=True)
+def _no_arena_hook():
+    """The reference's flat-arena hook cleared for each test and restored
+    after: an earlier file on the worker may leave it set, and then the
+    reference's ``Layer._run_forward`` calls ``jax.core.trace_state_clean``,
+    which this jax lacks (ROADMAP.md Queue C)."""
+    hook = ref_tensor._arena_hook
+    ref_tensor._arena_hook = None
+    yield
+    ref_tensor._arena_hook = hook
+
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -39,6 +39,7 @@ import torch
 
 import jax.numpy as jnp
 
+import paddle_tpu.tensor as ref_tensor
 import paddle_tpu as pt
 from paddle_tpu import amp as jamp
 from paddle_tpu import jit as jjit
@@ -56,6 +57,19 @@ from paddle_tpu_torch.ops import kernels, loss
 from paddle_tpu_torch.ops import nn_ops as F
 from paddle_tpu_torch.regularizer import L2Decay
 from paddle_tpu_torch.tools import bench_bert
+
+
+@pytest.fixture(autouse=True)
+def _no_arena_hook():
+    """The reference's flat-arena hook cleared for each test and restored
+    after: an earlier file on the worker may leave it set, and then the
+    reference's ``Layer._run_forward`` calls ``jax.core.trace_state_clean``,
+    which this jax lacks (ROADMAP.md Queue C)."""
+    hook = ref_tensor._arena_hook
+    ref_tensor._arena_hook = None
+    yield
+    ref_tensor._arena_hook = hook
+
 
 OP_TOL = dict(atol=1e-6, rtol=1e-6)
 SEQ = 16
