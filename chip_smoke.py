@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BERT-base serving and training paths, its
 ResNet-50 training path and its generative serving, plain and speculative,
-with the KV hand-off between engines, the serving monitor and
-multi-replica serving under injected faults, on one CUDA card.
+with the KV hand-off between engines, the serving monitor,
+multi-replica serving under injected faults and disaggregated serving
+(a prefill pool and a decode pool), on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -278,7 +279,30 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    captures its executables over the new module before binding it, and
    the traffic after it captures nothing and gives a single engine's
    streams on the new weights (departures near-ties).
-19. the ``kernels`` line (all 14), the card's name and power limit, and
+19. disaggregated serving: #3 at the prefill pool's shapes, (1, 4, 4, 64)
+   and (1, 4, 16, 64) f32 causal, against its plain version; then phase
+   13's model split into a prefill pool and a decode pool on the card
+   (``DisaggServer``, the prefix cache in front of the prefill pool, the
+   prefill engine's prefill and first-token sample as CUDA graphs, the
+   priced hand-off through the host): phase 13's traffic, greedy and
+   sampled in turn, and one repeated prompt, through 1 prefill and 2 decode
+   replicas with a mid-stream drain of a decode replica, every stream
+   against the graphed single engine's (departures counted, each a
+   near-tie), no signature or capture after warmup in either pool, the
+   hand-off bytes exactly the link model's arithmetic, no prefill in the
+   decode pool and an import for every request and moved lane, #3 twice a
+   prefill; the loadgen's head-heavy traffic (``run_disagg_load``, 60% of
+   96 requests on 4 heads) offered at once and by one closed-loop client,
+   greedy, then sampled by one client: prefills equal to the cache's
+   misses, #3 twice a miss and never on a hit, a greedy hit's TTFT p50 at
+   most half a miss's (closed loop; a sampled one's reported), tokens/s,
+   TTFT and hand-off p50/p99 (planned against measured), the measured
+   link bandwidth and each pool's warmup captures and seconds; each pool
+   at 1 of 2 replicas scaling up on its own SLO (queue depth, tokens/s);
+   and a prefill replica hanging in a prefill: failover, goodput >= 0.90,
+   no future lost, the retried segment equal bit for bit to the hung
+   replica's own.
+20. the ``kernels`` line (all 14), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -2302,7 +2326,9 @@ def handoff_departures(torch, model, workload, clean, moved, sampling):
     its first parting ``t`` with the closeness to a tie of the decision
     there, from ``model``'s logits teacher-forced along the unmoved
     stream: the scaled top-2 margin, of the Gumbel-perturbed filtered
-    logits where sampled. Each must be within :data:`HANDOFF_TIE_TOL`."""
+    logits where sampled (``sampling``: one for every request, or a list
+    of each request's, None where greedy). Each must be within
+    :data:`HANDOFF_TIE_TOL`."""
     from paddle_tpu_torch.serving import sampling as S
     from paddle_tpu_torch.tools.decode_loadgen import teacher_forced_logits
     found = []
@@ -2315,10 +2341,11 @@ def handoff_departures(torch, model, workload, clean, moved, sampling):
             continue
         z = torch.from_numpy(teacher_forced_logits(model, prompt,
                                                    want[:t + 1])[t:])
-        if sampling is not None:
-            z = S.filter_logits(z, [sampling["temperature"]],
-                                [sampling.get("top_k", 0)],
-                                [sampling.get("top_p", 1.0)])
+        sp = sampling[i] if isinstance(sampling, list) else sampling
+        if sp is not None:
+            z = S.filter_logits(z, [sp["temperature"]],
+                                [sp.get("top_k", 0)],
+                                [sp.get("top_p", 1.0)])
             z = z + S.gumbel(S.keys_for([GEN_SEED_BASE + i], [t],
                                         S.SALT_TOKEN), z.shape[-1])
         top2 = torch.topk(z[0], 2).values
@@ -3744,6 +3771,361 @@ def decode_graphs_phase(np, torch, smi, seed, gen13, spec14):
         seconds=time.perf_counter() - t0))
 
 
+# -- phase 19: disaggregated serving --------------------------------------------
+
+# phase 13's model and engine settings split into a prefill pool and a
+# decode pool on the one card, the prefix cache in front of the prefill
+# pool (scripts/disagg_smoke.py's four gates at the loadgen's width):
+# (a) phase 13's traffic, even requests greedy and odd ones sampled (seed
+# 1000 + i), and the first prompt once more (a prefix hit), through 1
+# prefill and DISAGG_DECODE_REPLICAS decode replicas, with a mid-stream
+# drain of the decode replica holding the most lanes
+DISAGG_DECODE_REPLICAS = 2
+# (b) the loadgen's head-heavy traffic (make_prefix_workload: 96 requests,
+# this share carrying one of this many prompt heads), greedy, offered at
+# once (tokens/s) and by one closed-loop client (TTFT is then the service,
+# not the queue), where a hit's TTFT p50 must be at most this share of a
+# miss's (scripts/disagg_smoke.py's gate); then phase 13's sampling by one
+# closed-loop client (a sampled hit replays the psample graph: its split
+# is reported)
+DISAGG_REUSE, DISAGG_HEADS, DISAGG_TTFT_SHARE = 0.6, 4, 0.5
+# (c) each pool held at 1 of 2 active replicas under phase 13's traffic
+# (greedy), 2 lanes a decode replica, ceilings any traffic breaches; the
+# supervisors' interval
+DISAGG_SCALE_SLOTS = 2
+DISAGG_SUPERVISOR_S = 0.02
+# (d) prefill replica 0 of 2 hangs in its first prefill for DISAGG_HANG_S;
+# the prefill pool's hang timeout; requests arriving 4 ms apart on average
+DISAGG_HANG_S, DISAGG_PREFILL_INFLIGHT_MS = 1.5, 250.0
+DISAGG_HANG_REQUESTS, DISAGG_GOODPUT = 32, 0.90
+
+
+def _disagg_server(model, prefill, decode, **kw):
+    """A ``DisaggServer`` of ``prefill`` and ``decode`` replicas of
+    ``model`` on the card, phase 13's engine settings. Callers size its
+    queues at twice their burst: a burst with nothing back yet lifts the
+    admission ladder a rung, which then sheds from half a queue."""
+    from paddle_tpu_torch.serving import DisaggServer
+    kw.setdefault("slots", GEN_SLOTS)
+    return DisaggServer(model, prefill_devices=["cuda:0"] * prefill,
+                        decode_devices=["cuda:0"] * decode, page=32,
+                        factor=2.0, max_len=GEN_MAX_LEN,
+                        prompt_buckets=GEN_PROMPT_BUCKETS, **kw)
+
+
+def _pool_counts(srv):
+    """Each pool's (signatures met, graphs captured), replica by replica."""
+    return [(r.engine.executables(), r.engine.captures)
+            for pool in (srv.prefill_pool, srv.decode_pool)
+            for r in pool._replicas]
+
+
+def disagg_parity(np, torch, smi, model, wl):
+    """(a): the mixed traffic through the split topology, a decode replica
+    drained mid-stream, against the graphed single engine's streams on the
+    card at the same seeds (departures counted, each a near-tie of the
+    engine's logits); no signature met and no graph captured after warmup
+    in either pool; the hand-off bytes the link model's arithmetic
+    exactly; no prefill in the decode pool, and an import for every
+    request and every lane the drain moved; #3 launched twice a prefill,
+    and the prefills the cache's misses."""
+    from paddle_tpu_torch.ops import kernels
+    jobs = [(p, n, GEN_SAMPLING if i % 2 else None,
+             (GEN_SEED_BASE + i) if i % 2 else None)
+            for i, (p, n) in enumerate(wl)]
+    jobs.append((wl[0][0], 8, None, None))
+    oracle = _engine(model)
+    oracle.warmup()
+    want = _drain(oracle, [oracle.submit(p, max_new_tokens=n, sampling=sp,
+                                         seed=s) for p, n, sp, s in jobs])
+    oracle.close()
+    srv = _disagg_server(model, 1, DISAGG_DECODE_REPLICAS,
+                         queue_depth=2 * len(jobs) + 8, supervise=False)
+    try:
+        warm = {}
+        for name, pool in (("prefill", srv.prefill_pool),
+                           ("decode", srv.decode_pool)):
+            t0 = time.perf_counter()
+            pool.warmup()
+            torch.cuda.synchronize()
+            warm[name] = dict(seconds=time.perf_counter() - t0, captures=sum(
+                r.engine.captures for r in pool._replicas))
+        before = _pool_counts(srv)
+        spies = [spy_moves(e) for e in srv.decode_pool.engines]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        futs = [srv.submit(p, max_new_tokens=n, sampling=sp, seed=s)
+                for p, n, sp, s in jobs]
+
+        def seated():
+            return [r.engine.heartbeat()["active"]
+                    for r in srv.decode_pool._replicas]
+
+        wait_for(lambda: max(seated()) > 0, "a seated decode lane")
+        victim = int(np.argmax(seated()))
+        moved = srv.drain_decode_replica(victim, reason="smoke")
+        got = [[int(t) for t in f.result(timeout=120)] for f in futs]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        after = _pool_counts(srv)
+        st = srv.stats()
+        planned = sum(srv.planned_handoff_ms(len(p))[0] for p, *_ in jobs)
+    finally:
+        srv.close(drain=False)
+    lanes_moved = len(spies[victim]["disown_inflight"])
+    deps = handoff_departures(torch, model, [(p, n) for p, n, *_ in jobs],
+                              want, got, [sp for _, _, sp, _ in jobs])
+    check(after == before, f"disagg parity: signatures and captures "
+                           f"{before} -> {after} under traffic")
+    check(st["handoffs"] == len(jobs) and st["handoff_bytes"] == planned,
+          f"disagg parity: {st['handoffs']} hand-offs of "
+          f"{st['handoff_bytes']} bytes, the link model priced {planned}")
+    check(st["decode"]["prefills"] == 0
+          and st["decode"]["kv_imports"] == len(jobs) + lanes_moved,
+          f"disagg parity: the decode pool ran {st['decode']['prefills']} "
+          f"prefills and {st['decode']['kv_imports']} imports for "
+          f"{len(jobs)} requests and {lanes_moved} moved lanes")
+    check(moved >= 1 and lanes_moved >= 1,
+          f"disagg parity: the drain moved {moved} requests, "
+          f"{lanes_moved} live lanes")
+    pre = st["prefill"]
+    check(pre["prefills"] == st["prefix"]["misses"]
+          and st["prefix"]["hits"] >= 1
+          and launches == {"flash_attention_fwd": model.layers
+                           * pre["prefills"]},
+          f"disagg parity: {pre['prefills']} prefills, cache "
+          f"{st['prefix']}, launches {launches}")
+    rec = dict(phase="disagg_parity", card=smi, requests=len(jobs),
+               decode_replicas=DISAGG_DECODE_REPLICAS,
+               tokens_per_s=sum(len(g) for g in got) / wall, wall_s=wall,
+               drained_replica=victim, drain_moved=moved,
+               lanes_moved=lanes_moved, handoffs=st["handoffs"],
+               handoff_bytes=st["handoff_bytes"], planned_bytes=planned,
+               link_bandwidth_bps=st["link_bandwidth_bps"],
+               prefix=st["prefix"], prefills=pre["prefills"],
+               kv_imports=st["decode"]["kv_imports"], launches=launches,
+               warmup=warm, departures=deps, tol=HANDOFF_TIE_TOL,
+               streams_equal=sum(a == b for a, b in zip(want, got)))
+    emit(rec)
+    return rec
+
+
+def disagg_prefix(np, torch, smi, model, seed, clients, sampling=None):
+    """(b): the loadgen's head-heavy traffic through
+    ``decode_loadgen.run_disagg_load``: prefills the cache's misses, #3
+    launched twice a miss (a hit launches none), nothing captured and no
+    signature met after warmup, the hand-off bytes the link model's; with
+    one closed-loop client and greedy requests, a hit's TTFT p50 at most
+    :data:`DISAGG_TTFT_SHARE` of a miss's."""
+    from paddle_tpu_torch.tools import decode_loadgen as LG
+    wl = LG.make_prefix_workload(GEN_REQUESTS, DISAGG_REUSE, DISAGG_HEADS,
+                                 GEN_PROMPT_BUCKETS, GEN_MAX_LEN, seed=seed)
+    r = LG.run_disagg_load(model, wl, GEN_SLOTS, GEN_MAX_LEN,
+                           GEN_PROMPT_BUCKETS, clients=clients,
+                           sampling=sampling,
+                           seed_base=GEN_SEED_BASE if sampling else None)
+    outs = r.pop("outputs")
+    r["records"] = len(r.pop("records"))
+    label = (f"disagg prefix clients={clients} "
+             f"{'sampled' if sampling else 'greedy'}")
+    check([len(o) for o in outs] == [n for _, n in wl],
+          f"{label}: a request did not complete with its token count")
+    cache = r["prefix_cache"]
+    check(r["prefills"] == cache["misses"] and cache["hits"] > 0
+          and r["launches"] == {"flash_attention_fwd": model.layers
+                                * cache["misses"]},
+          f"{label}: {r['prefills']} prefills, cache {cache}, launches "
+          f"{r['launches']}")
+    check(r["post_warmup_captures"] == 0
+          and r["post_warmup_signatures"] == 0,
+          f"{label}: {r['post_warmup_captures']} captures and "
+          f"{r['post_warmup_signatures']} signatures after warmup")
+    check(r["handoff_bytes"] == r["planned_bytes"]
+          and r["decode_prefills"] == 0 and r["kv_imports"] == len(wl),
+          f"{label}: hand-off bytes {r['handoff_bytes']} against "
+          f"{r['planned_bytes']}, decode prefills {r['decode_prefills']}, "
+          f"imports {r['kv_imports']}")
+    if clients == 1 and sampling is None:
+        check(r["ttft_hit_p50_ms"] <= DISAGG_TTFT_SHARE
+              * r["ttft_miss_p50_ms"],
+              f"{label}: hit TTFT p50 {r['ttft_hit_p50_ms']} ms against "
+              f"miss {r['ttft_miss_p50_ms']} ms")
+    emit(dict(r, phase="disagg_prefix", card=smi, sampling=sampling))
+    return r
+
+
+def disagg_autoscale(np, torch, smi, model, wl):
+    """(c): each pool held at 1 of 2 active replicas under load, with a
+    queue-depth ceiling of 1 and a tokens/s floor any traffic breaches:
+    the prefill supervisor scales up on its queue depth, the decode one on
+    its tokens/s floor, neither on goodput, and both pools end at 2."""
+    srv = _disagg_server(model, 2, 2, slots=DISAGG_SCALE_SLOTS,
+                         queue_depth=2 * len(wl) + 8, supervise=True,
+                         supervisor_interval_s=DISAGG_SUPERVISOR_S,
+                         queue_depth_ceiling=1, tokens_floor=1e9,
+                         prefill_initial_active=1, decode_initial_active=1)
+    try:
+        srv.warmup()
+        futs = [srv.submit(p, max_new_tokens=n) for p, n in wl]
+        for f in futs:
+            f.result(timeout=120)
+        wait_for(lambda: any(d["decision"] == "scale_up"
+                             for d in srv.decode_supervisor.decisions),
+                 "the decode pool's scale-up", timeout=10.0)
+        pre = [d for d in srv.prefill_supervisor.decisions
+               if d["decision"] == "scale_up"]
+        dec = [d for d in srv.decode_supervisor.decisions
+               if d["decision"] == "scale_up"]
+        active = [srv.prefill_pool._active_count(),
+                  srv.decode_pool._active_count()]
+    finally:
+        srv.close(drain=False)
+    check(pre and "queue_depth_ceiling" in pre[0] and "goodput" not in pre[0]
+          and "tokens_floor" not in pre[0],
+          f"disagg autoscale: the prefill pool's scale-ups {pre}")
+    check(dec and "tokens_floor" in dec[0] and "goodput" not in dec[0]
+          and "queue_depth_ceiling" not in dec[0],
+          f"disagg autoscale: the decode pool's scale-ups {dec}")
+    check(active == [2, 2], f"disagg autoscale: active replicas {active}")
+    rec = dict(phase="disagg_autoscale", card=smi, requests=len(wl),
+               prefill_decision=pre[0], decode_decision=dec[0],
+               active=active)
+    emit(rec)
+    return rec
+
+
+def disagg_hang(np, torch, smi, model, seed):
+    """(d): prefill replica 0 of 2 hangs in its first prefill: the
+    supervisor fails its work over to replica 1, goodput stays at least
+    :data:`DISAGG_GOODPUT` with no future lost, and the retried prefill's
+    segment, first token and logits equal, bit for bit, those the hung
+    replica computes once its hang ends (and discards)."""
+    from paddle_tpu_torch.resilience import faults
+    srv = _disagg_server(model, 2, 1,
+                         queue_depth=2 * DISAGG_HANG_REQUESTS + 8,
+                         supervise=True,
+                         supervisor_interval_s=DISAGG_SUPERVISOR_S,
+                         prefill_inflight_timeout_ms=DISAGG_PREFILL_INFLIGHT_MS)
+    prefills = []
+
+    def spy(engine):
+        orig = engine._prefill
+
+        def _prefill(tokens, length, knobs):
+            out = orig(tokens, length, knobs)
+            prefills.append((engine.replica_id, tuple(tokens[0, :length]),
+                             out))
+            return out
+
+        engine._prefill = _prefill
+
+    rng = np.random.RandomState(seed + 17)
+    futs, errors, lost = [], [], 0
+    try:
+        srv.warmup()
+        for e in srv.prefill_pool.engines:
+            spy(e)
+        spec = faults.inject("replica_hang", replica=0, delay=DISAGG_HANG_S,
+                             times=1, site="prefill")
+        t0 = time.perf_counter()
+        for i in range(DISAGG_HANG_REQUESTS):
+            prompt = rng.randint(1, 31, size=int(rng.randint(2, 17))).tolist()
+            futs.append(srv.submit(prompt, max_new_tokens=8, seed=900 + i,
+                                   sampling={"temperature": 0.8}))
+            time.sleep(float(rng.exponential(0.004)))
+        ok = 0
+        for f in futs:
+            try:
+                f.result(timeout=60)
+                ok += 1
+            except Exception as e:   # noqa: BLE001 - counted
+                errors.append(repr(e))
+            lost += not f.done()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        # the hung replica's own prefill of the request it held, once the
+        # hang ends
+        wait_for(lambda: len({r for r, *_ in prefills}) == 2,
+                 "the hung prefill's completion",
+                 timeout=DISAGG_HANG_S + 30.0)
+        decisions = [d["decision"] for d in srv.prefill_supervisor.decisions]
+    finally:
+        faults.clear()
+        srv.close(drain=False)
+    by_prompt = {}
+    for rid, prompt, out in prefills:
+        by_prompt.setdefault(prompt, []).append((rid, out))
+    twice = [v for v in by_prompt.values() if len({r for r, _ in v}) == 2]
+    check(spec.fired == 1 and len(twice) == 1,
+          f"disagg hang: the fault fired {spec.fired} times, {len(twice)} "
+          f"prompts prefilled on both replicas")
+    (ra, (leaves_a, first_a, logits_a)), (rb, (leaves_b, first_b,
+                                               logits_b)) = twice[0][:2]
+    same = (first_a == first_b and np.array_equal(logits_a, logits_b)
+            and all(np.array_equal(leaves_a[k], leaves_b[k])
+                    for k in leaves_a))
+    goodput = ok / len(futs)
+    check(goodput >= DISAGG_GOODPUT and lost == 0,
+          f"disagg hang: goodput {goodput}, {lost} futures lost, errors "
+          f"{errors[:3]}")
+    check(st["prefill"]["failovers"] >= 1 and "failover" in decisions,
+          f"disagg hang: failovers {st['prefill']['failovers']}, decisions "
+          f"{decisions}")
+    check(same, "disagg hang: the retried prefill's segment differs from "
+                "the hung replica's")
+    rec = dict(phase="disagg_hang", card=smi, requests=len(futs), ok=ok,
+               lost=lost, goodput=goodput, wall_s=wall,
+               failovers=st["prefill"]["failovers"], decisions=decisions,
+               retried_segment_equal=same, errors=errors[:3])
+    emit(rec)
+    return rec
+
+
+def disagg_phase(np, torch, FA, smi, seed, gen, gen13):
+    """Phase 19: #3 at the prefill pool's shapes, then the four gates of
+    disaggregated serving on the card: parity through a drain, the prefix
+    cache's hits, each pool's autoscaling and a hung prefill replica."""
+    from paddle_tpu_torch.serving import demo_model
+    t0 = time.perf_counter()
+    fa = [flash_case(torch, FA, f"prefill_pool_s{s}", "float32", 1, 4, s, 64,
+                     None, True, TIMED_ITERS, gen, phase="disagg_kernel")
+          for s in GEN_PROMPT_BUCKETS]
+    model = demo_model(**GEN_MODEL)
+    wl = gen13["workload"]
+    parity = disagg_parity(np, torch, smi, model, wl)
+    prefix = {(c, sp is not None): disagg_prefix(np, torch, smi, model,
+                                                 seed, c, sp)
+              for c, sp in ((None, None), (1, None), (1, GEN_SAMPLING))}
+    scale = disagg_autoscale(np, torch, smi, model, wl)
+    hang = disagg_hang(np, torch, smi, model, seed)
+    opened, closed, sampled = (prefix[None, False], prefix[1, False],
+                               prefix[1, True])
+    emit(dict(
+        phase="disagg_summary", card=smi,
+        tokens_per_s={"parity": parity["tokens_per_s"],
+                      "prefix_open": opened["tokens_per_s"],
+                      "prefix_closed": closed["tokens_per_s"],
+                      "prefix_closed_sampled": sampled["tokens_per_s"]},
+        prefix_hit_rate=closed["prefix_hit_rate"],
+        ttft_hit_ms=[closed["ttft_hit_p50_ms"], closed["ttft_hit_p99_ms"]],
+        ttft_miss_ms=[closed["ttft_miss_p50_ms"], closed["ttft_miss_p99_ms"]],
+        ttft_sampled_hit_ms=[sampled["ttft_hit_p50_ms"],
+                             sampled["ttft_hit_p99_ms"]],
+        ttft_sampled_miss_ms=[sampled["ttft_miss_p50_ms"],
+                              sampled["ttft_miss_p99_ms"]],
+        ttft_open_ms=[opened["ttft_hit_p50_ms"], opened["ttft_miss_p50_ms"]],
+        handoff_ms=[opened["handoff_p50_ms"], opened["handoff_p99_ms"]],
+        handoff_planned_ms=[opened["handoff_planned_p50_ms"],
+                            opened["handoff_planned_p99_ms"]],
+        link_bandwidth_bps=opened["link_bandwidth_bps"],
+        warmup=opened["warmup"], parity_departures=len(parity["departures"]),
+        kernel_ms={r["case"]: r["ms"] for r in fa},
+        autoscale_active=scale["active"], hang_goodput=hang["goodput"],
+        seconds=time.perf_counter() - t0))
+    return dict(kernel=fa, parity=parity, prefix=prefix)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -3989,7 +4371,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     decode_graphs_phase(np, torch, smi, args.seed, gen13, spec14)
 
-    # 19. the kernels line, the card, and the verdict
+    # 19. disaggregated serving: the prefix cache, the two pools, the
+    # priced hand-off
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg_phase(np, torch, FA, smi, args.seed, gen, gen13)
+
+    # 20. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

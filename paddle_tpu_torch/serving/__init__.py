@@ -28,22 +28,31 @@ Counterpart of ``paddle_tpu/serving`` for this slice:
   the per-replica closed / open / half-open state machine
 * :mod:`~paddle_tpu_torch.serving.supervisor` — :class:`ServingSupervisor`,
   the control loop that trips, fails over, probes, restarts and scales
+* :mod:`~paddle_tpu_torch.serving.prefix_cache` — :class:`PrefixCache`:
+  ref-counted, byte-budgeted LRU over prefill KV segments keyed on the
+  full prompt's hash — a hit skips prefill entirely
+* :mod:`~paddle_tpu_torch.serving.disagg`    — disaggregated serving:
+  :class:`PrefillPool` / :class:`DecodePool` as independently scaled
+  fleets and :class:`DisaggServer`, the priced prefill→decode KV hand-off
+  between them (the single engine's streams, token for token)
 
 :class:`MultiDecodeEngine` (:func:`replicate_decode`) is the decode
-fleet over :class:`GenerateEngine` replicas. Disaggregated serving and
-the prefix cache are not ported yet (see ROADMAP.md).
+fleet over :class:`GenerateEngine` replicas.
 """
-from . import breaker, metrics, multi, reqtrace, supervisor
+from . import (breaker, disagg, metrics, multi, prefix_cache, reqtrace,
+               supervisor)
 from .admission import (AdmissionController, DeadlineExpired, PRIORITIES,
                         QueueFullError, ShedError)
 from .batcher import DynamicBatcher, Request
 from .breaker import CircuitBreaker
+from .disagg import DecodePool, DisaggServer, PrefillEngine, PrefillPool
 from .engine import ServingEngine
 from .generate import (DecodeRequest, DemoLM, GenerateEngine,
                        MultiDecodeEngine, demo_model, demo_spec_pair,
                        replicate_decode)
 from .kv_cache import KVCachePool
 from .multi import MultiDeviceEngine, NoHealthyReplicaError, replicate
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams
 from .supervisor import ServingSupervisor
 
@@ -53,5 +62,7 @@ __all__ = ["AdmissionController", "DeadlineExpired", "PRIORITIES",
            "GenerateEngine", "MultiDecodeEngine", "demo_model",
            "demo_spec_pair", "replicate_decode", "KVCachePool",
            "MultiDeviceEngine", "NoHealthyReplicaError", "replicate",
-           "SamplingParams", "ServingSupervisor", "breaker", "metrics",
-           "multi", "reqtrace", "supervisor"]
+           "SamplingParams", "ServingSupervisor", "PrefixCache",
+           "PrefillEngine", "PrefillPool", "DecodePool", "DisaggServer",
+           "breaker", "disagg", "metrics", "multi", "prefix_cache",
+           "reqtrace", "supervisor"]

@@ -202,6 +202,8 @@ def _signature(*tensors):
 def _label(key, k):
     """A signature key as the reference names its executable."""
     kind, *b = key
+    if not b:
+        return kind
     if kind in ("prefill", "dprefill"):
         return f"{kind}[L={b[0]}]"
     if kind in ("insert", "dinsert"):
@@ -221,11 +223,18 @@ BRANCHES = ("greedy", "sampled", "filtered")
 _PROMPT_EXTRA = 6
 # the stats counter each executable kind's replays advance
 _REPLAYS = {"decode": "tick_replays", "spec": "tick_replays",
-            "prefill": "prefill_replays", "dprefill": "draft_prefill_replays"}
+            "prefill": "prefill_replays", "dprefill": "draft_prefill_replays",
+            "psample": "psample_replays"}
 
 
 def _gkey_label(gkey):
     return f"{gkey[0]}[{', '.join(str(x) for x in gkey[1:])}]"
+
+
+def _inputs(host):
+    """A step's host inputs as a list: its lane array, or the tuple of
+    arrays a body of more than one input takes."""
+    return list(host) if isinstance(host, tuple) else [host]
 
 
 def _bits(a):
@@ -234,25 +243,28 @@ def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
 
 
+def _knob_rows(knobs):
+    """Host knobs ``(temps, top_ks, top_ps, seeds, positions)`` as the five
+    int64 rows :func:`_knobs_of` reads: top-k, seed, generation index, and
+    the temperature's and top-p's float32 bits."""
+    temps, top_ks, top_ps, seeds, positions = knobs
+    return [np.asarray(a, np.int64).reshape(-1) for a in (
+        top_ks, seeds, positions, _bits(temps), _bits(top_ps))]
+
+
 def _lanes(tokens, lengths, active, knobs):
     """A tick's lane array, int64 ``[8, slots]``: the tokens, lengths and
-    active flags, then the knobs as :func:`_knobs_of` reads them (top-k,
-    seed, generation index, and the temperature's and top-p's float32
-    bits)."""
-    temps, top_ks, top_ps, seeds, positions = knobs
+    active flags, then the knob rows (:func:`_knob_rows`)."""
     return np.stack([np.asarray(a, np.int64) for a in (
-        tokens, lengths, active, top_ks, seeds, positions, _bits(temps),
-        _bits(top_ps))])
+        tokens, lengths, active)] + _knob_rows(knobs))
 
 
 def _prompt_lanes(tokens, length, knobs):
     """A prefill's lane array, int64 ``[L + 6]``: the bucket's ``L``
-    tokens, the prompt's length, then the request's knobs as in
-    :func:`_lanes`."""
-    temps, top_ks, top_ps, seeds, positions = knobs
-    return np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in (
-        tokens, [length], top_ks, seeds, positions, _bits(temps),
-        _bits(top_ps))])
+    tokens, the prompt's length, then the request's knob rows."""
+    return np.concatenate([np.asarray(tokens, np.int64).reshape(-1),
+                           np.asarray([length], np.int64)]
+                          + _knob_rows(knobs))
 
 
 def _knobs_of(rows):
@@ -322,7 +334,202 @@ class _Graphs:
                      if device.type == "cuda" else None)
 
 
-class GenerateEngine:
+class _Steps:
+    """What an engine's executables share: a ``GraphEntry`` a key over the
+    served model (``_Graphs``), captured at the key's first step or at
+    warmup, replayed after it, captured again over a new model before a
+    rebinding (:meth:`prepare`). An engine provides ``_plan(model, gkey)``
+    (the key's body, the live arenas it writes and idle inputs), and the
+    attributes ``model``, ``device``, ``_graphs``, ``_prepared``,
+    ``_build_lock``, ``_stream``, ``_names`` (its K/V leaves), ``_stats``
+    and ``_stats_lock``. :class:`GenerateEngine` and the disaggregated
+    prefill engine (``serving/disagg.py``) are such engines."""
+
+    # Each of the reference's jitted closures is a step body here
+    # (``_decode_body``, ``_spec_body``, ``_prefill_body``,
+    # ``_draft_prefill_body``): a function of one int64 lane array on the
+    # device (and, where the body takes more inputs, of those: a prefix
+    # hit's cached logits) and of the arenas it writes in place. ``_run``
+    # runs a body through its ``GraphEntry`` (``graphs.py``), one per
+    # executable key ``(kind, capacity or bucket, host branch)``: on the
+    # card a CUDA graph captured over the entry's static inputs, the
+    # served model's weights and the arenas at their fixed addresses
+    # (``KVCachePool.arena``); on the CPU a re-run over the static inputs.
+    # A step copies its lanes in from pinned memory, replays, and reads
+    # back once. What capture demands, and what the bodies do:
+    #
+    # * fixed shapes: every write covers all lanes, masked on the values
+    #   (``_masked_write``, as the reference's), and never puts two entries
+    #   on one row (``_window_write``: CUDA's ``index_put_`` leaves the
+    #   winner of two undefined);
+    # * no host work inside: tokens, lengths, the knobs, seeds and
+    #   generation indices ride in the lane array (the float knobs as
+    #   their float32 bits), keys and the draft's noise are derived on the
+    #   card, and the two batch-wide branches (all greedy; top-k or top-p
+    #   on some row) are part of the key (``_branch``), read from the
+    #   host's knobs;
+    # * weights: an entry belongs to the model it captured (``_Graphs``);
+    #   a rebinding captures over the new model first (``prepare``).
+    #
+    # The inserts and grows stay plain copies (one ``_foreach_copy_`` an
+    # insert; a grow, at most once a capacity in an engine's life, three
+    # copies a leaf): a graph of its own would add a replay to each
+    # admission, and folding the insert into the prefill's graph would
+    # multiply the prefill's executables by the capacities.
+
+    @property
+    def captures(self):
+        """The graphs (on the CPU, the re-run entries) built so far, each
+        executable key once a model, a swap's captures included: flat
+        after :meth:`warmup` under any traffic."""
+        with self._stats_lock:
+            return self._stats["captures"]
+
+    def _bound(self):
+        """The executables of the served model: after a rebinding of
+        ``model``, those :meth:`prepare` captured over it, else none yet
+        (each key then captures at its first step, under traffic)."""
+        model = self.model
+        g = self._graphs
+        if g.model is not model:
+            with self._build_lock:
+                g = self._graphs
+                if g.model is not model:
+                    p, self._prepared = self._prepared, None
+                    g = (p if p is not None and p.model is model
+                         else _Graphs(model, self.device))
+                    self._graphs = g
+        return g
+
+    def _run(self, g, gkey, host=None, warm=False):
+        """Executable ``gkey`` of ``g`` over the lane array ``host`` (a
+        tuple of host arrays where the body takes more than one input):
+        returns its static outputs (read them, or queue their copies,
+        before the next step). A key met for the first time is captured;
+        on the card its body first runs eagerly on a side stream, over the
+        live arenas (that run is this call's result), or with ``warm`` (a
+        warmup's or a swap's, which must not touch the live arenas and
+        return nothing) over zero arenas of their shapes, from idle lanes
+        where ``host`` is None. No key falls back to an eager step: one
+        that cannot be captured raises ``CaptureError``."""
+        entry = g.entries.get(gkey)
+        if entry is None:
+            with self._build_lock:
+                entry = g.entries.get(gkey)
+                if entry is None:
+                    first, entry = self._capture(g, gkey, host, warm)
+                    if first is not None:
+                        return first
+        if warm:
+            return None
+        out = entry.replay([_device.host_tensor(a, self.device)
+                            for a in _inputs(host)], clone=False)
+        with self._stats_lock:
+            self._stats[_REPLAYS[gkey[0]]] += 1
+        return out
+
+    def _capture(self, g, gkey, host, warm):
+        """A new entry of ``g`` for ``gkey`` (under the build lock); on the
+        card the body's eager run, then its capture in ``g``'s pool, on
+        the engine's side stream, thread-locally (another replica on the
+        card keeps stepping meanwhile); on the CPU, where ``warm``, the
+        body's run over zero arenas alone. Returns (the eager run's
+        outputs, or None where ``warm`` or on the CPU, the entry)."""
+        body, arenas, idle = self._plan(g.model, gkey)
+        xs = [_device.to_device(a, self.device)
+              for a in _inputs(idle if host is None else host)]
+
+        def run(*x):
+            with torch.no_grad():
+                return body(*x, *arenas)
+
+        entry = GraphEntry(run, xs, self.device, lock=g.lock,
+                           label=f"{type(self).__name__} "
+                                 f"{_gkey_label(gkey)}")
+        work = tuple({name: torch.zeros_like(t) for name, t in a.items()}
+                     for a in arenas) if warm else arenas
+
+        def eager(*x):
+            with torch.no_grad():
+                return body(*x, *work)
+
+        first = None
+        if not entry.card and warm:
+            # the card's warm run on the CPU too: the first step under
+            # traffic finds the step's operators warmed up, as on the card
+            eager(*xs)
+        elif entry.card:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            first = eager_on_side_stream(eager, xs, self._stream)
+            with torch.no_grad():
+                for buf, x in zip(entry.inputs, xs):
+                    buf.copy_(x)
+            entry.capture(pool=g.pool, stream=self._stream,
+                          mode="thread_local")
+        g.entries[gkey] = entry
+        with self._stats_lock:
+            self._stats["captures"] += 1
+        return (None if warm else first), entry
+
+    def _sample(self, logits, knobs, branch):
+        """Next tokens from ``logits [n, V]`` under device knobs ``(temps,
+        top_ks, top_ps, seeds, positions)``, on the host's ``branch``. An
+        all-greedy batch is its argmax: what the filter and the Gumbel
+        draw give a greedy row, whatever the noise."""
+        if branch == "greedy":
+            return torch.argmax(logits, dim=-1)
+        temps, top_ks, top_ps, seeds, positions = knobs
+        filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps,
+                                          any_filter=branch == "filtered")
+        return sampling_mod.sample_from_filtered(filt, seeds, positions)
+
+    def _prefill_body(self, model, branch, lanes):
+        """The prompt's forward at one bucket: its K/V chunk, leaf by leaf,
+        the first token sampled from its last logits, and those logits
+        (``[1, V]``; a prefix cache keeps them)."""
+        lb = lanes.shape[0] - _PROMPT_EXTRA
+        kv, last = model.prefill_fn(model.state, lanes[:lb][None],
+                                    lanes[lb:lb + 1])
+        first = self._sample(last, _knobs_of(lanes[lb + 1:, None]), branch)
+        return [kv[name] for name in self._names] + [first, last]
+
+    def _wait(self):
+        """Wait for the work queued so far (the copies to the host
+        included)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    @staticmethod
+    def _knobs(n, branch="greedy"):
+        """Host sampling knobs of width ``n`` that take ``branch``
+        (:data:`BRANCHES`): greedy, sampled with no filter, or sampled
+        with both filters on."""
+        sampled, filt = branch != "greedy", branch == "filtered"
+        temps = np.full((n,), 1.0 if sampled else 0.0, np.float32)
+        top_ks = np.full((n,), 1 if filt else 0, np.int32)
+        top_ps = np.full((n,), 0.5 if filt else 1.0, np.float32)
+        return (temps, top_ks, top_ps, np.zeros((n,), np.uint32),
+                np.zeros((n,), np.int32))
+
+    def prepare(self, model):
+        """Capture every executable this engine holds over ``model`` before
+        ``model`` is bound (a fleet's weight swap, ``_serve_module``), so
+        that no step after the rebinding captures; the steps take them up
+        when they find the model rebound. The live arenas are captured and
+        never written: each body's eager run goes to zero arenas. Returns
+        the number captured."""
+        with self._build_lock:
+            keys = list(self._graphs.entries)
+        prepared = _Graphs(model, self.device)
+        for gkey in keys:
+            self._run(prepared, gkey, warm=True)
+        self._prepared = prepared
+        self._wait()
+        return len(prepared.entries)
+
+
+class GenerateEngine(_Steps):
     """Continuous-batching decode over one model.
 
     Parameters
@@ -577,39 +784,6 @@ class GenerateEngine:
         with self._lock:
             return len(self._queue)
 
-    # -- the steps ---------------------------------------------------------
-    #
-    # Each of the reference's jitted closures is a step body here
-    # (``_decode_body``, ``_spec_body``, ``_prefill_body``,
-    # ``_draft_prefill_body``): a function of one int64 lane array on the
-    # device and of the arenas it writes in place. ``_run`` runs a body
-    # through its ``GraphEntry`` (``graphs.py``), one per executable key
-    # ``(kind, capacity or bucket, host branch)``: on the card a CUDA graph
-    # captured over the entry's static lane array, the served model's
-    # weights and the arenas at their fixed addresses
-    # (``KVCachePool.arena``); on the CPU a re-run over the static lane
-    # array. A step copies its lanes in from pinned memory, replays, and
-    # reads back once. What capture demands, and what the bodies do:
-    #
-    # * fixed shapes: every write covers all lanes, masked on the values
-    #   (``_masked_write``, as the reference's), and never puts two entries
-    #   on one row (``_window_write``: CUDA's ``index_put_`` leaves the
-    #   winner of two undefined);
-    # * no host work inside: tokens, lengths, the knobs, seeds and
-    #   generation indices ride in the lane array (the float knobs as
-    #   their float32 bits), keys and the draft's noise are derived on the
-    #   card, and the two batch-wide branches (all greedy; top-k or top-p
-    #   on some row) are part of the key (``_branch``), read from the
-    #   host's knobs;
-    # * weights: an entry belongs to the model it captured (``_Graphs``);
-    #   a rebinding captures over the new model first (``prepare``).
-    #
-    # The inserts and grows stay plain copies (one ``_foreach_copy_`` an
-    # insert; a grow, at most once a capacity in an engine's life, three
-    # copies a leaf): a graph of its own would add a replay to each
-    # admission, and folding the insert into the prefill's graph would
-    # multiply the prefill's executables by the capacities.
-
     def _note(self, key, *tensors):
         """Record a step's signature; a first meeting counts as a
         compile, as the reference counts its executables."""
@@ -625,30 +799,6 @@ class GenerateEngine:
         dtypes met): both stay flat after :meth:`warmup` under any
         join/leave churn."""
         return len(self._exec), len(self._traces)
-
-    @property
-    def captures(self):
-        """The graphs (on the CPU, the re-run entries) built so far, each
-        executable key once a model, a swap's captures included: flat
-        after :meth:`warmup` under any traffic."""
-        with self._stats_lock:
-            return self._stats["captures"]
-
-    def _bound(self):
-        """The executables of the served model: after a rebinding of
-        ``model``, those :meth:`prepare` captured over it, else none yet
-        (each key then captures at its first step, under traffic)."""
-        model = self.model
-        g = self._graphs
-        if g.model is not model:
-            with self._build_lock:
-                g = self._graphs
-                if g.model is not model:
-                    p, self._prepared = self._prepared, None
-                    g = (p if p is not None and p.model is model
-                         else _Graphs(model, self.device))
-                    self._graphs = g
-        return g
 
     def _plan(self, model, gkey):
         """Executable ``gkey`` over ``model``: its body, the live arenas
@@ -673,86 +823,6 @@ class GenerateEngine:
                     idle)
         return self._draft_prefill_body, (), idle
 
-    def _run(self, g, gkey, host=None, warm=False):
-        """Executable ``gkey`` of ``g`` over the lane array ``host``:
-        returns its static outputs (read them, or queue their copies,
-        before the next step). A key met for the first time is captured;
-        on the card its body first runs eagerly on a side stream, over the
-        live arenas (that run is this call's result), or with ``warm`` (a
-        warmup's or a swap's, which must not touch the live arenas and
-        return nothing) over zero arenas of their shapes, from idle lanes
-        where ``host`` is None. No key falls back to an eager step: one
-        that cannot be captured raises ``CaptureError``."""
-        entry = g.entries.get(gkey)
-        if entry is None:
-            with self._build_lock:
-                entry = g.entries.get(gkey)
-                if entry is None:
-                    first, entry = self._capture(g, gkey, host, warm)
-                    if first is not None:
-                        return first
-        if warm:
-            return None
-        out = entry.replay([_device.host_tensor(host, self.device)],
-                           clone=False)
-        with self._stats_lock:
-            self._stats[_REPLAYS[gkey[0]]] += 1
-        return out
-
-    def _capture(self, g, gkey, host, warm):
-        """A new entry of ``g`` for ``gkey`` (under the build lock); on the
-        card the body's eager run, then its capture in ``g``'s pool, on
-        the engine's side stream, thread-locally (another replica on the
-        card keeps stepping meanwhile); on the CPU, where ``warm``, the
-        body's run over zero arenas alone. Returns (the eager run's
-        outputs, or None where ``warm`` or on the CPU, the entry)."""
-        body, arenas, idle = self._plan(g.model, gkey)
-        lanes = _device.to_device(idle if host is None else host,
-                                  self.device)
-
-        def run(x):
-            with torch.no_grad():
-                return body(x, *arenas)
-
-        entry = GraphEntry(run, [lanes], self.device, lock=g.lock,
-                           label=f"GenerateEngine {_gkey_label(gkey)}")
-        work = tuple({name: torch.zeros_like(t) for name, t in a.items()}
-                     for a in arenas) if warm else arenas
-
-        def eager(x):
-            with torch.no_grad():
-                return body(x, *work)
-
-        first = None
-        if not entry.card and warm:
-            # the card's warm run on the CPU too: the first step under
-            # traffic finds the step's operators warmed up, as on the card
-            eager(lanes)
-        elif entry.card:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            first = eager_on_side_stream(eager, [lanes], self._stream)
-            with torch.no_grad():
-                entry.inputs[0].copy_(lanes)
-            entry.capture(pool=g.pool, stream=self._stream,
-                          mode="thread_local")
-        g.entries[gkey] = entry
-        with self._stats_lock:
-            self._stats["captures"] += 1
-        return (None if warm else first), entry
-
-    def _sample(self, logits, knobs, branch):
-        """Next tokens from ``logits [n, V]`` under device knobs ``(temps,
-        top_ks, top_ps, seeds, positions)``, on the host's ``branch``. An
-        all-greedy batch is its argmax: what the filter and the Gumbel
-        draw give a greedy row, whatever the noise."""
-        if branch == "greedy":
-            return torch.argmax(logits, dim=-1)
-        temps, top_ks, top_ps, seeds, positions = knobs
-        filt = sampling_mod.filter_logits(logits, temps, top_ks, top_ps,
-                                          any_filter=branch == "filtered")
-        return sampling_mod.sample_from_filtered(filt, seeds, positions)
-
     def _decode_body(self, model, branch, lanes, bufs):
         """The decode step: one token for every lane of arena ``bufs``,
         each active lane's entry written in place at its ``length``."""
@@ -762,15 +832,6 @@ class GenerateEngine:
         nxt = self._sample(logits, _knobs_of(lanes[3:]), branch)
         _masked_write(bufs, entry, ln.clamp(max=cap - 1), active)
         return [nxt]
-
-    def _prefill_body(self, model, branch, lanes):
-        """The prompt's forward at one bucket: its K/V chunk, leaf by leaf,
-        and the first token sampled from its last logits."""
-        lb = lanes.shape[0] - _PROMPT_EXTRA
-        kv, last = model.prefill_fn(model.state, lanes[:lb][None],
-                                    lanes[lb:lb + 1])
-        first = self._sample(last, _knobs_of(lanes[lb + 1:, None]), branch)
-        return [kv[name] for name in self._names] + [first]
 
     def _draft_prefill_body(self, lanes):
         """The draft's prompt forward at one bucket: its K/V chunk only (the
@@ -866,8 +927,8 @@ class GenerateEngine:
         self._note(("prefill", tokens.shape[1]), host)
         out = self._run(g, ("prefill", tokens.shape[1],
                             _branch(knobs, g.model.vocab)), host)
-        return (dict(zip(self._names, out[:-1])),
-                out[-1].to("cpu", non_blocking=True))
+        return (dict(zip(self._names, out[:-2])),
+                out[-2].to("cpu", non_blocking=True))
 
     def _draft_prefill(self, tokens, length):
         """The draft's prompt ingest at one bucket: its K/V chunk on the
@@ -877,12 +938,6 @@ class GenerateEngine:
         self._note(("dprefill", tokens.shape[1]), host)
         return dict(zip(self._draft_names,
                         self._run(g, ("dprefill", tokens.shape[1]), host)))
-
-    def _wait(self):
-        """Wait for the work queued so far (the copies to the host
-        included)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
 
     def _insert(self, bufs, chunk, slot, kind="insert"):
         """Write a prefill's ``chunk {leaf: [1, L, *tail]}`` into arena
@@ -908,18 +963,6 @@ class GenerateEngine:
             out[name][:, old:].zero_()
             out[name][:, :old].copy_(rows)
         return out
-
-    @staticmethod
-    def _knobs(n, branch="greedy"):
-        """Host sampling knobs of width ``n`` that take ``branch``
-        (:data:`BRANCHES`): greedy, sampled with no filter, or sampled
-        with both filters on."""
-        sampled, filt = branch != "greedy", branch == "filtered"
-        temps = np.full((n,), 1.0 if sampled else 0.0, np.float32)
-        top_ks = np.full((n,), 1 if filt else 0, np.int32)
-        top_ps = np.full((n,), 0.5 if filt else 1.0, np.float32)
-        return (temps, top_ks, top_ps, np.zeros((n,), np.uint32),
-                np.zeros((n,), np.int32))
 
     def warmup(self, *_signatures):
         """Meet every signature the engine can need once, and capture
@@ -984,23 +1027,6 @@ class GenerateEngine:
                     self._run(g, ("dprefill", lb), warm=True)
             self._wait()
         return len(self._exec) - before
-
-    def prepare(self, model):
-        """Capture every executable this engine holds over ``model`` before
-        ``model`` is bound (a fleet's weight swap,
-        ``MultiDecodeEngine._serve_module``), so that no step after the
-        rebinding captures; the steps take them up when they find the
-        model rebound. The live arenas are captured and never written:
-        each body's eager run goes to zero arenas. Returns the number
-        captured."""
-        with self._build_lock:
-            keys = list(self._graphs.entries)
-        prepared = _Graphs(model, self.device)
-        for gkey in keys:
-            self._run(prepared, gkey, warm=True)
-        self._prepared = prepared
-        self._wait()
-        return len(prepared.entries)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -90,6 +90,27 @@ def device_memory_limit(device=None):
     return int(torch.cuda.mem_get_info(device)[1])
 
 
+def to_host(tensors):
+    """``tensors`` (on one device) as numpy arrays on the host. From a CUDA
+    card every tensor leaves by one non-blocking copy into one pinned host
+    buffer (each at a 16-byte aligned offset) and the caller's stream is
+    waited for once, after the last; on the CPU each is a clone."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.clone().numpy() for t in tensors]
+    offsets, total = [], 0
+    for t in tensors:
+        offsets.append(total)
+        total += -(-t.numel() * t.element_size() // 16) * 16
+    host = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+    views = []
+    for t, off in zip(tensors, offsets):
+        nb = t.numel() * t.element_size()
+        views.append(host[off:off + nb].view(t.dtype).view(t.shape))
+        views[-1].copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [v.numpy() for v in views]
+
+
 class KVCachePool:
     """Fixed-slot KV arena with geometric capacity growth.
 
@@ -266,25 +287,9 @@ class KVCachePool:
         if pad > self.capacity:
             raise ValueError(
                 f"export pad {pad} exceeds arena capacity {self.capacity}")
-        rows = {name: self.buffers[name][slot, :pad]
-                for name, _tail, _dt in self._leaf_list}
-        if self.device.type == "cuda":
-            # one pinned buffer, each leaf at a 16-byte aligned offset
-            offsets, total = {}, 0
-            for name, t in rows.items():
-                offsets[name] = total
-                total += -(-t.numel() * t.element_size() // 16) * 16
-            host = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
-            views = {}
-            for name, t in rows.items():
-                nb = t.numel() * t.element_size()
-                views[name] = host[offsets[name]:offsets[name] + nb].view(
-                    t.dtype).view(t.shape)
-                views[name].copy_(t, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            leaves = {name: v.numpy() for name, v in views.items()}
-        else:
-            leaves = {name: t.clone().numpy() for name, t in rows.items()}
+        names = [name for name, _tail, _dt in self._leaf_list]
+        leaves = dict(zip(names, to_host(
+            [self.buffers[name][slot, :pad] for name in names])))
         seg_bytes = sum(int(a.nbytes) for a in leaves.values())
         self._check_bytes(seg_bytes, pad, "export_slot")
         return {"length": length, "pad": pad, "bytes": seg_bytes,

@@ -117,9 +117,8 @@ inflate ``serving.decode.tokens`` or ``slo.tokens_per_s``):
   combined; the draft arena's footprint publishes under
   ``serving.decode.draft_cache_bytes`` / ``..draft_cache_capacity``
 
-Disaggregated-serving series (prefill pool → decode pool; their
-callers, ``serving/disagg.py`` and ``prefix_cache.py``, are not ported
-yet, ROADMAP.md Queue A item 17.6):
+Disaggregated-serving series (prefill pool → decode pool; recorded by
+``serving/disagg.py`` and ``serving/prefix_cache.py``):
 
 * ``serving.handoff.bytes`` — gauge: the last planned KV transfer's
   exact payload (``bytes_per_token(spec) × prompt bucket``);

@@ -125,6 +125,27 @@ def make_workload(n, prompt_buckets, max_len, seed=0):
     return reqs
 
 
+def make_prefix_workload(n, reuse_frac, heads, prompt_buckets, max_len,
+                         seed=0):
+    """Head-heavy traffic: ``reuse_frac`` of requests carry one of
+    ``heads`` shared system-prompt heads (the whole prompt repeats: the
+    prefix cache is keyed on the whole prompt), the rest are
+    :func:`make_workload`'s ragged unique prompts; output lengths keep its
+    bimodal skew. The reference's draws from the same seed."""
+    rng = np.random.RandomState(seed)
+    base = make_workload(n, prompt_buckets, max_len, seed=seed)
+    head_len = int(prompt_buckets[-1])
+    head_prompts = [rng.randint(1, 31, size=head_len).tolist()
+                    for _ in range(max(1, int(heads)))]
+    out = []
+    for prompt, new in base:
+        if rng.rand() < reuse_frac:
+            prompt = head_prompts[int(rng.randint(len(head_prompts)))]
+            new = min(new, max_len - head_len)
+        out.append((prompt, new))
+    return out
+
+
 def _pct(sorted_vals, q):
     if not sorted_vals:
         return None
@@ -486,6 +507,145 @@ def run_fleet(model, workload, replicas, slots, max_len, prompt_buckets,
     return out
 
 
+def run_disagg_load(model, workload, slots, max_len, prompt_buckets,
+                    sampling=None, seed_base=None, prefill_replicas=1,
+                    decode_replicas=1, clients=None):
+    """Drive a ``DisaggServer`` (a prefill pool and a decode pool of
+    ``model``'s copies on its device, the prefix cache in front of the
+    prefill pool, no supervision) over the workload, and return its
+    measurement with every request's tokens under ``"outputs"``.
+    ``clients=None`` offers every request at once (a capacity
+    measurement); ``clients=k`` runs ``k`` closed-loop clients, each
+    sending its next request when its last one is back, so that a
+    request's TTFT is its service and not its wait behind the others.
+    The port's monitor is on for the run (in memory, where it was off):
+    the prefix hit rate and TTFT split by hit and miss come from each
+    request's ``serving.request`` record (``"records"``), as the
+    reference's do. Also
+    reported: each pool's warmup captures and seconds, the graphs
+    captured and the signatures met after warmup (0 expected), the port's
+    kernel launches the traffic made (counted from zero after warmup), the
+    link model's bandwidth, and the hand-offs' planned ms (the link model,
+    ``DisaggServer.planned_handoff_ms``) beside their measured ms (each
+    record's ``handoff_ms``)."""
+    import threading
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import DisaggServer, metrics, reqtrace
+    was_on = monitor.enabled()
+    if not was_on:
+        monitor.enable()
+    metrics.reset_windows()
+    reqtrace.reset()
+    srv = DisaggServer(
+        model, prefill_devices=[model.device] * prefill_replicas,
+        decode_devices=[model.device] * decode_replicas, slots=slots,
+        page=PAGE, factor=FACTOR, max_len=max_len,
+        prompt_buckets=prompt_buckets,
+        # the whole burst under half the queue: a burst with nothing back
+        # yet lifts the prefill engines' admission ladder (the server has
+        # no shed switch) a rung, which then sheds normal-priority
+        # requests from half the queue
+        queue_depth=2 * len(workload) + 8, supervise=False)
+    pools = {"prefill": srv.prefill_pool, "decode": srv.decode_pool}
+
+    def captures():
+        return {name: sum(r.engine.captures for r in pool._replicas)
+                for name, pool in pools.items()}
+
+    def execs():
+        return [r.engine.executables() for pool in pools.values()
+                for r in pool._replicas]
+
+    def send(i):
+        prompt, new = workload[i]
+        return srv.submit(prompt, max_new_tokens=new, sampling=sampling,
+                          seed=(seed_base + i) if seed_base is not None
+                          else None)
+
+    try:
+        warmup = {}
+        for name, pool in pools.items():
+            t0 = time.perf_counter()
+            pool.warmup()
+            if model.device.type == "cuda":
+                torch.cuda.synchronize(model.device)
+            warmup[name] = {"seconds": time.perf_counter() - t0,
+                            "captures": captures()[name]}
+        ex0, cap0 = execs(), captures()
+        kernels.reset_launches()
+        outs = [None] * len(workload)
+        t0 = time.perf_counter()
+        if clients is None:
+            futs = [send(i) for i in range(len(workload))]
+            outs = [f.result(timeout=600) for f in futs]
+        else:
+            def client(c):
+                for i in range(c, len(workload), clients):
+                    outs[i] = send(i).result(timeout=600)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        ex1, cap1 = execs(), captures()
+        stats = srv.stats()
+        planned = [srv.planned_handoff_ms(len(p)) for p, _ in workload]
+        records = [r for r in reqtrace.recent() if r["outcome"] == "ok"]
+    finally:
+        srv.close()
+        if not was_on:
+            monitor.disable()
+    hits = [r for r in records if r.get("prefix_hit") is True]
+    misses = [r for r in records if r.get("prefix_hit") is False]
+
+    def ttfts(rs):
+        return sorted(r["ttft_ms"] for r in rs if r.get("ttft_ms") is not None)
+
+    t_hit, t_miss = ttfts(hits), ttfts(misses)
+    handoffs = sorted(r["handoff_ms"] for r in records
+                      if r.get("handoff_ms") is not None)
+    planned_ms = sorted(ms for _, ms in planned)
+    tokens = int(sum(len(o) for o in outs))
+    return {
+        "mode": "disagg",
+        "device": str(model.device),
+        "clients": clients,
+        "requests": len(workload),
+        "tokens": tokens,
+        "wall_s": wall_s,
+        "tokens_per_s": tokens / wall_s,
+        "prefix_hit_rate": (len(hits) / len(records)) if records else None,
+        "ttft_hit_p50_ms": _pct(t_hit, 0.50),
+        "ttft_hit_p99_ms": _pct(t_hit, 0.99),
+        "ttft_miss_p50_ms": _pct(t_miss, 0.50),
+        "ttft_miss_p99_ms": _pct(t_miss, 0.99),
+        "handoff_p50_ms": _pct(handoffs, 0.50),
+        "handoff_p99_ms": _pct(handoffs, 0.99),
+        "handoff_planned_p50_ms": _pct(planned_ms, 0.50),
+        "handoff_planned_p99_ms": _pct(planned_ms, 0.99),
+        "handoffs": stats["handoffs"],
+        "handoff_bytes": stats["handoff_bytes"],
+        "planned_bytes": sum(b for b, _ in planned),
+        "link_bandwidth_bps": stats["link_bandwidth_bps"],
+        "prefix_cache": stats.get("prefix"),
+        "prefills": stats["prefill"]["prefills"],
+        "decode_prefills": stats["decode"]["prefills"],
+        "kv_imports": stats["decode"]["kv_imports"],
+        "warmup": warmup,
+        "post_warmup_captures": sum(cap1[k] - cap0[k] for k in cap0),
+        "post_warmup_signatures": sum(
+            (b[0] - a[0]) + (b[1] - a[1]) for a, b in zip(ex0, ex1)),
+        "launches": launches,
+        "records": records,
+        "outputs": outs,
+    }
+
+
 def nvidia_smi():
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -537,12 +697,28 @@ def main(argv=None):
     ap.add_argument("--replicas", default=None, metavar="N,N,...",
                     help="run the traffic through a MultiDecodeEngine over "
                          "each count of replicas on the one device")
+    ap.add_argument("--prefix-reuse", type=float, default=0.0,
+                    metavar="FRAC",
+                    help="fraction of requests sharing one of "
+                         "--prefix-heads prompt heads; > 0 runs the "
+                         "disaggregated topology and splits TTFT by prefix "
+                         "hit and miss")
+    ap.add_argument("--prefix-heads", type=int, default=4, metavar="N",
+                    help="number of distinct shared prompt heads")
+    ap.add_argument("--clients", type=int, default=0,
+                    help="with --prefix-reuse: closed-loop clients (0: "
+                         "every request offered at once)")
     args = ap.parse_args(argv)
     args.arms = [a for a in args.arms.split(",") if a]
     if not args.arms or set(args.arms) - set(ARMS):
         ap.error(f"--arms takes graph and eager, got {args.arms!r}")
     if args.replicas and args.arms != ["graph"]:
         ap.error("--replicas runs the graph arm only")
+    if args.prefix_reuse > 0.0 and args.arms != ["graph"]:
+        ap.error("--prefix-reuse runs the graph arm only")
+    if args.prefix_reuse > 0.0 and (args.spec or args.replicas):
+        ap.error("--prefix-reuse runs the disaggregated topology alone: "
+                 "drop --spec and --replicas")
     if args.profile and args.device == "cpu":
         ap.error("--profile reads the card's device time; drop --device cpu")
 
@@ -591,6 +767,21 @@ def _arms(args, result, model, draft, workload, sampling, seed_base):
     run is made in each, in turns (A B B A), and each entry holds one
     record an arm: its first run, with the median tokens/s over its
     runs and every run's (``tokens_per_s_runs``)."""
+    if args.prefix_reuse > 0.0:
+        # the disaggregated topology under head-heavy traffic: the point is
+        # the hit/miss TTFT split, so whole prompts repeat
+        wl = make_prefix_workload(args.requests, args.prefix_reuse,
+                                  args.prefix_heads, PROMPT_BUCKETS,
+                                  args.max_len, seed=args.seed)
+        r = run_disagg_load(model, wl, args.slots, args.max_len,
+                            PROMPT_BUCKETS, sampling=sampling,
+                            seed_base=seed_base,
+                            clients=args.clients or None)
+        r.pop("outputs")
+        r["records"] = len(r["records"])
+        result.update(prefix_reuse=args.prefix_reuse,
+                      prefix_heads=args.prefix_heads, disagg=r)
+        return
     if args.replicas:
         fleet = {}
         for n in (int(x) for x in args.replicas.split(",")):

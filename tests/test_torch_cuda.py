@@ -1507,3 +1507,108 @@ def test_graphed_decode_engine_equals_its_eager_arm(cuda_device, spec):
             assert st["prefill_replays"] == st["prefills"] == len(jobs)
         eng.close(drain=False)
     assert out[GenerateEngine] == out[EagerEngine]
+
+
+def _disagg_jobs():
+    return [([1, 2, 3], 12, None, None), ([5] * 7, 9, None, None),
+            ([1, 2, 3], 12, {"temperature": 1.0}, 5),      # a prefix hit
+            ([9, 8, 7], 10, {"temperature": 0.8, "top_k": 5,
+                             "top_p": 0.9}, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_graphed_disagg_server_equals_the_single_engine(cuda_device,
+                                                        sampled):
+    """The split topology on the card (a prefill pool and a decode pool,
+    graphed) gives the graphed single engine's streams token for token:
+    one arena capacity, so both run the same graphs at the same shapes;
+    nothing captured or met after warmup."""
+    from paddle_tpu_torch.serving import DisaggServer, GenerateEngine
+    from paddle_tpu_torch.serving import demo_model
+    lm = demo_model(vocab=32, dim=64, heads=2, layers=2, max_len=64,
+                    device=cuda_device)
+    kw = dict(slots=4, page=32, max_len=32, prompt_buckets=(8,))
+    jobs = [(p, n, sp if sampled else None, s if sampled else None)
+            for p, n, sp, s in _disagg_jobs()]
+    eng = GenerateEngine(lm, start=False, **kw)
+    eng.warmup()
+    futs = [eng.submit(p, max_new_tokens=n, sampling=sp, seed=s)
+            for p, n, sp, s in jobs]
+    for _ in range(500):
+        if all(f.done() for f in futs):
+            break
+        eng.tick()
+    want = [[int(t) for t in f.result(timeout=10)] for f in futs]
+    eng.close(drain=False)
+    srv = DisaggServer(lm, prefill_devices=[cuda_device],
+                       decode_devices=[cuda_device] * 2, supervise=False,
+                       **kw)
+    srv.warmup()
+    counts = [(r.engine.executables(), r.engine.captures)
+              for pool in (srv.prefill_pool, srv.decode_pool)
+              for r in pool._replicas]
+    futs = [srv.submit(p, max_new_tokens=n, sampling=sp, seed=s)
+            for p, n, sp, s in jobs]
+    got = [[int(t) for t in f.result(timeout=60)] for f in futs]
+    st = srv.stats()
+    after = [(r.engine.executables(), r.engine.captures)
+             for pool in (srv.prefill_pool, srv.decode_pool)
+             for r in pool._replicas]
+    srv.close()
+    assert got == want
+    assert after == counts
+    assert st["prefix"]["hits"] == 1 and st["decode"]["prefills"] == 0
+    assert st["handoff_bytes"] == sum(srv.planned_handoff_ms(len(p))[0]
+                                      for p, *_ in jobs)
+
+
+@pytest.mark.cuda
+def test_a_prefix_hit_launches_no_flash_kernel(cuda_device):
+    """A miss replays the prefill graph (kernel #3 once a layer); a hit of
+    the same prompt samples from the cached logits and launches none."""
+    from paddle_tpu_torch.serving import PrefixCache, demo_model
+    from paddle_tpu_torch.serving.disagg import PrefillEngine
+    lm = demo_model(vocab=32, dim=64, heads=2, layers=2, max_len=64,
+                    device=cuda_device)
+    got = []
+    eng = PrefillEngine(lm, prompt_buckets=(8,), max_len=32, page=32,
+                        start=False, cache=PrefixCache(lm.kv_spec()),
+                        on_segment=lambda *a: got.append(a[1:]))
+    eng.warmup()
+    kernels.reset_launches()
+    eng._process(eng.make_request([4, 2, 7], max_new_tokens=4))
+    assert kernels.launches["flash_attention_fwd"] == lm.layers
+    eng._process(eng.make_request([4, 2, 7], max_new_tokens=4))
+    assert kernels.launches["flash_attention_fwd"] == lm.layers
+    st = eng.stats()
+    eng.close()
+    assert [hit for _seg, _first, hit in got] == [False, True]
+    assert got[0][1] == got[1][1] and got[1][0] is got[0][0]
+    # a greedy hit's first token is the cached logits' argmax, on the host
+    assert st["prefill_replays"] == 1 and st["psample_replays"] == 0
+
+
+@pytest.mark.cuda
+def test_a_prefill_step_that_syncs_raises_capture_error(cuda_device):
+    """A ``PrefillEngine`` prefill whose body reads a value back to the
+    host cannot be captured: ``warmup`` raises ``CaptureError`` naming
+    the line, and no eager step takes over."""
+    from paddle_tpu_torch.graphs import CaptureError
+    from paddle_tpu_torch.serving.disagg import PrefillEngine
+    from paddle_tpu_torch.serving.generate import DemoLM
+
+    class SyncingLM(DemoLM):
+        def prefill_fn(self, state, tokens, lengths):
+            if int(lengths.min()) < 0:
+                raise AssertionError("a length below zero")
+            return super().prefill_fn(state, tokens, lengths)
+
+    lm = SyncingLM(vocab=32, dim=16, heads=2, layers=2, max_len=64,
+                   device=cuda_device)
+    eng = PrefillEngine(lm, prompt_buckets=(4, 8), max_len=32, page=8,
+                        start=False)
+    with pytest.raises(CaptureError, match=r"int\(lengths\.min\(\)\)"):
+        eng.warmup()
+    assert eng.captures == 0
+    eng.close()

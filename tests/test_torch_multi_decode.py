@@ -238,13 +238,20 @@ def test_fleet_serves_the_references_streams(model, ref_streams):
 def test_fleet_hang_fails_over_and_replays(model, ref_streams, kind):
     """Replica 1 hangs in a decode tick while it holds live lanes: the
     supervisor trips its breaker and moves its sequences to replica 0,
-    which regenerates the reference's streams before the hang ends."""
-    f = _fleet(model, start=False, supervise=True,
-               supervisor_interval_s=0.02, inflight_timeout_ms=200,
-               restart_after_s=60.0, breaker_cooldown_s=600.0,
+    which regenerates the reference's streams before the hang ends.
+
+    The supervisor judges only the injected hang: it starts once both
+    warmed replicas are past their first ticks (replica 1 with its four
+    lanes seated by hand, replica 0 idle after serving its share), and
+    stops once its failover verdict is in, before replica 0 seats the
+    moved lanes. A first tick that seats four lanes on a loaded CPU can
+    itself last near the 200 ms timeout."""
+    f = _fleet(model, start=False, inflight_timeout_ms=200,
+               breaker_cooldown_s=600.0,
                draft_model=model if kind == "speculative" else None)
     hung = f._replicas[1].engine
-    f._replicas[0].engine.start()           # replica 1 ticks by hand
+    peer = f._replicas[0].engine
+    peer.start()                            # replica 1 ticks by hand
     ticker = threading.Thread(target=hung.tick, daemon=True)
     try:
         futs = [f.submit(p, max_new_tokens=n, sampling=SAMPLED, seed=s)
@@ -252,9 +259,23 @@ def test_fleet_hang_fails_over_and_replays(model, ref_streams, kind):
         hung.tick()                         # seats its four lanes
         assert hung.heartbeat()["active"] == 4
         assert hung.heartbeat()["queue_depth"] == 0
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            hb = peer.heartbeat()
+            if not (hb["queue_depth"] or hb["active"]):
+                break
+            time.sleep(0.01)
+        assert sum(fut.done() for fut in futs) == 4
+        f.supervisor = serving.ServingSupervisor(
+            f, interval_s=0.02, restart_after_s=60.0, start=False)
         spec = faults.inject("replica_hang", replica=1, delay=HANG_S)
         t0 = time.monotonic()
         ticker.start()
+        f.supervisor.start()
+        while time.monotonic() - t0 < HANG_S and not any(
+                x["decision"] == "failover" for x in f.supervisor.decisions):
+            time.sleep(0.005)
+        f.supervisor.stop()
         got = [[int(t) for t in fut.result(timeout=30)] for fut in futs]
         took = time.monotonic() - t0
         assert spec.fired == 1 and took < HANG_S - 0.5
