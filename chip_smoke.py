@@ -3,7 +3,8 @@
 ResNet-50 training path and its generative serving, plain and speculative,
 with the KV hand-off between engines, the serving monitor,
 multi-replica serving under injected faults and disaggregated serving
-(a prefill pool and a decode pool), on one CUDA card.
+(a prefill pool and a decode pool), and its deployment path (save, load,
+calibrated int8, export), on one CUDA card.
 
     python3 chip_smoke.py [--out PATH] [--seed N]
 
@@ -14,10 +15,11 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
 1. device: the card's name and power limit; every kernel of the path is
    built from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and ``-Xptxas -v``'s registers, shared memory and spills shown,
-   with each kernel instance's count of tensor-core (HMMA) instructions
-   from ``cuobjdump -sass``: the flash forward, dQ and dK/dV kernels, bf16
-   and float32 (split TF32), on the tensor cores must have some, and no
-   spill at head dim 64; the layer-norm instances that run D = 768 with
+   with each kernel instance's count of tensor-core (HMMA, and integer
+   IMMA) instructions from ``cuobjdump -sass``: the flash forward, dQ and
+   dK/dV kernels, bf16 and float32 (split TF32), on the tensor cores must
+   have some, and no spill at head dim 64, and each int8 GEMM instance
+   IMMA and no spill; the layer-norm instances that run D = 768 with
    16-byte accesses (forward f32, bf16 and bf16 with an f32 weight;
    backward f32 and bf16 with an f32 weight) must spill nothing and load
    x by 128-bit global loads (``LDG.E.128``, counted per instance).
@@ -302,7 +304,29 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    and a prefill replica hanging in a prefill: failover, goodput >= 0.90,
    no future lost, the retried segment equal bit for bit to the hung
    replica's own.
-20. the ``kernels`` line (all 14), the card's name and power limit, and
+20. the deployment path: the int8 kernels ``int8_quantize`` (at the
+   served batch's (4096, 768) f32 rows) and ``int8_gemm`` (at BERT-base's
+   four products with M = 4,096, and the reference's ragged (16, 64, 10),
+   (4, 8, 4), (2, 8, 4)) against their plain versions: the quantizer's
+   values and the GEMM's int32 sums equal, its f32 outputs within one
+   ulp; timed as in phase 2 beside ``torch._int_mm`` with its epilogue in
+   PyTorch and a bf16 product. Then phase 3's BERT-base saved with
+   ``io.save_inference_model`` and served by ``Predictor(Config(path))``
+   (bit-equal to the in-memory Predictor); ``Config(path).enable_int8``
+   on 4 seeded batches (32 x 128): every one of the 49 frozen Linears on
+   the int8 path, 49 launches of each int8 kernel a batch beside the 25
+   layer-norm and 12 flash launches, a replay equal to the first call,
+   the first rows again through the port's int8 path on the CPU from the
+   card's calibrated state (mean |diff| within 1e-3 of mean |ref|), int8
+   against f32 at 12 layers reported and at 2 layers of BERT-base width
+   held to the reference's bound; the int8 Predictor behind phase 3's
+   ``ServingEngine`` and traffic (requests/s and p50/p75 beside f32 and
+   bf16); the f32 and int8 Predictors exported and run by
+   ``load_exported`` on the card (within 1e-5 relative, the program's
+   launches a batch's); ``compile_report``'s flops within 1% of the
+   closed form; ResNet-50 in int8 (NCHW, batch 8, 54 frozen layers) served
+   and held to the CPU the same way.
+21. the ``kernels`` line (all 16), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -328,9 +352,11 @@ HERE = Path(__file__).resolve().parent
 # H100 SXM, dense (NVIDIA's data sheet): HBM bandwidth, and the peak rate
 # for each input type: bf16 on the tensor cores, float32 on the CUDA cores,
 # and TF32 on the tensor cores, where the float32 flash kernels run each
-# product as three TF32 products (float32 accuracy).
+# product as three TF32 products (float32 accuracy); int8 on the tensor
+# cores (int8_gemm).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tfloat32": 495e12,
+                  "int8": 1979e12}
 # kernel vs plain version, as |diff| / max(1, |plain|): float32 sums in
 # another order; bf16 rounds the f32 result once, one step being 2^-8
 # relative, so 2e-2 allows a few steps; float16 runs the float32 kernels
@@ -621,9 +647,11 @@ def build_report(kernels, logs):
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 fn = m.group(1)
-                info.setdefault(fn, {}).update(hmma=0, ldg128=0)
+                info.setdefault(fn, {}).update(hmma=0, imma=0, ldg128=0)
             elif fn and "HMMA" in ln:
                 info[fn]["hmma"] += 1
+            elif fn and "IMMA" in ln:
+                info[fn]["imma"] += 1
             elif fn and re.search(r"LDG\.E[.\w]*\.128", ln):
                 info[fn]["ldg128"] += 1
     names = demangle(sorted(info), tool_dir)
@@ -653,6 +681,14 @@ def build_report(kernels, logs):
         check(rec.get("spill_bytes") == 0 and rec.get("ldg128", 0) > 0,
               f"{name}: want no spill and 128-bit global loads, the build "
               f"has {rec or 'no such instance'}")
+    # the int8 GEMM's four instances (16-byte or byte loads, f32 or bf16
+    # out): integer tensor-core products (IMMA) and no spill
+    gemms = [v for k, v in info.items() if "12int8_gemm_tc" in k]
+    check(len(gemms) == 4 and all(v.get("imma", 0) > 0
+                                  and v.get("spill_bytes") == 0
+                                  for v in gemms),
+          f"int8_gemm_tc: want 4 instances with IMMA and no spill, the "
+          f"build has {gemms}")
     return report
 
 
@@ -1293,7 +1329,7 @@ def drive(np, eng, reqs, clients=4):
     return outs, lat, time.perf_counter() - t0
 
 
-def serve(np, pred, reqs, label, smi):
+def serve(np, pred, reqs, label, smi, per_batch=LAUNCHES_PER_BATCH):
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.serving import ServingEngine
     eng = ServingEngine(pred, buckets=[8, 32], max_batch=32, timeout_ms=2)
@@ -1321,7 +1357,7 @@ def serve(np, pred, reqs, label, smi):
               f"{label}: output shapes {seq.shape}, {pooled.shape}")
         check(seq.dtype == np.float32 and np.isfinite(seq).all()
               and np.isfinite(pooled).all(), f"{label}: non-finite output")
-    for name, k in LAUNCHES_PER_BATCH.items():
+    for name, k in per_batch.items():
         check(launches[name] == k * batches,
               f"{label}: {name} launched {launches[name]} times in "
               f"{batches} batches, want {k} per batch")
@@ -4126,6 +4162,403 @@ def disagg_phase(np, torch, FA, smi, seed, gen, gen13):
     return dict(kernel=fa, parity=parity, prefix=prefix)
 
 
+# -- phase 20: the deployment path ----------------------------------------------
+
+# int8_gemm at BERT-base's four products of a served batch (M = 32 x 128
+# rows) and at the reference's ragged shapes (examples/int8_inference.py,
+# tests/test_quantization.py): (label, M, K, N)
+INT8_GEMM_CASES = (("qkv", 4096, 768, 2304), ("out", 4096, 768, 768),
+                   ("ffn_up", 4096, 768, 3072), ("ffn_down", 4096, 3072, 768),
+                   ("ragged_16x64x10", 16, 64, 10),
+                   ("ragged_4x8x4", 4, 8, 4), ("ragged_2x8x4", 2, 8, 4))
+# a served int8 BERT-base batch: the four Linears of each of 12 layers and
+# the pooler, each one quantizer and one GEMM
+INT8_LAUNCHES_PER_BATCH = dict(LAUNCHES_PER_BATCH, int8_quantize=49,
+                               int8_gemm=49)
+# ResNet-50: 53 convolutions and the classifier
+RESNET_INT8_LAYERS = 54
+DEPLOY_BATCH, DEPLOY_SEQ = 32, 128
+CAL_BATCHES = 4
+RESNET_INT8_BATCH = 8
+# the card's int8 path against the port's int8 path on the CPU from the
+# same calibrated state: layer by layer on the same inputs the two compute
+# the same (KERNEL_TOL's float32 bound); over a whole forward they part,
+# since f32 activations summed in another order fall on the other side of
+# a quantizer level's boundary, each flip moves the next layer's inputs
+# and the flips multiply with depth: held to the reference's bound for
+# int8 against f32 (tests/test_quantization.py:146), mean |diff| over
+# mean |ref|, and reported
+INT8_F32_BOUND = 0.15
+CPU_CHECK_ROWS = 2           # rows (images) of a batch the CPU runs again
+EXPORT_REL_TOL = 1e-5        # an exported program against the live one
+FLOPS_REL_TOL = 0.01         # compile_report's flops against the closed form
+
+
+def f32_ulps(torch, got, want):
+    """The largest |got - want| in float32 ulps of ``want``."""
+    want = want.float()
+    up = torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                  device=want.device))
+    return ((got.float() - want).abs() / (up - want.abs())).max().item()
+
+
+def int8_gemm_case(torch, G, label, m, k, n, iters, gen):
+    """The GEMM against its plain version: the int32 sums (read through
+    unit scales, exact below 2^24) equal, the f32 outputs within an ulp,
+    and device times beside the bound and two library yardsticks:
+    ``torch._int_mm`` with the epilogue in PyTorch where its shape rules
+    hold, and the bf16 product of the dequantized operands."""
+    dev = "cuda"
+
+    def make():
+        x = torch.randn(m, k, device=dev, generator=gen)
+        asc = x.abs().amax() * 0.9
+        return (G.int8_quantize(x, asc),
+                torch.randint(-127, 128, (n, k), device=dev, generator=gen,
+                              dtype=torch.int8),
+                torch.rand(n, device=dev, generator=gen) * 1e-3 + 1e-4,
+                asc, torch.randn(n, device=dev, generator=gen))
+
+    sets = [make() for _ in range(n_sets(m * k + n * k + 4 * m * n))]
+    q, b, ws, asc, bias = sets[0]
+    out = G.int8_gemm(q, b, ws, asc, bias, 127, torch.float32)
+    ref = G.int8_gemm_plain(q, b, ws, asc, bias, 127, torch.float32)
+    ulps = f32_ulps(torch, out, ref)
+    acc = G.int8_gemm(q, b, torch.ones(n, device=dev),
+                      torch.tensor(127.0, device=dev), None, 127,
+                      torch.float32)
+    acc_ref = torch.matmul(q.double(), b.double().t())
+    acc_max = acc_ref.abs().max().item()
+    acc_equal = bool(torch.equal(acc.double(), acc_ref))
+    torch.cuda.synchronize()
+    check(acc_max < 2 ** 24 and acc_equal,
+          f"int8_gemm {label}: int32 sums differ from the plain version's")
+    check(ulps <= 1.0, f"int8_gemm {label}: {ulps} ulps from plain")
+
+    def kernel(q, b, ws, asc, bias):
+        return G.int8_gemm(q, b, ws, asc, bias, 127, torch.float32)
+
+    def plain(q, b, ws, asc, bias):
+        return G.int8_gemm_plain(q, b, ws, asc, bias, 127, torch.float32)
+
+    library = None
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        def library(q, b, ws, asc, bias):
+            acc = torch._int_mm(q, b.t())
+            return acc.float() * G.act_step(asc, 127) * ws + bias
+    rec = timings(torch, kernel, plain, library, sets, iters)
+    wb = [(q.float() * G.act_step(asc, 127)).bfloat16(),
+          (b.float() * ws[:, None]).t().bfloat16()]
+    rec["library_bf16_ms"] = graph_ms(torch, lambda a, w: torch.matmul(a, w),
+                                      [wb], iters)
+    nbytes = m * k + n * k + 8 * n + 4 + 4 * m * n
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * m * k * n, "int8")
+    rec.update(phase="int8_kernel", kernel="int8_gemm", case=label,
+               shape=[m, k, n], max_abs_err=abs_err(out, ref),
+               max_ulps=ulps, acc_equal=acc_equal, acc_max=acc_max,
+               library="torch._int_mm + PyTorch epilogue"
+               if library else None)
+    emit(rec)
+    return rec
+
+
+def int8_quantize_case(torch, G, m, k, iters, gen):
+    """The quantizer at the served batch's rows against its plain
+    version: equal int8 values."""
+    sets = []
+    for _ in range(n_sets(5 * m * k)):
+        x = torch.randn(m, k, device="cuda", generator=gen) * 2
+        sets.append((x, x.abs().amax() * 0.8))
+    x, asc = sets[0]
+    q = G.int8_quantize(x, asc)
+    qp = G.int8_quantize_plain(x, asc, 127)
+    check(torch.equal(q, qp), "int8_quantize: values differ from plain")
+    rec = timings(torch, lambda x, a: G.int8_quantize(x, a),
+                  lambda x, a: G.int8_quantize_plain(x, a, 127), None, sets,
+                  iters)
+    rec["bound_ms"], rec["bound_by"] = bound(5 * m * k, 4 * m * k, "float32")
+    rec.update(phase="int8_kernel", kernel="int8_quantize", shape=[m, k],
+               max_abs_err=0.0, library_ms=None,
+               library="none: torch.quantize_per_tensor clamps to [-128, "
+               "127] and takes its step from the host")
+    emit(rec)
+    return rec
+
+
+def bert_batches(np, seed, count):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(count):
+        ids = rng.randint(0, 30522, (DEPLOY_BATCH, DEPLOY_SEQ)).astype(
+            "int32")
+        tt = (rng.rand(DEPLOY_BATCH, DEPLOY_SEQ) < 0.5).astype("int32")
+        lens = rng.randint(16, DEPLOY_SEQ + 1, DEPLOY_BATCH)
+        mask = (np.arange(DEPLOY_SEQ)[None, :] < lens[:, None]).astype(
+            "int32")
+        out.append((ids, tt, mask))
+    return out
+
+
+def mean_rel(np, got, want):
+    return float(np.mean(np.abs(got - want)) / np.mean(np.abs(want)))
+
+
+def quantized_layers(model):
+    from paddle_tpu_torch import quantization as Q
+    return [m for m in model.modules()
+            if isinstance(m, (Q.QuantizedLinear, Q.QuantizedConv2D))]
+
+
+def cpu_int8_check(np, torch, float_cpu_model, card_model, dev_inputs,
+                   outs, label):
+    """The port's int8 path on the CPU, ``float_cpu_model`` converted and
+    loaded with the card's calibrated state, against the card on the first
+    rows of the batch: each frozen layer teacher-forced (the CPU layer run
+    on the input the card's layer saw, its output equal to the card's
+    within KERNEL_TOL's float32 bound, 0 expected), then the whole forward
+    (reported; within the reference's int8 bound of each other)."""
+    from paddle_tpu_torch import quantization as Q
+    cpu = Q.convert(float_cpu_model)
+    missing, unexpected = cpu.set_state_dict(card_model.state_dict())
+    check(not missing and not unexpected,
+          f"{label}: state dict keys {missing} {unexpected}")
+    check(all(m._int8_compute for m in quantized_layers(cpu)),
+          f"{label}: the loaded CPU model is not on its int8 path")
+    seen = {}
+    frozen = (Q.QuantizedLinear, Q.QuantizedConv2D)
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, name=name: seen.__setitem__(name, (
+            i[0][:CPU_CHECK_ROWS].cpu(), o[:CPU_CHECK_ROWS].cpu())))
+        for name, m in card_model.named_modules() if isinstance(m, frozen)]
+    try:
+        with torch.inference_mode():
+            card_model(*dev_inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_layers = dict(cpu.named_modules())
+    layer_err = 0.0
+    with torch.no_grad():
+        for name, (inp, out) in seen.items():
+            layer_err = max(layer_err, scaled_err(cpu_layers[name](inp),
+                                                  out))
+    check(len(seen) == len(quantized_layers(cpu))
+          and layer_err <= KERNEL_TOL["float32"],
+          f"{label}: a frozen layer on the card differs from the CPU's on "
+          f"the same input by {layer_err}")
+    with torch.no_grad():
+        ref = cpu(*[t[:CPU_CHECK_ROWS].cpu() for t in dev_inputs])
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+    means = [mean_rel(np, o[:CPU_CHECK_ROWS], r.numpy())
+             for o, r in zip(outs, ref)]
+    maxes = [float(np.abs(o[:CPU_CHECK_ROWS] - r.numpy()).max())
+             for o, r in zip(outs, ref)]
+    check(max(means) < INT8_F32_BOUND,
+          f"{label}: card int8 vs CPU int8 mean error {means}")
+    return dict(layers=len(seen), layer_max_scaled_err=layer_err,
+                layer_tol=KERNEL_TOL["float32"], mean_rel_err=means,
+                max_abs_err=maxes, tol_mean=INT8_F32_BOUND,
+                rows=CPU_CHECK_ROWS)
+
+
+def bert_flops(cfg, b, s):
+    """The closed form of a BERT forward's products: the four Linears of
+    each layer and the pooler (2 M K N each), and attention's q k^T and
+    p v (4 B H S^2 Dh a layer)."""
+    d, f, layers = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.num_hidden_layers
+    m = b * s
+    gemm = 2 * m * (d * 3 * d + d * d + 2 * d * f) * layers + 2 * b * d * d
+    return gemm + 4 * b * s * s * d * layers
+
+
+def deploy_phase(np, torch, smi, seed, gen, reqs, outs32, rec32, rec16):
+    """Phase 20: save, load, quantize, serve, export and report BERT-base,
+    then ResNet-50 in int8; the int8 kernels against their plain
+    versions."""
+    import tempfile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.inference import (Config, Predictor,
+                                            load_exported, to_host)
+    from paddle_tpu_torch.models import Bert, BertConfig, resnet50
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    t0 = time.perf_counter()
+    times = {}
+
+    # the kernels against their plain versions, at the path's shapes
+    gemm = {c[0]: int8_gemm_case(torch, G, *c, TIMED_ITERS, gen)
+            for c in INT8_GEMM_CASES}
+    quant = int8_quantize_case(torch, G, DEPLOY_BATCH * DEPLOY_SEQ, 768,
+                               TIMED_ITERS, gen)
+    times["kernels"] = time.perf_counter() - t0
+
+    tmp = tempfile.TemporaryDirectory(prefix="deploy-",
+                                      dir=str(HERE / "paddle_tpu_torch"
+                                              / "_build"))
+    prefix = str(Path(tmp.name) / "bert")
+    cal = bert_batches(np, seed + 20, CAL_BATCHES)
+    x = bert_batches(np, seed + 21, 1)[0]
+    dev = [torch.from_numpy(a).cuda() for a in x]
+    rec = dict(phase="deploy", card=smi, batch=DEPLOY_BATCH, seq=DEPLOY_SEQ)
+
+    # 1. saved, then loaded by path: the same graphs
+    t1 = time.perf_counter()
+    ptt.seed(seed)                    # phase 3's weights
+    model = Bert(BertConfig.base()).eval()
+    io.save_inference_model(prefix, model)
+    live = Predictor(model)
+    loaded = Predictor(Config(prefix))
+    out_live = live.run(*x)
+    out_loaded = loaded.run(*x)
+    reload_diff = max(float(np.abs(a - b).max())
+                      for a, b in zip(out_live, out_loaded))
+    check(reload_diff == 0.0,
+          f"deploy: Predictor(Config(path)) differs by {reload_diff}")
+    del loaded
+    rec["reload_max_abs_diff"] = reload_diff
+    times["save_load"] = time.perf_counter() - t1
+
+    # 2. calibrated int8 from the saved model
+    t1 = time.perf_counter()
+    p8 = Predictor(Config(prefix).enable_int8(cal))
+    layers = quantized_layers(p8.model)
+    check(len(layers) == 49 and all(m._int8_compute for m in layers),
+          f"deploy: {len(layers)} frozen layers, gate off in "
+          f"{sum(not m._int8_compute for m in layers)}")
+    kernels.reset_launches()
+    out8 = [to_host(t) for t in p8.run_device(*dev)]    # eager, captured
+    out8b = [to_host(t) for t in p8.run_device(*dev)]   # replayed
+    launches = dict(kernels.launches)
+    for name, k in INT8_LAUNCHES_PER_BATCH.items():
+        check(launches[name] == 2 * k,
+              f"deploy: {name} launched {launches[name]} times in two "
+              f"int8 batches, want {k} a batch")
+    replay_diff = max(float(np.abs(a - b).max()) for a, b in zip(out8, out8b))
+    check(replay_diff == 0.0, f"deploy: int8 replay differs {replay_diff}")
+    rec["int8_launches_per_batch"] = {k: v // 2 for k, v in launches.items()
+                                      if v}
+    rec["int8_vs_cpu"] = cpu_int8_check(
+        np, torch, io.load_inference_model(prefix), p8.model, dev, out8,
+        "deploy bert int8")
+    rec["int8_vs_f32_12_layers"] = [mean_rel(np, a, b)
+                                    for a, b in zip(out8, out_live)]
+    # the reference's bound, at two layers of BERT-base width
+    ptt.seed(seed)
+    two = Bert(BertConfig.base(num_hidden_layers=2)).eval()
+    f2 = Predictor(two).run(*x)
+    q2 = Predictor(two, Config().enable_int8(cal)).run(*x)
+    err2 = [mean_rel(np, a, b) for a, b in zip(q2, f2)]
+    for a, b in zip(q2, f2):
+        check(np.mean(np.abs(a - b)) < INT8_F32_BOUND * np.mean(np.abs(b))
+              + 1e-3, f"deploy: 2-layer int8 vs f32 error {err2}")
+    rec["int8_vs_f32_2_layers"] = err2
+    del two
+    times["int8"] = time.perf_counter() - t1
+
+    # 3. the int8 Predictor served as phase 3 serves f32
+    t1 = time.perf_counter()
+    outs8, rec8 = serve(np, p8, reqs, "int8", smi, INT8_LAUNCHES_PER_BATCH)
+    rec8["vs_f32_mean_rel_err"] = max(
+        mean_rel(np, a, r) for o8, o32 in zip(outs8, outs32)
+        for a, r in zip(o8, o32))
+    emit(rec8)
+    rec["serve"] = {p: dict(qps=r["qps"], p50_ms=r["p50_ms"],
+                            p75_ms=r["p75_ms"])
+                    for p, r in (("float32", rec32), ("bfloat16", rec16),
+                                 ("int8", rec8))}
+    times["serve"] = time.perf_counter() - t1
+
+    # 4. exported and loaded back, f32 and int8
+    t1 = time.perf_counter()
+    exported = {}
+    for label, pred, want in (("float32", live, out_live),
+                              ("int8", p8, out8)):
+        path = str(Path(tmp.name) / f"bert-{label}.pt2")
+        pred.export(path, *x)
+        run = load_exported(path)
+        kernels.reset_launches()
+        got = run(*x)
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in zip(got, want))
+        check(rel <= EXPORT_REL_TOL,
+              f"deploy: exported {label} vs live: {rel}")
+        want_counts = INT8_LAUNCHES_PER_BATCH if label == "int8" \
+            else LAUNCHES_PER_BATCH
+        check(counts == want_counts,
+              f"deploy: the exported {label} program launched {counts}")
+        exported[label] = dict(max_rel_diff=rel, launches=counts,
+                               bytes=Path(path).stat().st_size)
+    rec["exported"] = exported
+    times["export"] = time.perf_counter() - t1
+
+    # 5. compile_report against the closed form
+    t1 = time.perf_counter()
+    closed = bert_flops(model.config, DEPLOY_BATCH, DEPLOY_SEQ)
+    reports = {}
+    for label, pred in (("float32", live), ("int8", p8)):
+        info = pred.compile_report(*x)
+        check(abs(info["flops"] - closed) <= FLOPS_REL_TOL * closed,
+              f"deploy: compile_report {label} flops {info['flops']} vs "
+              f"{closed}")
+        reports[label] = dict(info, closed_form_flops=closed)
+    rec["compile_report"] = reports
+    times["compile_report"] = time.perf_counter() - t1
+    del live, p8, model
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. ResNet-50 in int8, NCHW, batch 8
+    t1 = time.perf_counter()
+    rng = np.random.RandomState(seed + 22)
+    imgs = [rng.randn(RESNET_INT8_BATCH, 3, RESNET_SIZE,
+                      RESNET_SIZE).astype("float32")
+            for _ in range(CAL_BATCHES + 1)]
+    ptt.seed(seed)
+    rn = resnet50().eval()
+    rn_cpu = copy.deepcopy(rn)
+    f32r = Predictor(rn).run(imgs[-1])
+    pr8 = Predictor(rn, Config().enable_int8(imgs[:CAL_BATCHES]))
+    layers = quantized_layers(pr8.model)
+    check(len(layers) == RESNET_INT8_LAYERS
+          and all(m._int8_compute for m in layers),
+          f"deploy resnet: {len(layers)} frozen layers")
+    dev_img = torch.from_numpy(imgs[-1]).cuda()
+    kernels.reset_launches()
+    out_r = pr8.run(imgs[-1])
+    out_r2 = pr8.run(imgs[-1])
+    rl = dict(kernels.launches)
+    check(rl["int8_gemm"] == 2 * RESNET_INT8_LAYERS
+          and rl["int8_quantize"] == 2 * RESNET_INT8_LAYERS,
+          f"deploy resnet: int8 launches {rl}")
+    check(np.array_equal(out_r, out_r2) and np.isfinite(out_r).all()
+          and out_r.shape == (RESNET_INT8_BATCH, 1000),
+          "deploy resnet: int8 outputs")
+    resnet = dict(launches_per_batch={k: v // 2 for k, v in rl.items() if v},
+                  int8_vs_f32=mean_rel(np, out_r, f32r),
+                  vs_cpu=cpu_int8_check(np, torch, rn_cpu, pr8.model,
+                                        [dev_img], out_r,
+                                        "deploy resnet int8"))
+    resnet["forward_ms"] = _event_ms(torch, lambda: [
+        pr8.run_device(dev_img) for _ in range(5)], 5, 3)
+    f32p = Predictor(rn)
+    resnet["f32_forward_ms"] = _event_ms(torch, lambda: [
+        f32p.run_device(dev_img) for _ in range(5)], 5, 3)
+    rec["resnet50_int8"] = resnet
+    del pr8, f32p, rn
+    times["resnet"] = time.perf_counter() - t1
+    rec["seconds"] = dict(times, total=time.perf_counter() - t0)
+    emit(rec)
+    return dict(gemm=gemm, quantize=quant, serve=rec8,
+                resnet_launches=rl)
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -4377,7 +4810,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     disagg_phase(np, torch, FA, smi, args.seed, gen, gen13)
 
-    # 20. the kernels line, the card, and the verdict
+    # 20. the deployment path: save and load, calibrated int8 served,
+    # export, compile_report; ResNet-50 in int8; the int8 kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    dep = deploy_phase(np, torch, smi, args.seed, gen, reqs, outs32, rec32,
+                       rec16)
+
+    # 21. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]
@@ -4421,6 +4861,24 @@ def main(argv=None):
               f"{name}: no launch on its path")
         line.append(dict(name=name, route="cuda", source=csrc + source,
                          replaces=pallas + replaces,
+                         launches=launches[name],
+                         max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                         bound_by=rec["bound_by"],
+                         library_ms=rec["library_ms"]))
+    # the int8 kernels replace no Pallas kernel: the reference's int8
+    # products are XLA's (its quantizer, then dot_general or
+    # conv_general_dilated with int32 sums)
+    for name, replaces, rec in (
+            ("int8_quantize", "paddle_tpu/quantization.py:240 and :316",
+             dep["quantize"]),
+            ("int8_gemm", "paddle_tpu/quantization.py:242 and :318",
+             dep["gemm"]["ffn_up"])):
+        launches = dep["serve"]["launches"]
+        check(launches[name] > 0 and dep["resnet_launches"][name] > 0,
+              f"{name}: no launch on its path")
+        line.append(dict(name=name, route="cuda",
+                         source=csrc + "int8_gemm.cu", replaces=replaces,
                          launches=launches[name],
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

@@ -45,13 +45,26 @@ the port's batch-norm kernels)::
         logits = model(images)
     loss.cross_entropy(logits.float(), labels).backward()
     opt.step(); opt.clear_grad()
+
+and deploys a model: saved, loaded into a Predictor, served in calibrated
+int8 (``int8_quantize`` and ``int8_gemm``, the port's int8 kernels), and
+exported as a ``torch.export`` program::
+
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.inference import Config, Predictor, load_exported
+
+    io.save_inference_model("out/bert", model)
+    pred = Predictor(Config("out/bert").enable_int8([batch0, batch1]))
+    pred.export("out/bert.pt2", *batch0)
+    outs = load_exported("out/bert.pt2")(*batch0)
 """
 from . import device, random, amp, initializer, nn, ops, models, inference
 from . import io, resilience, serving, convert, regularizer, optimizer, jit
+from . import quantization
 from .device import get_device, set_device
 from .random import seed
 
 __all__ = ["device", "random", "amp", "initializer", "nn", "ops", "models",
            "inference", "io", "resilience", "serving", "convert",
-           "regularizer", "optimizer", "jit", "get_device", "set_device",
-           "seed"]
+           "regularizer", "optimizer", "jit", "quantization", "get_device",
+           "set_device", "seed"]

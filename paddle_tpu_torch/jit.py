@@ -38,6 +38,9 @@ later call re-runs the step over the entry's static buffers instead of a
 replay. On the card nothing falls back to eager: a step that cannot be
 captured raises :class:`~paddle_tpu_torch.graphs.CaptureError`.
 
+``save`` and ``load`` delegate to :mod:`paddle_tpu_torch.io`'s
+inference-model pair, as the reference's do.
+
 ``input_spec`` and ``donate_state`` are taken and change nothing (the
 state is updated in place already). ``plan`` (ROADMAP.md Queue A item
 19), ``remat`` (items 8 and 20) and ``scalers`` (item 6) raise
@@ -376,4 +379,18 @@ class TracedLayer:
         return self._static(*args)
 
 
-__all__ = ["to_static", "StaticFunction", "TracedLayer"]
+def save(layer, path, input_spec=None):
+    """``paddle.jit.save``: :func:`paddle_tpu_torch.io.save_inference_model`
+    under ``path``."""
+    from . import io as pio
+    pio.save_inference_model(path, layer, input_spec=input_spec)
+
+
+def load(path):
+    """``paddle.jit.load``: :func:`paddle_tpu_torch.io.load_inference_model`
+    of ``path`` (a layer on the CPU, in eval mode)."""
+    from . import io as pio
+    return pio.load_inference_model(path)
+
+
+__all__ = ["to_static", "StaticFunction", "TracedLayer", "save", "load"]

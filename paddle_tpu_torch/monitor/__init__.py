@@ -33,10 +33,14 @@ variables carry the port's prefix:
   ``PADDLE_TPU_TORCH_REQ_EXEMPLARS`` — the flight recorder's directory
   and cap, and the slow-request rings' size.
 
+:mod:`~paddle_tpu_torch.monitor.xla` keeps the cost that
+``Predictor.compile_report`` measures (its ``aot_capture``, ``hlo_text``,
+``executable`` and ``measured_mfu`` raise).
+
 Not ported (ROADMAP.md Queue A item 20): the dispatch hook
 (``time_dispatch``), ``serve`` (the ``/metrics`` endpoint), ``step`` /
-``mfu``, ``xla``, ``export``, ``sampler``, ``profile``, ``memory``,
-``fleet`` and ``alerts``. The arguments and environment variables that
+``mfu``, ``export``, ``sampler``, ``profile``, ``memory``, ``fleet`` and
+``alerts``. The arguments and environment variables that
 would start them (``time_dispatch=``, ``telemetry_dir=``,
 ``PADDLE_TPU_TORCH_MONITOR_TIME_DISPATCH``,
 ``PADDLE_TPU_TORCH_TELEMETRY_DIR``, ``PADDLE_TPU_TORCH_PROFILE``,
@@ -51,7 +55,7 @@ from .registry import Registry, JsonlSink, read_jsonl  # noqa: F401
 
 __all__ = ["enable", "disable", "enabled", "registry", "counter", "gauge",
            "histogram", "emit", "snapshot", "reset", "jsonl_path",
-           "read_jsonl", "trace"]
+           "read_jsonl", "trace", "xla"]
 
 ENV = "PADDLE_TPU_TORCH_"
 _NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 20)"
@@ -178,4 +182,4 @@ def emit(kind="event", **fields):
 
 # imported last: the tracer reaches back into this namespace (env, and in
 # the flight recorder emit, snapshot and jsonl_path)
-from . import trace  # noqa: E402,F401
+from . import trace, xla  # noqa: E402,F401

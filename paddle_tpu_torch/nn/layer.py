@@ -1,8 +1,8 @@
 """paddle_tpu_torch.nn.layer — the Layer base class.
 
 Counterpart of ``paddle_tpu/nn/layer.py``: a ``torch.nn.Module`` with
-paddle's ``create_parameter``, ``register_buffer`` and
-``clear_gradients``. Parameter and buffer names and layouts are the JAX
+paddle's ``create_parameter``, ``register_buffer``, ``set_state_dict``
+and ``clear_gradients``. Parameter and buffer names and layouts are the JAX
 package's (Linear weights ``[in, out]``, convolution weights OIHW), so
 ``state_dict()`` keys and shapes match the JAX ``Layer.state_dict()`` one
 to one. ``eval()``/``train()`` and traversal are torch's own; torch's
@@ -48,6 +48,35 @@ class Layer(nn.Module):
         ``state_dict()`` under the reference's key."""
         super().register_buffer(name, tensor, persistent=persistable)
         return tensor
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Copy ``state_dict`` (``{name: tensor or numpy array}``, bf16 as
+        ``ml_dtypes.bfloat16`` as the JAX package saves it) into this
+        layer's parameters and buffers in place, each cast to its dtype on
+        its device, as the reference's ``set_state_dict`` does: keys it
+        does not know and keys it lacks are returned as ``(missing,
+        unexpected)``, not raised. Layers whose state derives from their
+        buffers (the frozen int8 layers) refresh it."""
+        from ..convert import from_numpy
+        own = self.state_dict()
+        tensors = {}
+        for name, value in state_dict.items():
+            if name in own:
+                if not isinstance(value, torch.Tensor):
+                    value = from_numpy(value)
+                target = own[name]
+                if tuple(value.shape) != tuple(target.shape):
+                    raise ValueError(
+                        f"set_state_dict: {name} has shape "
+                        f"{tuple(value.shape)}, the layer wants "
+                        f"{tuple(target.shape)}")
+                tensors[name] = value.to(dtype=target.dtype)
+        result = self.load_state_dict(tensors, strict=False)
+        unexpected = [k for k in state_dict if k not in own]
+        return list(result.missing_keys), unexpected
+
+    set_dict = set_state_dict
+    load_dict = set_state_dict
 
     def clear_gradients(self):
         """Drop every parameter's gradient (``Layer.clear_gradients``)."""

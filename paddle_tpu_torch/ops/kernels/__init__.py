@@ -26,6 +26,16 @@ This module holds what the kernels share:
   (the capture records the launches, the card runs none) and adds it at
   each replay, which runs them all with no wrapper call
   (:func:`add_launches`).
+* :func:`traced` — whether a tensor is being traced (``torch.export``'s
+  fake tensors) or seen by a dispatch mode (the flop and byte counters of
+  ``Predictor.compile_report``) rather than computed. The kernels on the
+  served path (layer norm's forward, flash attention's forward and the
+  two int8 kernels) are also registered as custom ops
+  ``paddle_tpu_torch::<name>``, each with a fake implementation: a traced
+  call goes through the op, so that an exported program holds it and
+  calls the same kernel when it runs; an eager call launches directly.
+  The op's body and the eager call share one launch function, which
+  counts the launch;
 * a build lock, so that the serving batcher's thread and the main thread
   never build or load at the same time.
 """
@@ -60,6 +70,8 @@ SOURCES = {
     "batch_norm_normalize": "batch_norm.cu",
     "batch_norm_bwd_reduce": "batch_norm.cu",
     "batch_norm_bwd_dx": "batch_norm.cu",
+    "int8_quantize": "int8_gemm.cu",
+    "int8_gemm": "int8_gemm.cu",
 }
 
 # -- the kernel switch -------------------------------------------------------
@@ -240,10 +252,23 @@ def device_index(t):
     return t.device.index if t.device.index is not None else 0
 
 
+def traced(t):
+    """Whether ``t`` is traced or counted rather than computed: a tensor
+    subclass (``torch.export``'s fake and functional tensors) or a Python
+    dispatch mode on the stack (``FlopCounterMode``, the byte counter of
+    ``Predictor.compile_report``). Such a call goes through the kernel's
+    custom op."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    return (type(t) is not torch.Tensor
+            or _get_current_dispatch_mode() is not None)
+
+
 from . import layer_norm, flash_attention, softmax_xent  # noqa: E402
-from . import fused_adam, batch_norm  # noqa: E402
+from . import fused_adam, batch_norm, int8_gemm  # noqa: E402
 
 __all__ = ["build", "function", "launches", "reset_launches",
            "add_launches", "configure",
            "enabled", "layer_norm", "flash_attention", "softmax_xent",
-           "fused_adam", "batch_norm", "SOURCES", "KERNELS", "BUILD_DIR"]
+           "fused_adam", "batch_norm", "int8_gemm", "traced", "SOURCES",
+           "KERNELS", "BUILD_DIR"]

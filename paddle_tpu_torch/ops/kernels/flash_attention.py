@@ -49,9 +49,11 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ... import random as prandom
-from . import check, count_launch, device_index, function, stream_of
+from . import (check, count_launch, device_index, function, stream_of,
+               traced)
 
 NAME = "flash_attention_fwd"
 BWD_DQ = "flash_attention_bwd_dq"
@@ -446,12 +448,59 @@ def _fwd_kernel(q, k, v, cm, causal, scale, dropout_p, seed):
 
 def _fwd(q, k, v, cm, causal, scale, dropout_p, seed):
     """The forward on canonical mask ``cm``: the kernel on a CUDA tensor
-    (through :func:`_padded_fwd`), the plain version on a CPU one."""
+    (through :func:`_padded_fwd`), the plain version on a CPU one; a
+    traced call (:func:`~paddle_tpu_torch.ops.kernels.traced`) through
+    the custom op ``paddle_tpu_torch::flash_attention_fwd``, padded as the
+    kernel is on either device."""
+    if q.device.type != "cpu":
+        _check_cuda(q, k, v, cm)
+    if traced(q):
+        return _padded_fwd(_fwd_traced, q, k, v, cm, causal, scale,
+                           dropout_p, seed)
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, None)
-    _check_cuda(q, k, v, cm)
     return _padded_fwd(_fwd_kernel, q, k, v, cm, causal, scale, dropout_p,
                        seed)
+
+
+def _fwd_traced(q, k, v, cm, causal, scale, dropout_p, seed):
+    mask3, mode, mb, mh = cm
+    if dropout_p > 0.0:
+        seed = seed_words(seed, q.device)
+    return _fwd_op(
+        q, k, v, mask3, _MODES[mode], mb, mh, int(causal), float(scale),
+        float(dropout_p), seed if dropout_p > 0.0 else None)
+
+
+_MODE_NAMES = {code: name for name, code in _MODES.items()}
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask3: torch.Tensor | None, mode: int, mb: int, mh: int,
+            causal: int, scale: float, dropout_p: float,
+            seed: torch.Tensor | None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    cm = (mask3, _MODE_NAMES[mode], mb, mh)
+    if q.device.type == "cpu":
+        return _fwd_plain(q, k, v, cm, causal, scale, dropout_p, seed, None)
+    return _fwd_kernel(q, k, v, cm, causal, scale, dropout_p, seed)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, mask3, mode, mb, mh, causal, scale, dropout_p, seed):
+    b, h, sq, d = q.shape
+    out = q.new_empty((b, sq, h, d)).transpose(1, 2)
+    stats = q.new_empty((b * h, sq), dtype=torch.float32)
+    return out, stats, stats.new_empty(stats.shape)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    """The two products, q k^T and p v: 4 B H Sq Sk D."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * sq * k_shape[2] * d
 
 
 def flash_attention_fwd_plain(q, k, v, attn_mask=None, causal=False,

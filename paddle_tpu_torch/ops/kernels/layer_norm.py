@@ -18,7 +18,8 @@ import ctypes
 
 import torch
 
-from . import check, count_launch, device_index, function, stream_of
+from . import (check, count_launch, device_index, function, stream_of,
+               traced)
 
 NAME = "layer_norm_fwd"
 BWD_NAME = "layer_norm_bwd"
@@ -79,19 +80,31 @@ def layer_norm_fwd(x2, w, b, eps):
     """Layer norm over the last axis of ``x2`` (N, D). On a CUDA tensor it
     launches the kernel; on a CPU tensor it computes
     :func:`layer_norm_fwd_plain`. Returns ``(y, mu, rstd)`` as the
-    plain version does."""
+    plain version does. A traced call (``kernels.traced``) goes through
+    the custom op ``paddle_tpu_torch::layer_norm_fwd``."""
     _check_inputs(x2, w, b)
+    if x2.device.type != "cpu":
+        if x2.device.type != "cuda" or w.device != x2.device \
+                or b.device != x2.device:
+            raise ValueError(f"layer_norm_fwd: x, weight and bias must "
+                             f"share one CUDA device, got {x2.device}, "
+                             f"{w.device}, {b.device}")
+        if x2.stride(1) != 1:
+            raise ValueError("layer_norm_fwd: x's last dim must be "
+                             "contiguous")
+        if w.dtype != b.dtype:
+            raise TypeError("layer_norm_fwd: weight and bias must share a "
+                            "dtype")
+    if traced(x2):
+        return _fwd_op(x2, w, b, float(eps))
+    return _fwd_body(x2, w, b, eps)
+
+
+def _fwd_body(x2, w, b, eps):
+    """The plain version on a CPU tensor, else the kernel's launch (the
+    custom op's body)."""
     if x2.device.type == "cpu":
         return layer_norm_fwd_plain(x2, w, b, eps)
-    if x2.device.type != "cuda" or w.device != x2.device \
-            or b.device != x2.device:
-        raise ValueError(f"layer_norm_fwd: x, weight and bias must share "
-                         f"one CUDA device, got {x2.device}, {w.device}, "
-                         f"{b.device}")
-    if x2.stride(1) != 1:
-        raise ValueError("layer_norm_fwd: x's last dim must be contiguous")
-    if w.dtype != b.dtype:
-        raise TypeError("layer_norm_fwd: weight and bias must share a dtype")
     x2 = x2.contiguous()            # rows packed: a view of (.., D) rows
     w, b = w.contiguous(), b.contiguous()
     n, d = x2.shape
@@ -109,6 +122,19 @@ def layer_norm_fwd(x2, w, b, eps):
     check(NAME, fn, code)
     count_launch(NAME)
     return y, mu, rstd
+
+
+@torch.library.custom_op("paddle_tpu_torch::layer_norm_fwd", mutates_args=())
+def _fwd_op(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _fwd_body(x2, w, b, eps)
+
+
+@_fwd_op.register_fake
+def _(x2, w, b, eps):
+    n = x2.shape[0]
+    return (x2.new_empty(x2.shape), x2.new_empty((n, 1), dtype=torch.float32),
+            x2.new_empty((n, 1), dtype=torch.float32))
 
 
 def layer_norm_bwd_plain(x2, w, mu, rstd, g):

@@ -31,8 +31,13 @@ def linear(x, weight, bias=None):
     """``x @ W + b`` with W laid out ``[in, out]`` as in the JAX package.
     AMP white-listed: under :func:`paddle_tpu_torch.amp.auto_cast` x, W
     and b are cast to the compute dtype, as the reference casts all
-    three."""
+    three. Mixed float dtypes promote as ``jnp.matmul`` promotes them (a
+    float32 input to bf16 weights, as a bf16 Predictor is fed, multiplies
+    in float32)."""
     x, weight, bias = amp.maybe_cast(x, weight, bias)
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 

@@ -1612,3 +1612,224 @@ def test_a_prefill_step_that_syncs_raises_capture_error(cuda_device):
         eng.warmup()
     assert eng.captures == 0
     eng.close()
+
+
+# -- the deployment path: the int8 kernels, the int8 Predictor, export ---------
+
+def _int8_operands(dev, m, k, n, seed, x_dtype=torch.float32, pitch=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k + pitch, device=dev, generator=g).to(x_dtype)
+    x = x[:, :k]
+    asc = x.float().abs().amax() * 0.9
+    b = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    ws = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(n, device=dev, generator=g)
+    return x, asc, b, ws, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 2304), (4096, 768, 768),
+                                   (4096, 768, 3072), (4096, 3072, 768),
+                                   (16, 64, 10), (4, 8, 4), (2, 8, 4),
+                                   (1000, 147, 64)])
+def test_int8_kernels_match_plain(cuda_device, m, k, n):
+    """The quantizer's values and the GEMM's int32 sums equal the plain
+    versions' (the sums read through unit scales, exact below 2^24), the
+    f32 outputs within one float32 ulp (the epilogue is __fmul_rn /
+    __fadd_rn in the plain version's order: 0 expected)."""
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    x, asc, b, ws, bias = _int8_operands(cuda_device, m, k, n, m + k + n)
+    q = G.int8_quantize(x, asc)
+    assert torch.equal(q, G.int8_quantize_plain(x, asc, 127))
+    one = torch.ones(n, device=cuda_device)
+    acc = G.int8_gemm(q, b, one, torch.tensor(127.0, device=cuda_device))
+    want = torch.matmul(q.double(), b.double().t())
+    assert want.abs().max() < 2 ** 24 and torch.equal(acc.double(), want)
+    out = G.int8_gemm(q, b, ws, asc, bias)
+    ref = G.int8_gemm_plain(q, b, ws, asc, bias, 127, torch.float32)
+    ulp = torch.nextafter(ref.abs(), torch.tensor(float("inf"),
+                                                  device=cuda_device))
+    assert ((out - ref).abs() <= ulp - ref.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_int8_kernels_take_pitched_rows_and_bf16(cuda_device, x_dtype):
+    """Rows with a pitch (a column slice), bf16 input, bias and output:
+    the kernels' scalar and bf16 paths against the plain versions."""
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    dt = getattr(torch, x_dtype)
+    x, asc, b, ws, bias = _int8_operands(cuda_device, 333, 200, 77, 3, dt,
+                                         pitch=8)
+    assert x.stride(0) == 208
+    q = G.int8_quantize(x, asc)
+    assert torch.equal(q, G.int8_quantize_plain(x, asc, 127))
+    out = G.int8_gemm(q, b, ws, asc, bias.to(dt), out_dtype=dt)
+    ref = G.int8_gemm_plain(q, b, ws, asc, bias.to(dt), 127, dt)
+    assert out.dtype == dt and torch.equal(out, ref)
+
+
+def _int8_bert(dev):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import Config
+    seed(0)
+    m = Bert(BertConfig.tiny(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)).eval()
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 1024, (4, 32)).astype("int32")
+    mask = (np.arange(32)[None, :] < rng.randint(8, 33, 4)[:, None]).astype(
+        "int32")
+    x = (ids, np.zeros_like(ids), mask)
+    return Predictor(m, Config().enable_int8([x]), device=dev), x
+
+
+@pytest.mark.cuda
+def test_int8_predictor_replay_equals_its_eager_forward(cuda_device):
+    pred, x = _int8_bert(cuda_device)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in x]
+    first = pred.run_device(*dev)                 # eager run, then capture
+    kernels.reset_launches()
+    got = pred.run_device(*dev)                   # a replay
+    assert pred.captures == 1
+    assert kernels.launches["int8_gemm"] == 9      # 4 a layer and the pooler
+    assert kernels.launches["int8_quantize"] == 9
+    with torch.inference_mode():
+        want = pred.model(*dev)
+    for a, b, c in zip(got, want, first):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_custom_ops_under_torch_export_on_the_card(cuda_device):
+    """``torch.export`` on the card holds the kernels as custom ops; the
+    program, run, launches them and gives the live outputs."""
+    pred, x = _int8_bert(cuda_device)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in x]
+    live = pred.run_device(*dev)
+    with torch.no_grad():
+        program = torch.export.export(pred.model, tuple(dev), strict=False)
+    names = {str(n.target) for n in program.graph.nodes
+             if str(n.target).startswith("paddle_tpu_torch.")}
+    assert {t.split(".")[1] for t in names} == {
+        "layer_norm_fwd", "flash_attention_fwd", "int8_quantize",
+        "int8_gemm"}
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = program.module()(*dev)
+    assert kernels.launches["int8_gemm"] == 9
+    assert kernels.launches["flash_attention_fwd"] == 2
+    for a, b in zip(got, live):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_load_exported_runs_a_program_exported_on_the_card(cuda_device,
+                                                           tmp_path):
+    from paddle_tpu_torch.inference import load_exported
+    pred, x = _int8_bert(cuda_device)
+    live = pred.run(*x)
+    path = str(tmp_path / "bert-int8.pt2")
+    pred.export(path, *x)
+    run = load_exported(path)
+    kernels.reset_launches()
+    got = run(*x)
+    assert kernels.launches["int8_gemm"] == 9
+    assert kernels.launches["layer_norm_fwd"] == 5
+    for a, b in zip(got, live):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_format", ["NCHW", "NHWC"])
+def test_int8_conv_predictor_on_the_card(cuda_device, data_format):
+    """Frozen int8 convolutions (padding, stride 2 with 2 groups, a
+    pointwise one) behind a graphed Predictor: every layer on the int8
+    path, a replay equal to the eager forward, and each layer equal to
+    the CPU's on the input the card's layer saw."""
+    import copy as _copy
+
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import Config
+    seed(1)
+    df = dict(data_format=data_format)
+    m = nn.Sequential(nn.Conv2D(3, 8, 3, padding=1, **df), nn.ReLU(),
+                      nn.Conv2D(8, 8, 3, stride=2, padding=1, groups=2,
+                                **df), nn.ReLU(),
+                      nn.Conv2D(8, 4, 1, bias_attr=False, **df))
+    cpu = _copy.deepcopy(m)
+    shape = (4, 16, 16, 3) if data_format == "NHWC" else (4, 3, 16, 16)
+    x = np.random.RandomState(1).randn(*shape).astype("f4")
+    pred = Predictor(m, Config().enable_int8([x]), device=cuda_device)
+    frozen = [l for l in pred.model.modules()
+              if isinstance(l, Q.QuantizedConv2D)]
+    assert len(frozen) == 3 and all(l._int8_compute for l in frozen)
+    dev = torch.from_numpy(x).to(cuda_device)
+    pred.run_device(dev)
+    kernels.reset_launches()
+    got = pred.run_device(dev)
+    assert kernels.launches["int8_gemm"] == 4     # a GEMM a group
+    with torch.inference_mode():
+        assert torch.equal(got, pred.model(dev))
+    cpu = Q.convert(cpu)
+    cpu.set_state_dict(pred.model.state_dict())
+    for card_l, cpu_l in zip(frozen, [l for l in cpu.modules()
+                                      if isinstance(l, Q.QuantizedConv2D)]):
+        seen = []
+        h = card_l.register_forward_hook(
+            lambda mod, i, o: seen.append((i[0].cpu(), o.cpu())))
+        with torch.inference_mode():
+            pred.model(dev)
+        h.remove()
+        inp, out = seen[0]
+        with torch.no_grad():
+            assert torch.equal(cpu_l(inp), out)
+
+
+@pytest.mark.cuda
+def test_quant_aware_step_as_a_cuda_graph_advances_the_observer(
+        cuda_device):
+    """A quant_aware step under ``jit.to_static`` on the card: each
+    replay advances ``act_scale`` in place, and the losses and scales
+    follow an eager copy of the same training (float32 sums in another
+    order: 1e-5)."""
+    import copy as _copy
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch import seed
+    seed(4)
+    base = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 1))
+    rng = np.random.RandomState(4)
+    batches = [(torch.from_numpy(rng.rand(32, 8).astype("f4") * (1 + i))
+                .to(cuda_device),
+                torch.from_numpy((rng.rand(32, 1) * 2).astype("f4"))
+                .to(cuda_device)) for i in range(5)]
+    runs = {}
+    for arm in ("graph", "eager"):
+        model = Q.quant_aware(_copy.deepcopy(base)).to(cuda_device)
+        model.train()
+        o = optimizer.SGD(learning_rate=0.05, parameters=model.parameters())
+
+        def step(xb, yb):
+            loss = ((model(xb) - yb) ** 2).mean()
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            return loss
+
+        fn = jit.to_static(step, models=[model], optimizers=[o]) \
+            if arm == "graph" else step
+        buf = model[0].act_scale
+        losses, scales = [], []
+        for x, y in batches:
+            losses.append(float(fn(x, y).detach()))
+            scales.append(float(buf))
+        assert model[0].act_scale is buf
+        runs[arm] = (losses, scales)
+    assert len(set(runs["graph"][1])) == 5         # moved at every step
+    np.testing.assert_allclose(runs["graph"][0], runs["eager"][0],
+                               rtol=1e-5)
+    np.testing.assert_allclose(runs["graph"][1], runs["eager"][1],
+                               rtol=1e-5)

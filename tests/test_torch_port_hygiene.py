@@ -80,7 +80,8 @@ def test_batch_norm_switch_is_ported_and_off_by_default():
     assert names <= set(kernels.SOURCES) and names <= set(kernels.launches)
     assert all(kernels.SOURCES[n] == "batch_norm.cu" for n in names)
     assert (kernels.CSRC / "batch_norm.cu").is_file()
-    assert len(kernels.SOURCES) == 14
+    # the 14 Pallas kernels' counterparts and the two int8 kernels
+    assert len(kernels.SOURCES) == 16
 
 
 def test_importing_the_port_loads_no_jax():
