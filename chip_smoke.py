@@ -618,9 +618,10 @@ def demangle(names, tool_dir):
 
 def build_report(kernels, logs):
     """Per kernel instance: registers and spill bytes from ``-Xptxas
-    -v``, and its tensor-core (HMMA) instructions and 128-bit global loads
-    (``ldg128``) in ``cuobjdump -sass`` of the built library (the
-    toolkit's copy beside nvcc)."""
+    -v``, and its tensor-core instructions (HMMA, IMMA, IGMMA), TMA loads
+    and stores (UTMALDG, UTMASTG) and 128-bit global loads (``ldg128``)
+    in ``cuobjdump -sass`` of the built library (the toolkit's copy beside
+    nvcc)."""
     tool_dir = Path(kernels._nvcc()).parent
     info = {}
     for log in logs.values():
@@ -647,7 +648,15 @@ def build_report(kernels, logs):
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 fn = m.group(1)
-                info.setdefault(fn, {}).update(hmma=0, imma=0, ldg128=0)
+                info.setdefault(fn, {}).update(hmma=0, imma=0, igmma=0,
+                                               utmaldg=0, utmastg=0,
+                                               ldg128=0)
+            elif fn and "IGMMA" in ln:
+                info[fn]["igmma"] += 1
+            elif fn and "UTMALDG" in ln:
+                info[fn]["utmaldg"] += 1
+            elif fn and "UTMASTG" in ln:
+                info[fn]["utmastg"] += 1
             elif fn and "HMMA" in ln:
                 info[fn]["hmma"] += 1
             elif fn and "IMMA" in ln:
@@ -681,13 +690,22 @@ def build_report(kernels, logs):
         check(rec.get("spill_bytes") == 0 and rec.get("ldg128", 0) > 0,
               f"{name}: want no spill and 128-bit global loads, the build "
               f"has {rec or 'no such instance'}")
-    # the int8 GEMM's four instances (16-byte or byte loads, f32 or bf16
-    # out): integer tensor-core products (IMMA) and no spill
+    # the int8 GEMM: each int8_gemm_wgmma instance (128 x 128 and 128 x
+    # 192 tiles, f32 or bf16 out) runs integer wgmma (IGMMA) on operands
+    # that TMA loads (UTMALDG), and each byte-load int8_gemm_tc instance
+    # (f32 or bf16 out) integer mma.sync (IMMA); none spills
+    wgmma = [v for k, v in info.items() if "15int8_gemm_wgmma" in k]
+    check(len(wgmma) == 4 and all(v.get("igmma", 0) > 0
+                                  and v.get("utmaldg", 0) > 0
+                                  and v.get("spill_bytes") == 0
+                                  for v in wgmma),
+          f"int8_gemm_wgmma: want 4 instances with IGMMA, UTMALDG and no "
+          f"spill, the build has {wgmma}")
     gemms = [v for k, v in info.items() if "12int8_gemm_tc" in k]
-    check(len(gemms) == 4 and all(v.get("imma", 0) > 0
+    check(len(gemms) == 2 and all(v.get("imma", 0) > 0
                                   and v.get("spill_bytes") == 0
                                   for v in gemms),
-          f"int8_gemm_tc: want 4 instances with IMMA and no spill, the "
+          f"int8_gemm_tc: want 2 instances with IMMA and no spill, the "
           f"build has {gemms}")
     return report
 
@@ -4165,16 +4183,34 @@ def disagg_phase(np, torch, FA, smi, seed, gen, gen13):
 # -- phase 20: the deployment path ----------------------------------------------
 
 # int8_gemm at BERT-base's four products of a served batch (M = 32 x 128
-# rows) and at the reference's ragged shapes (examples/int8_inference.py,
-# tests/test_quantization.py): (label, M, K, N)
+# rows) and its pooler, bench_int8's tower (512 x 4,096 x 4,096), three
+# of ResNet-50's im2col products at batch 8 (layer 1's and layer 3's 3 x 3
+# convolutions, the classifier) and the reference's ragged shapes
+# (examples/int8_inference.py, tests/test_quantization.py): (label, M, K,
+# N)
 INT8_GEMM_CASES = (("qkv", 4096, 768, 2304), ("out", 4096, 768, 768),
                    ("ffn_up", 4096, 768, 3072), ("ffn_down", 4096, 3072, 768),
+                   ("pooler", 32, 768, 768),
+                   ("bench_int8", 512, 4096, 4096),
+                   ("resnet_layer1_3x3", 25088, 576, 64),
+                   ("resnet_layer3_3x3", 1568, 2304, 256),
+                   ("resnet_fc", 8, 2048, 1000),
                    ("ragged_16x64x10", 16, 64, 10),
                    ("ragged_4x8x4", 4, 8, 4), ("ragged_2x8x4", 2, 8, 4))
+# the cases also timed at each wgmma tile width, against the tile rule
+INT8_TILE_CASES = ("qkv", "out", "ffn_up", "ffn_down", "bench_int8")
 # a served int8 BERT-base batch: the four Linears of each of 12 layers and
-# the pooler, each one quantizer and one GEMM
+# the pooler, each one quantizer and one GEMM, every GEMM on the wgmma
+# kernel (QKV and FFN-up at 128 x 128 tiles, out and FFN-down at 128 x
+# 192, the pooler's 32 rows at 128 x 128)
 INT8_LAUNCHES_PER_BATCH = dict(LAUNCHES_PER_BATCH, int8_quantize=49,
                                int8_gemm=49)
+INT8_ROUTES_PER_BATCH = {"int8_gemm:wgmma_128x128": 25,
+                         "int8_gemm:wgmma_128x192": 24}
+# ResNet-50: 52 convolutions and the classifier on the wgmma kernel, the
+# 7 x 7 stem (K = 147) on the byte-load kernel
+RESNET_INT8_ROUTES = {"int8_gemm:wgmma_128x128": 53,
+                      "int8_gemm:mma_sync_bytes": 1}
 # ResNet-50: 53 convolutions and the classifier
 RESNET_INT8_LAYERS = 54
 DEPLOY_BATCH, DEPLOY_SEQ = 32, 128
@@ -4202,12 +4238,34 @@ def f32_ulps(torch, got, want):
     return ((got.float() - want).abs() / (up - want.abs())).max().item()
 
 
+def int8_gemm_at(torch, G, kernels, tile_n):
+    """The GEMM's C entry point at a forced tile width (``tile_n``: 0 for
+    the byte-load kernel, else the wgmma kernel's BN), f32 out, for
+    timing each width against ``gemm_route``'s choice; not counted."""
+    fn = kernels.function(G.GEMM, G._G_ARGTYPES)
+
+    def run(q, b, ws, asc, bias):
+        m, k = q.shape
+        n = b.shape[0]
+        out = torch.empty(m, n, device=q.device)
+        code = fn(G.device_index(q), q.data_ptr(), k, b.data_ptr(), k,
+                  ws.data_ptr(), asc.data_ptr(), bias.data_ptr(), 0,
+                  out.data_ptr(), n, m, n, k, 127, 0, tile_n,
+                  G._sm_count(q), G.stream_of(q))
+        kernels.check(G.GEMM, fn, code)
+        return out
+    return run
+
+
 def int8_gemm_case(torch, G, label, m, k, n, iters, gen):
     """The GEMM against its plain version: the int32 sums (read through
     unit scales, exact below 2^24) equal, the f32 outputs within an ulp,
-    and device times beside the bound and two library yardsticks:
+    the route ``gemm_route`` picked (and the one the launch counted), and
+    device times beside the bound and two library yardsticks:
     ``torch._int_mm`` with the epilogue in PyTorch where its shape rules
-    hold, and the bf16 product of the dequantized operands."""
+    hold, and the bf16 product of the dequantized operands. The cases of
+    INT8_TILE_CASES are also timed at each wgmma tile width."""
+    from paddle_tpu_torch.ops import kernels
     dev = "cuda"
 
     def make():
@@ -4221,7 +4279,14 @@ def int8_gemm_case(torch, G, label, m, k, n, iters, gen):
 
     sets = [make() for _ in range(n_sets(m * k + n * k + 4 * m * n))]
     q, b, ws, asc, bias = sets[0]
+    route = G.route_of(q, b, G._sm_count(q))
+    before = dict(kernels.route_launches)
     out = G.int8_gemm(q, b, ws, asc, bias, 127, torch.float32)
+    counted = {r: v - before.get(r, 0)
+               for r, v in kernels.route_launches.items()
+               if v != before.get(r, 0)}
+    check(counted == {G.route_name(route): 1},
+          f"int8_gemm {label}: route {route}, counted {counted}")
     ref = G.int8_gemm_plain(q, b, ws, asc, bias, 127, torch.float32)
     ulps = f32_ulps(torch, out, ref)
     acc = G.int8_gemm(q, b, torch.ones(n, device=dev),
@@ -4251,10 +4316,15 @@ def int8_gemm_case(torch, G, label, m, k, n, iters, gen):
           (b.float() * ws[:, None]).t().bfloat16()]
     rec["library_bf16_ms"] = graph_ms(torch, lambda a, w: torch.matmul(a, w),
                                       [wb], iters)
+    if label in INT8_TILE_CASES:
+        rec["tile_ms"] = {bn: graph_ms(torch, int8_gemm_at(torch, G, kernels,
+                                                            bn), sets, iters)
+                          for bn in G.TILE_NS}
     nbytes = m * k + n * k + 8 * n + 4 + 4 * m * n
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * m * k * n, "int8")
     rec.update(phase="int8_kernel", kernel="int8_gemm", case=label,
-               shape=[m, k, n], max_abs_err=abs_err(out, ref),
+               shape=[m, k, n], route=G.route_name(route),
+               max_abs_err=abs_err(out, ref),
                max_ulps=ulps, acc_equal=acc_equal, acc_max=acc_max,
                library="torch._int_mm + PyTorch epilogue"
                if library else None)
@@ -4433,14 +4503,19 @@ def deploy_phase(np, torch, smi, seed, gen, reqs, outs32, rec32, rec16):
     out8 = [to_host(t) for t in p8.run_device(*dev)]    # eager, captured
     out8b = [to_host(t) for t in p8.run_device(*dev)]   # replayed
     launches = dict(kernels.launches)
+    routes = dict(kernels.route_launches)
     for name, k in INT8_LAUNCHES_PER_BATCH.items():
         check(launches[name] == 2 * k,
               f"deploy: {name} launched {launches[name]} times in two "
               f"int8 batches, want {k} a batch")
+    check(routes == {r: 2 * k for r, k in INT8_ROUTES_PER_BATCH.items()},
+          f"deploy: int8_gemm's routes in two int8 batches {routes}, want "
+          f"{INT8_ROUTES_PER_BATCH} a batch")
     replay_diff = max(float(np.abs(a - b).max()) for a, b in zip(out8, out8b))
     check(replay_diff == 0.0, f"deploy: int8 replay differs {replay_diff}")
     rec["int8_launches_per_batch"] = {k: v // 2 for k, v in launches.items()
                                       if v}
+    rec["int8_routes_per_batch"] = {k: v // 2 for k, v in routes.items()}
     rec["int8_vs_cpu"] = cpu_int8_check(
         np, torch, io.load_inference_model(prefix), p8.model, dev, out8,
         "deploy bert int8")
@@ -4533,13 +4608,17 @@ def deploy_phase(np, torch, smi, seed, gen, reqs, outs32, rec32, rec16):
     out_r = pr8.run(imgs[-1])
     out_r2 = pr8.run(imgs[-1])
     rl = dict(kernels.launches)
+    rroutes = dict(kernels.route_launches)
     check(rl["int8_gemm"] == 2 * RESNET_INT8_LAYERS
           and rl["int8_quantize"] == 2 * RESNET_INT8_LAYERS,
           f"deploy resnet: int8 launches {rl}")
+    check(rroutes == {r: 2 * k for r, k in RESNET_INT8_ROUTES.items()},
+          f"deploy resnet: int8_gemm's routes in two forwards {rroutes}")
     check(np.array_equal(out_r, out_r2) and np.isfinite(out_r).all()
           and out_r.shape == (RESNET_INT8_BATCH, 1000),
           "deploy resnet: int8 outputs")
     resnet = dict(launches_per_batch={k: v // 2 for k, v in rl.items() if v},
+                  routes_per_batch={k: v // 2 for k, v in rroutes.items()},
                   int8_vs_f32=mean_rel(np, out_r, f32r),
                   vs_cpu=cpu_int8_check(np, torch, rn_cpu, pr8.model,
                                         [dev_img], out_r,
@@ -4554,6 +4633,17 @@ def deploy_phase(np, torch, smi, seed, gen, reqs, outs32, rec32, rec16):
     times["resnet"] = time.perf_counter() - t1
     rec["seconds"] = dict(times, total=time.perf_counter() - t0)
     emit(rec)
+    # the int8 GEMM's routes on the two int8 paths, and what they serve
+    emit(dict(phase="int8_routes", card=smi,
+              bert_batch=rec["int8_routes_per_batch"],
+              resnet50_forward=resnet["routes_per_batch"],
+              served_qps={p: r["qps"] for p, r in rec["serve"].items()},
+              resnet50_int8_forward_ms=resnet["forward_ms"],
+              resnet50_f32_forward_ms=resnet["f32_forward_ms"],
+              gemm={label: dict(route=r["route"], ms=r["ms"],
+                                bound_ms=r["bound_ms"],
+                                tile_ms=r.get("tile_ms"))
+                    for label, r in gemm.items()}))
     return dict(gemm=gemm, quantize=quant, serve=rec8,
                 resnet_launches=rl)
 

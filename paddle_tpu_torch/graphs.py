@@ -163,6 +163,7 @@ class GraphEntry:
         self.outputs = None
         self.graph = None
         self.launches = {}
+        self.routes = {}
         self.lock = lock if lock is not None else threading.Lock()
         self.replays = 0
 
@@ -178,6 +179,7 @@ class GraphEntry:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(prandom.generator(self.device))
         before = dict(kernels.launches)
+        before_routes = dict(kernels.route_launches)
         try:
             with _CAPTURE_LOCK, _collector_off():
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -192,7 +194,10 @@ class GraphEntry:
             self.launches = {k: n - before[k]
                              for k, n in kernels.launches.items()
                              if n != before[k]}
-            kernels.add_launches(self.launches, -1)
+            self.routes = {k: n - before_routes.get(k, 0)
+                           for k, n in kernels.route_launches.items()
+                           if n != before_routes.get(k, 0)}
+            kernels.add_launches(self.launches, -1, self.routes)
         self.graph, self.outputs = graph, outputs
         return self
 
@@ -210,7 +215,7 @@ class GraphEntry:
                     buf.copy_(a, non_blocking=True)
             if self.card:
                 self.graph.replay()
-                kernels.add_launches(self.launches)
+                kernels.add_launches(self.launches, routes=self.routes)
             else:
                 self.outputs = self.fn(*self.inputs)
             self.replays += 1

@@ -21,8 +21,9 @@ This module holds what the kernels share:
   source share its library.
 * :data:`launches` — one plain int per kernel, incremented by the wrapper
   where it launches the kernel and nowhere else, so a run can show that
-  its main path went through the kernels. A CUDA graph
-  (:mod:`paddle_tpu_torch.graphs`) takes back what its capture counted
+  its main path went through the kernels; :data:`route_launches` the same
+  per instance where a kernel has more than one (the int8 GEMM's). A CUDA
+  graph (:mod:`paddle_tpu_torch.graphs`) takes back what its capture counted
   (the capture records the launches, the card runs none) and adds it at
   each replay, which runs them all with no wrapper call
   (:func:`add_launches`).
@@ -133,6 +134,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches per kernel since the last :func:`reset_launches`
 launches = {name: 0 for name in SOURCES}
+#: launches per instance of a kernel that has more than one (the int8
+#: GEMM's, ``"int8_gemm:wgmma_128x192"``), counted with :data:`launches`
+#: and, like it, taken back by a graph's capture and added at each replay
+route_launches = {}
 
 _lock = threading.Lock()        # build and load
 _count_lock = threading.Lock()
@@ -143,19 +148,25 @@ def reset_launches():
     with _count_lock:
         for name in launches:
             launches[name] = 0
+        route_launches.clear()
 
 
-def count_launch(name):
+def count_launch(name, route=None):
     with _count_lock:
         launches[name] += 1
+        if route is not None:
+            route_launches[route] = route_launches.get(route, 0) + 1
 
 
-def add_launches(counts, sign=1):
+def add_launches(counts, sign=1, routes=None):
     """Add ``sign`` times ``counts`` ({kernel: launches}) to
-    :data:`launches`."""
+    :data:`launches`, and ``routes`` ({instance: launches}) to
+    :data:`route_launches`."""
     with _count_lock:
         for name, n in counts.items():
             launches[name] += sign * n
+        for route, n in (routes or {}).items():
+            route_launches[route] = route_launches.get(route, 0) + sign * n
 
 
 def _nvcc():
@@ -267,8 +278,8 @@ def traced(t):
 from . import layer_norm, flash_attention, softmax_xent  # noqa: E402
 from . import fused_adam, batch_norm, int8_gemm  # noqa: E402
 
-__all__ = ["build", "function", "launches", "reset_launches",
-           "add_launches", "configure",
+__all__ = ["build", "function", "launches", "route_launches",
+           "reset_launches", "add_launches", "configure",
            "enabled", "layer_norm", "flash_attention", "softmax_xent",
            "fused_adam", "batch_norm", "int8_gemm", "traced", "SOURCES",
            "KERNELS", "BUILD_DIR"]

@@ -14,6 +14,16 @@ both kernels. The GEMM takes its weight as ``(N, K)`` rows (the frozen
 transposed copy beside it) and computes ``(float(acc) * step) * wscale[n]
 (+ bias[n])`` cast to the output dtype.
 
+On the card the GEMM runs one of two kernels, which :func:`gemm_route`
+picks from the operands' shapes, pitches and addresses:
+``int8_gemm_wgmma`` (wgmma fed by TMA, persistent, 128 x BN tiles with BN
+in :data:`TILE_NS`) wherever TMA can load A and B, and the byte-load
+``mma.sync`` kernel ``int8_gemm_tc`` for the rest (K = 147 at ResNet-50's
+first convolution, pitches that are not multiples of 16 bytes, column
+slices off a 16-byte boundary). ``kernels.launches["int8_gemm"]`` counts
+both; ``kernels.route_launches`` counts each instance under
+:func:`route_name`.
+
 The plain GEMM computes the accumulator exactly: int32 ``torch.matmul`` on
 the CPU, float64 on the card (exact below 2^53; float32 is not, K =
 3,072 of 127 x 127 products reaching 4.96e7, past 2^24).
@@ -21,6 +31,7 @@ the CPU, float64 on the card (exact below 2^53; float32 is not, K =
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -39,7 +50,7 @@ _G_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -102,6 +113,60 @@ def _pitch(t):
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
+# -- which kernel a product takes ---------------------------------------------
+
+#: the wgmma kernel's tile: 128 rows (two consumer warpgroups of 64) by
+#: one of these widths
+TILE_M = 128
+TILE_NS = (128, 192)
+#: the H100's streaming multiprocessors: the grid the tile rule assumes
+#: where no card is asked
+H100_SMS = 132
+
+
+def gemm_route(m, n, k, lda, ldb, a_addr, b_addr, sms=H100_SMS):
+    """The kernel an ``(m, k) x (n, k)`` product takes: ``("wgmma", BN)``
+    where TMA can load both operands (K > 0, pitches ``lda`` and ``ldb``
+    multiples of 16 bytes, addresses 16-byte aligned), else ``("bytes",
+    0)``, the byte-load ``mma.sync`` kernel.
+
+    BN is 192 where 128 x 192 tiles fit the product in one wave on
+    ``sms`` SMs and 128 x 128 tiles do not (at N = 768 and M = 4,096: 128
+    tiles against 192), else 128. Beyond one wave the narrower tile is
+    the faster on an H100: its ring holds 5 K steps to the wider tile's 3
+    (``chip_smoke.py`` phase 20 times BERT-base's products at both)."""
+    if k <= 0 or lda % 16 or ldb % 16 or a_addr % 16 or b_addr % 16:
+        return "bytes", 0
+    narrow, wide = TILE_NS
+    m_tiles = math.ceil(m / TILE_M)
+    if m_tiles * math.ceil(n / wide) <= sms < m_tiles * math.ceil(n / narrow):
+        return "wgmma", wide
+    return "wgmma", narrow
+
+
+def route_name(route):
+    """The key of ``kernels.route_launches`` for a :func:`gemm_route`."""
+    kind, bn = route
+    return (f"{GEMM}:wgmma_{TILE_M}x{bn}" if kind == "wgmma"
+            else f"{GEMM}:mma_sync_bytes")
+
+
+def route_of(a, b, sms=H100_SMS):
+    """:func:`gemm_route` of the operands ``a`` (M, K) and ``b`` (N, K)."""
+    return gemm_route(a.shape[0], b.shape[0], a.shape[1], _pitch(a),
+                      _pitch(b), a.data_ptr(), b.data_ptr(), sms)
+
+
+_sms = {}
+
+
+def _sm_count(t):
+    i = device_index(t)
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
 # -- the kernels' launches, or the plain versions on the CPU (the custom
 # ops' bodies) -------------------------------------------------------------
 
@@ -134,15 +199,17 @@ def _gemm_body(a, b, wscale, ascale, bias, qmax, out_bf16):
     wscale = wscale.reshape(-1).contiguous()
     ascale = ascale.reshape(()).contiguous()
     bias = None if bias is None else bias.contiguous()
+    sms = _sm_count(a)
+    route = route_of(a, b, sms)
     fn = function(GEMM, _G_ARGTYPES)
     code = fn(device_index(a), a.data_ptr(), _pitch(a), b.data_ptr(),
               _pitch(b), wscale.data_ptr(), ascale.data_ptr(),
               None if bias is None else bias.data_ptr(),
               int(bias is not None and bias.dtype == torch.bfloat16),
               out.data_ptr(), n, m, n, k, int(qmax), int(out_bf16),
-              stream_of(a))
+              route[1], sms, stream_of(a))
     check(GEMM, fn, code)
-    count_launch(GEMM)
+    count_launch(GEMM, route_name(route))
     return out
 
 
@@ -197,8 +264,8 @@ def int8_gemm(a, b, wscale, ascale, bias=None, qmax=127,
     (float32 or bf16): ``a`` (M, K) and ``b`` (N, K) int8, K contiguous,
     ``wscale`` N float32 values, ``ascale`` the act_scale tensor (step =
     max(ascale, 1e-8) / qmax), ``bias`` (N,) float32 or bf16 or None. On a
-    CUDA tensor it launches the kernel; on a CPU tensor it computes
-    :func:`int8_gemm_plain`."""
+    CUDA tensor it launches the kernel :func:`gemm_route` picks; on a CPU
+    tensor it computes :func:`int8_gemm_plain`."""
     _check_2d("int8_gemm", a, (torch.int8,))
     _check_2d("int8_gemm", b, (torch.int8,))
     _check_scale("int8_gemm", ascale, a)

@@ -50,7 +50,7 @@ GROUPS = (("ln_fwd", "layer_norm_fwd (port)"),
           ("adam_single<false", "fused_adam (port)"),
           ("adam_multi", "fused_adam_multi (port)"),
           ("adam_single<true", "fused_adam_flat (port)"),
-          ("int8_gemm_tc", "int8_gemm (port)"),
+          ("int8_gemm", "int8_gemm (port)"),
           ("int8_quantize", "int8_quantize (port)"),
           ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
           ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),

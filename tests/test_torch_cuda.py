@@ -1670,6 +1670,92 @@ def test_int8_kernels_take_pitched_rows_and_bf16(cuda_device, x_dtype):
     assert out.dtype == dt and torch.equal(out, ref)
 
 
+def _int8_gemm_check(dev, q, b, ws, asc, bias, out_dtype, kind):
+    """One product through the kernel ``gemm_route`` picks: the route
+    counted is that one (of ``kind``), the int32 sums read through unit
+    scales equal the exact ones where float32 holds them (below 2^24),
+    and the outputs equal the plain version's."""
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    route = G.route_of(q, b, G._sm_count(q))
+    assert route[0] == kind
+    n = b.shape[0]
+    before = dict(kernels.route_launches)
+    acc = G.int8_gemm(q, b, torch.ones(n, device=dev),
+                      torch.tensor(127.0, device=dev))
+    counted = {r: v - before.get(r, 0)
+               for r, v in kernels.route_launches.items()
+               if v != before.get(r, 0)}
+    assert counted == {G.route_name(route): 1}
+    want = torch.matmul(q.double(), b.double().t())
+    assert torch.equal(acc, want.float())
+    if want.abs().max() < 2 ** 24:
+        assert torch.equal(acc.double(), want)
+    out = G.int8_gemm(q, b, ws, asc, bias, out_dtype=out_dtype)
+    ref = G.int8_gemm_plain(q, b, ws, asc, bias, 127, out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,kind", [(129, 3072, 200, "wgmma"),
+                                        (100, 576, 1000, "wgmma"),
+                                        (1, 64, 16, "wgmma"),
+                                        (100, 1008, 576, "wgmma"),
+                                        (4096, 768, 768, "wgmma"),
+                                        (129, 200, 3072, "bytes")])
+@pytest.mark.parametrize("out_dtype,bias_dtype", [
+    ("float32", "float32"), ("float32", None), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16"), ("bfloat16", "float32"), ("bfloat16", None)])
+def test_int8_gemm_routes_off_the_tile(cuda_device, m, k, n, kind,
+                                       out_dtype, bias_dtype):
+    """M, N and K off the tiles, f32 and bf16 outputs (TMA stores and
+    the consumers' own stores), each bias: the wgmma kernel where TMA can
+    load the operands (K a multiple of 16), the byte-load kernel at K =
+    200."""
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    x, asc, b, ws, bias = _int8_operands(cuda_device, m, k, n, m + k + n)
+    q = G.int8_quantize(x, asc)
+    bias = None if bias_dtype is None else bias.to(getattr(torch,
+                                                           bias_dtype))
+    _int8_gemm_check(cuda_device, q, b, ws, asc, bias,
+                     getattr(torch, out_dtype), kind)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_takes_a_pitched_a_through_tma(cuda_device):
+    """A column view of wider rows (pitch 224 = K + 16 bytes) is loaded
+    by TMA as it stands."""
+    from paddle_tpu_torch.ops.kernels import int8_gemm as G
+    x, asc, b, ws, bias = _int8_operands(cuda_device, 333, 208, 77, 5)
+    buf = torch.zeros(333, 224, dtype=torch.int8, device=cuda_device)
+    buf[:, :208] = G.int8_quantize(x, asc)
+    q = buf[:, :208]
+    assert q.stride(0) == 224
+    _int8_gemm_check(cuda_device, q, b, ws, asc, bias, torch.float32,
+                     "wgmma")
+
+
+@pytest.mark.cuda
+def test_int8_gemm_largest_sums_are_exact(cuda_device):
+    """Operands at +-127 over K = 3,072: sums up to +-49,548,288 (exact
+    in float32 too, 48,387 x 2^10) on the wgmma kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    k = 3072
+
+    def signs(rows):
+        return (torch.randint(0, 2, (rows, k), device=cuda_device,
+                              generator=g) * 254 - 127).to(torch.int8)
+    q, b = signs(256), signs(512)
+    q[0], b[0], b[1] = 127, 127, -127
+    ws = torch.rand(512, device=cuda_device, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(512, device=cuda_device, generator=g)
+    acc = _int8_gemm_check(cuda_device, q, b, ws,
+                           torch.tensor(127.0, device=cuda_device), bias,
+                           torch.float32, "wgmma")
+    assert acc[0, 0].item() == 49548288.0
+    assert acc[0, 1].item() == -49548288.0
+
+
 def _int8_bert(dev):
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.inference import Config
