@@ -326,7 +326,40 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    launches a batch's); ``compile_report``'s flops within 1% of the
    closed form; ResNet-50 in int8 (NCHW, batch 8, 54 frozen layers) served
    and held to the CPU the same way.
-21. the ``kernels`` line (all 16), the card's name and power limit, and
+21. train_recipe, the training loop as users write it: first #8-#10
+   with bf16 state and the loss scaler's skip flag against their plain
+   versions (``fused_adam`` with bf16 p and g and f32 moments at
+   (30522, 768) and (1000, 77); ``fused_adam_multi`` over BERT-base's
+   trained shapes with bf16 p and g; ``fused_adam_flat`` over a bf16
+   group of BERT-base's arena size and an odd length off 16 bytes; the
+   flag clear (the plain version's bits) and set (every tensor
+   bit-equal to before)), timed beside ``torch._fused_adamw_`` with
+   bf16 state. Then BERT-base (12 layers, hidden 768, seq 128, batch 32,
+   token types, the fused loss and the flat arena) through
+   ``bench_bert``'s recipe: ``amp.decorate(level="O2")``,
+   ``auto_cast(level="O2")``, ``AdamW`` over ``LinearWarmup(
+   PolynomialDecay(1e-4, 20), 4, 0, 1e-4)`` with ``ClipGradByGlobalNorm(
+   1.0)``, ``GradScaler(2**15, incr_every_n_steps=4)``, ``jit.to_static``
+   and ``scheduler.step()`` after each call. At dropout 0 a graphed, an
+   eager and a second eager trainer (the control) take 10 calls, the
+   graphed and the control one given the eager one's arena before each
+   (teacher forcing): each call's device rate equals ``last_lr`` as
+   float32, the scale doubles after every 4 good steps, call 6 is forced
+   to overflow by ``set_state_dict`` (3.4e38) and leaves every arena
+   buffer and pow bit-equal, halves the scale and captures nothing, the
+   losses agree within ``GRAPH_LOSS_TOL``, and after each call the graphed
+   arena is held to the eager one: pows bit-equal, of p, m and v at most
+   0.1% of the elements not bit-equal and 0.05% apart by more than one
+   bf16 step, where the eager call moved at least 10% of m and (at a rate
+   above 0) of p; the control pair's shares are reported beside. Then
+   the three run free for 10 calls from one state and how far their
+   losses and arenas part is reported; the graphed calls launch
+   ``fused_adam_flat`` once a step. Two eager steps
+   on the ``use_fused`` and ``use_multi_tensor`` routes launch #8 once a
+   trained parameter and #9 once a step. At dropout 0.1 the two arms are
+   timed in turns (step ms, tokens/s) and one call of each is profiled
+   (busy ms, idle share).
+22. the ``kernels`` line (all 16), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -4649,6 +4682,471 @@ def deploy_phase(np, torch, smi, seed, gen, reqs, outs32, rec32, rec16):
 
 
 
+# -- phase 21: the training loop as users write it ---------------------------
+
+RECIPE_BATCH, RECIPE_SEQ = 32, 128
+RECIPE_HELD_CALLS = 10       # graph vs eager at dropout 0 (1 eager + capture)
+RECIPE_OVERFLOW_CALL = 5     # the call forced to overflow (0-based)
+RECIPE_OVERFLOW_SCALE = 3.4e38
+RECIPE_FREE_CALLS = 10       # then every arm runs free from one state
+# a held call's graphed arena against the eager one: of p, m and v, the
+# largest share of elements not bit-equal, and apart by more than one
+# bf16 step (two eager arms part by 1.5e-5 and 1.3e-5 of m, from the
+# embedding backward's atomic sums, on an H100 80GB HBM3 at 700 W); the
+# eager call must move at least RECIPE_MOVED_SHARE of m (and of p, at a
+# rate above 0), a hundred times the first, so that a graph that updates
+# nothing or keeps a stale rate cannot pass
+RECIPE_DIFFER_SHARE = 1e-3
+RECIPE_BEYOND_SHARE = 5e-4
+RECIPE_MOVED_SHARE = 1e-1
+RECIPE_TIMED_CALLS = 8       # calls a turn, turns graph, eager, eager, graph
+RECIPE_ROUTE_STEPS = 2       # eager steps on the use_fused and multi routes
+
+
+def adam_state_as(torch, shapes, dtypes, gen):
+    """Adam state for ``shapes`` with p, g, m and v in ``dtypes``."""
+    ps, gs, ms, vs = adam_state(torch, shapes, "float32", gen)
+    return [[t.to(getattr(torch, dt)) for t in ts]
+            for ts, dt in zip((ps, gs, ms, vs), dtypes)]
+
+
+def fused_adamw_library(torch, wd, step):
+    """``torch._fused_adamw_`` over lists ``(ps, gs, ms, vs)`` at the
+    recipe's hyperparameters."""
+    def run(ps, gs, ms, vs):
+        torch._fused_adamw_(ps, gs, ms, vs, [], [step] * len(ps),
+                            lr=OPT_LR, beta1=0.9, beta2=0.999,
+                            weight_decay=wd, eps=1e-8, amsgrad=False,
+                            maximize=False)
+    return run
+
+
+def skip_cases(torch, FAD, name, call, plain, state, wd):
+    """One kernel on ``state`` (lists p, g, m, v) with the flag clear and
+    set, each on its own copy: clear, the plain version's bits (the
+    kernel computes its float32 arithmetic operation for operation and
+    rounds once on store, as the plain version's values rounded into each
+    output's dtype are); set, every tensor bit-equal to before. Returns
+    the clear case's errors."""
+    lr, b1p, b2p = (torch.tensor(x, device="cuda")
+                    for x in (OPT_LR, 0.9 ** 3, 0.999 ** 3))
+    out = {}
+    for skip in (False, True):
+        flag = torch.tensor(skip, device="cuda")
+        p, g, m, v = ([t.clone() for t in ts] for ts in state)
+        before = [t.clone() for t in p + m + v]
+        scal = FAD.scalars("cuda", lr, b1p, b2p, wd, flag)
+        want = [plain(*t, scal) for t in zip(p, g, m, v)]
+        call(p, g, m, v, lr, b1p, b2p, flag)
+        torch.cuda.synchronize()
+        got = list(zip(p, m, v))
+        if skip:
+            check(all(torch.equal(a, b) for a, b in zip(p + m + v, before)),
+                  f"{name}: a set skip flag changed the state")
+            continue
+        # the plain version's float32 values rounded once into each
+        # output's dtype, as its wrapper stores them on the CPU
+        pairs = [(a, b.to(a.dtype)) for gt, w in zip(got, want)
+                 for a, b in zip(gt, w)]
+        out = dict(max_abs_err=max(abs_err(a, b) for a, b in pairs),
+                   bit_equal=all(torch.equal(a, b) for a, b in pairs))
+        check(out["bit_equal"], f"{name} with bf16 state: not the plain "
+              f"version's bits (max abs error {out['max_abs_err']})")
+    return out
+
+
+def adam_bf16_cases(torch, FAD, gen):
+    """#8-#10 with bf16 state and the skip flag at the recipe's sizes,
+    each held to its plain version and timed beside ``torch.
+    _fused_adamw_`` with its p, g, m and v in bf16 (the library keeps
+    its moments in the parameters' dtype)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    step = torch.tensor(3.0, device="cuda")
+    lr, b1p, b2p = (torch.tensor(x, device="cuda")
+                    for x in (OPT_LR, 0.9 ** 3, 0.999 ** 3))
+    recs = {}
+    mixed = ("bfloat16", "bfloat16", "float32", "float32")
+    # 8: one tensor, bf16 p and g, f32 moments
+    for shape in ((30522, 768), (1000, 77)):
+        st = adam_state_as(torch, [shape], mixed, gen)
+        rec = dict(phase="recipe_adam_kernel", name="fused_adam",
+                   dtypes=dict(zip("pgmv", mixed)), shape=list(shape),
+                   **skip_cases(
+                       torch, FAD, "fused_adam",
+                       lambda p, g, m, v, lr_, a, b, f: FAD.fused_adam_update(
+                           p[0], g[0], m[0], v[0], lr_, a, b, skip=f),
+                       lambda *a: FAD.adam_plain(*a), st, 0.0))
+        n = math.prod(shape)
+        sets = [tuple(t[0] for t in st) + tuple(t[0].bfloat16() for t in
+                                                  st[2:])]
+        rec.update(timings(
+            torch, lambda p, g, m, v, *_: FAD.fused_adam_update(
+                p, g, m, v, lr, b1p, b2p),
+            lambda p, g, m, v, *_: FAD.adam_plain(
+                p, g, m, v, FAD.scalars("cuda", lr, b1p, b2p)),
+            lambda p, g, m, v, mb, vb: fused_adamw_library(
+                torch, 0.0, step)([p], [g], [mb], [vb]),
+            sets, TIMED_ITERS))
+        nbytes = n * 22
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 15 * n, "float32")
+        rec["bytes"] = nbytes
+        emit(rec)
+        recs.setdefault("fused_adam", rec)
+    # 9: BERT-base's trained shapes, bf16 p and g, f32 moments
+    shapes = pretraining_shapes()
+    st = adam_state_as(torch, shapes, mixed, gen)
+    total = sum(math.prod(s) for s in shapes)
+    rec = dict(phase="recipe_adam_kernel", name="fused_adam_multi",
+               dtypes=dict(zip("pgmv", mixed)), tensors=len(shapes),
+               elements=total, **skip_cases(
+                   torch, FAD, "fused_adam_multi",
+                   lambda p, g, m, v, lr_, a, b, f:
+                   FAD.fused_adam_update_multi(p, g, m, v, lr_, a, b,
+                                               weight_decay=0.01, skip=f),
+                   lambda *a: FAD.adam_plain(*a, decay=True), st, 0.01))
+    mb, vb = ([t.bfloat16() for t in ts] for ts in st[2:])
+    rec.update(timings(
+        torch, lambda ps, gs, ms, vs, *_: FAD.fused_adam_update_multi(
+            ps, gs, ms, vs, lr, b1p, b2p, weight_decay=0.01),
+        lambda ps, gs, ms, vs, *_: [FAD.adam_plain(
+            *t, FAD.scalars("cuda", lr, b1p, b2p, 0.01), decay=True)
+            for t in zip(ps, gs, ms, vs)],
+        lambda ps, gs, ms, vs, mbs, vbs: fused_adamw_library(
+            torch, 0.01, step)(ps, gs, mbs, vbs),
+        [tuple(st) + (mb, vb)], ADAM_ITERS))
+    rec["bound_ms"], rec["bound_by"] = bound(total * 22, 15 * total,
+                                             "float32")
+    rec["bytes"] = total * 22
+    emit(rec)
+    recs["fused_adam_multi"] = rec
+    del st, mb, vb
+    torch.cuda.empty_cache()
+    # 10: a bf16 group of BERT-base's arena size (every parameter, token
+    # types too, padded to 1024), and an odd length one element off 16
+    # bytes
+    model = BertForPretraining(BertConfig.base())
+    arena = sum(p.numel() for p in model.parameters())
+    arena += (-arena) % FAD.FLAT_ALIGN
+    del model
+    for n, off in ((arena, 0), (1024 * 37, 1)):
+        st = adam_state_as(torch, [(n + off,)], ("bfloat16",) * 4, gen)
+        st = [[t[0][off:]] for t in st]
+        rec = dict(phase="recipe_adam_kernel", name="fused_adam_flat",
+                   dtypes=dict.fromkeys("pgmv", "bfloat16"), elements=n,
+                   offset_elements=off, **skip_cases(
+                       torch, FAD, "fused_adam_flat",
+                       lambda p, g, m, v, lr_, a, b, f:
+                       FAD.fused_adam_update_flat(p[0], g[0], m[0], v[0],
+                                                  lr_, a, b,
+                                                  weight_decay=0.01, skip=f),
+                       lambda *a: FAD.adam_plain(*a, decay=True), st, 0.01))
+        rec.update(timings(
+            torch, lambda p, g, m, v: FAD.fused_adam_update_flat(
+                p, g, m, v, lr, b1p, b2p, weight_decay=0.01),
+            lambda p, g, m, v: FAD.adam_plain(
+                p, g, m, v, FAD.scalars("cuda", lr, b1p, b2p, 0.01),
+                decay=True),
+            lambda p, g, m, v: fused_adamw_library(torch, 0.01, step)(
+                [p], [g], [m], [v]),
+            [tuple(t[0] for t in st)], ADAM_ITERS))
+        rec["bound_ms"], rec["bound_by"] = bound(n * 14, 15 * n, "float32")
+        rec["bytes"] = n * 14
+        emit(rec)
+        recs.setdefault("fused_adam_flat", rec)
+        del st
+        torch.cuda.empty_cache()
+    return recs
+
+
+RECIPE_ROUTES = {"flat_arena": dict(flat_arena=True),
+                 "use_fused": dict(use_fused=True, use_multi_tensor=False),
+                 "use_multi_tensor": dict(use_multi_tensor=True)}
+
+
+def recipe_trainer(route, dropout):
+    """``bench_bert``'s recipe on BERT-base at batch 32, token types, on
+    the optimizer route ``route`` (:data:`RECIPE_ROUTES`)."""
+    from paddle_tpu_torch.tools import bench_bert
+    return bench_bert.Trainer(
+        RECIPE_BATCH, RECIPE_SEQ, 1, opt_kw=RECIPE_ROUTES[route],
+        token_types=True, recipe=True, hidden_dropout_prob=dropout,
+        attention_probs_dropout_prob=dropout)
+
+
+def recipe_buffers(tr):
+    """Every tensor a step of an arena trainer writes: each group's flat
+    buffer, moments and pows."""
+    out = []
+    for grp in tr.opt._arena.groups:
+        out += [grp.flat] + list(grp.slots.values()) + \
+            list(grp.pows.values())
+    return out
+
+
+def recipe_phase(np, torch, FAD, smi, gen):
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools.bench_bert import RECIPE
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    krecs = adam_bf16_cases(torch, FAD, gen)
+    kernels.configure(softmax_xent=True, fused_adam_multi=True)
+    try:
+        held = recipe_held(np, torch, smi)
+        routes = recipe_routes(torch)
+        timed = recipe_timed(np, torch, smi)
+    finally:
+        kernels.configure(softmax_xent=None, fused_adam_multi=None)
+    rec = dict(phase="train_recipe", card=smi, batch=RECIPE_BATCH,
+               seq=RECIPE_SEQ, recipe=RECIPE, **held, routes=routes,
+               **timed, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec, krecs
+
+
+def bf16_step(torch, x):
+    """One bfloat16 step (the unit in the last place) at each |x|, as
+    float32."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def arena_gap(torch, got, want, before):
+    """How far the buffers ``got`` (p, m, v of one arena group) part from
+    ``want``, and how far ``want`` moved from ``before``: for each, the
+    shares of elements not bit-equal (``differ``), apart by more than one
+    bf16 step of the larger magnitude (``beyond_step``) and moved by the
+    call (``moved``), and the largest difference."""
+    out = {}
+    for name, a, b, b0 in zip("pmv", got, want, before):
+        n = b.numel()
+        a32, b32 = a.float(), b.float()
+        diff = (a32 - b32).abs()
+        step = bf16_step(torch, torch.maximum(a32.abs(), b32.abs()))
+        out[name] = dict(differ=int((a != b).sum()) / n,
+                         beyond_step=int((diff > step).sum()) / n,
+                         moved=int((b != b0).sum()) / n,
+                         max_abs=float(diff.max()))
+    return out
+
+
+def recipe_pmv(tr):
+    """The arena group's flat parameters and moments of trainer ``tr``."""
+    (grp,) = tr.opt._arena.groups
+    return [grp.flat, grp.slots["moment1"], grp.slots["moment2"]]
+
+
+def recipe_held(np, torch, smi):
+    """A graphed, an eager and a second eager trainer (the control) at
+    dropout 0, call by call (module docstring, phase 21). Before each
+    call the graphed and the control trainer take the eager one's arena
+    in place (teacher forcing), so each call's update is one step from
+    one state, and each call's loss the same forward. After each call the
+    graphed arena is held to the eager one: the pows bit-equal, and of p,
+    m and v at most ``RECIPE_DIFFER_SHARE`` of the elements not bit-equal
+    and at most ``RECIPE_BEYOND_SHARE`` apart by more than one bf16 step,
+    while the eager call moved at least ``RECIPE_MOVED_SHARE`` of m and,
+    where the rate is above 0, of p: a graph that updated nothing, or
+    kept an earlier call's rate (the first call's is 0), fails. The
+    control pair's shares are reported beside, the parting that
+    PyTorch's embedding backward (atomic sums) leaves between two eager
+    runs. Then the three run free for ``RECIPE_FREE_CALLS`` calls from
+    one state, and how far their losses and arenas part is reported."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools.bench_bert import RECIPE
+    arms = {"graph": recipe_trainer("flat_arena", 0.0),
+            "eager": recipe_trainer("flat_arena", 0.0),
+            "control": recipe_trainer("flat_arena", 0.0)}
+    eager = arms["eager"]
+    for tr in arms.values():
+        tr.opt._ensure_all_slots()
+        check({p.dtype for p in tr.model.parameters()} == {torch.bfloat16}
+              and len(tr.opt._arena.groups) == 1,
+              "recipe: decorate(O2) left a parameter out of bf16")
+
+    def force():
+        with torch.no_grad():
+            for arm in ("graph", "control"):
+                for a, b in zip(recipe_buffers(arms[arm]),
+                                recipe_buffers(eager)):
+                    a.copy_(b)
+
+    lrs, scales, losses = [], [], {arm: [] for arm in arms}
+    overflow, gaps = None, []
+    kernels.reset_launches()
+    for i in range(RECIPE_HELD_CALLS):
+        force()
+        before = [t.clone() for t in recipe_pmv(eager)]
+        for arm, tr in arms.items():
+            rate = float(next(iter(tr.opt._lr.values())))
+            check(rate == float(np.float32(tr.sched.last_lr)),
+                  f"recipe {arm} call {i}: the device rate {rate} is not "
+                  f"last_lr {tr.sched.last_lr}")
+            before_sc = tr.scaler.state_dict()
+            if i == RECIPE_OVERFLOW_CALL:
+                tr.scaler.set_state_dict(dict(before_sc,
+                                              scale=RECIPE_OVERFLOW_SCALE))
+                snap = [t.clone() for t in recipe_buffers(tr)]
+                entries = dict(tr.step._cache)
+            losses[arm].append(tr.call(graph=arm == "graph"))
+            after = tr.scaler.state_dict()
+            if i == RECIPE_OVERFLOW_CALL:
+                same = all(torch.equal(a, b) for a, b in
+                           zip(recipe_buffers(tr), snap))
+                halved = float(np.float32(RECIPE_OVERFLOW_SCALE) * 0.5)
+                check(same and after == dict(scale=halved, good=0, bad=0),
+                      f"recipe {arm}: the overflowed call changed the "
+                      f"arena ({not same}) or left the scaler {after}")
+                if arm == "graph":
+                    check(tr.step._cache == entries and all(
+                        e.graph is not None for e in entries.values()),
+                          "recipe: the overflowed call captured anew")
+                    overflow = dict(bit_equal=same, scaler_after=after,
+                                    entries=len(entries))
+                tr.scaler.set_state_dict(before_sc)
+                continue
+            want_up = before_sc["good"] + 1 >= RECIPE["incr_every_n_steps"]
+            check(after == dict(
+                scale=before_sc["scale"] * (2 if want_up else 1),
+                good=0 if want_up else before_sc["good"] + 1, bad=0),
+                f"recipe {arm} call {i}: scaler {before_sc} -> {after}")
+            if arm == "graph":
+                lrs.append(rate)
+                scales.append(after["scale"])
+        pows = all(torch.equal(a, b) for a, b in zip(
+            recipe_buffers(arms["graph"])[3:], recipe_buffers(eager)[3:]))
+        gap = arena_gap(torch, recipe_pmv(arms["graph"]), recipe_pmv(eager),
+                        before)
+        ctl = arena_gap(torch, recipe_pmv(arms["control"]),
+                        recipe_pmv(eager), before)
+        gaps.append(dict(call=i, rate=rate, graph=gap, control=ctl))
+        del before
+        worst = {k: max(gap[b][k] for b in "pmv")
+                 for k in ("differ", "beyond_step")}
+        check(pows and worst["differ"] <= RECIPE_DIFFER_SHARE and
+              worst["beyond_step"] <= RECIPE_BEYOND_SHARE,
+              f"recipe call {i}: the graphed arena parts from the eager "
+              f"one (pows equal: {pows}): {gap}; two eager arms: {ctl}")
+        if i != RECIPE_OVERFLOW_CALL:
+            check(gap["m"]["moved"] >= RECIPE_MOVED_SHARE and (
+                rate == 0.0 or gap["p"]["moved"] >= RECIPE_MOVED_SHARE),
+                  f"recipe call {i}: the eager call moved too little of "
+                  f"the arena to hold the graphed one to it: {gap}")
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in kernels.launches.items() if n}
+    got, want = torch.cat(losses["graph"]), torch.cat(losses["eager"])
+    loss_err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    check(bool(torch.isfinite(got).all()) and loss_err <= GRAPH_LOSS_TOL,
+          f"recipe: graph vs eager losses {loss_err} > {GRAPH_LOSS_TOL}")
+    per_call = {k: n / (len(arms) * RECIPE_HELD_CALLS)
+                for k, n in launches.items()}
+    # free running from one state: the witness of how far arms part
+    force()
+    before = [t.clone() for t in recipe_pmv(eager)]
+    free = {arm: [] for arm in arms}
+    for _ in range(RECIPE_FREE_CALLS):
+        for arm, tr in arms.items():
+            free[arm].append(tr.call(graph=arm == "graph"))
+    free = {arm: torch.cat(v) for arm, v in free.items()}
+    check(all(bool(torch.isfinite(v).all()) for v in free.values()),
+          "recipe: a free-running arm's loss is not finite")
+    free_rec = {}
+    for arm in ("graph", "control"):
+        free_rec[arm] = dict(
+            loss_max_err=((free[arm] - free["eager"]).abs() / free[
+                "eager"].abs().clamp_min(1.0)).max().item(),
+            arena=arena_gap(torch, recipe_pmv(arms[arm]), recipe_pmv(eager),
+                            before))
+    del before
+    (entry,) = arms["graph"].step._cache.values()
+    calls = RECIPE_HELD_CALLS + RECIPE_FREE_CALLS
+    check(per_call.get("fused_adam_flat") == 1.0 and entry.replays ==
+          calls - 1,
+          f"recipe: launches a call per arm {per_call}, replays "
+          f"{entry.replays}")
+
+    def worst(pair, b, k):
+        # the largest share apart; the smallest share moved, over the
+        # calls that move the buffer
+        if k != "moved":
+            return max(g[pair][b][k] for g in gaps)
+        return min(g[pair][b][k] for g in gaps
+                   if g["call"] != RECIPE_OVERFLOW_CALL and
+                   (b != "p" or g["rate"] > 0))
+
+    summary = {pair: {b: {k: worst(pair, b, k) for k in (
+        "differ", "beyond_step", "moved", "max_abs")} for b in "pmv"}
+        for pair in ("graph", "control")}
+    return dict(lr_per_call=lrs, scale_per_call=scales,
+                losses_graph=got.tolist(), losses_eager=want.tolist(),
+                losses_control=torch.cat(losses["control"]).tolist(),
+                loss_max_err=loss_err, loss_tol=GRAPH_LOSS_TOL,
+                losses_bit_equal=torch.equal(got, want),
+                arena_per_call=gaps, arena_worst=summary,
+                differ_share_tol=RECIPE_DIFFER_SHARE,
+                beyond_step_share_tol=RECIPE_BEYOND_SHARE,
+                moved_share_min=RECIPE_MOVED_SHARE, overflow=overflow,
+                free_calls=RECIPE_FREE_CALLS, free_vs_eager=free_rec,
+                launches_per_call=per_call,
+                capture_launches=entry.launches, replays=entry.replays)
+
+
+def recipe_routes(torch):
+    """Two eager recipe steps on the use_fused and use_multi_tensor
+    routes: #8 once a parameter with a gradient, #9 once, a step."""
+    from paddle_tpu_torch.ops import kernels
+    out = {}
+    for route, name in (("use_fused", "fused_adam"),
+                        ("use_multi_tensor", "fused_adam_multi")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = recipe_trainer(route, 0.0)
+        n_params = sum(1 for p in tr.model.parameters() if p.requires_grad)
+        kernels.reset_launches()
+        for _ in range(RECIPE_ROUTE_STEPS):
+            loss = tr.call(graph=False)
+        torch.cuda.synchronize()
+        got = kernels.launches[name] / RECIPE_ROUTE_STEPS
+        want = n_params if route == "use_fused" else 1
+        check(got == want and bool(torch.isfinite(loss).all()),
+              f"recipe {route}: {got} {name} launches a step, want {want}")
+        out[route] = {name: got, "loss": float(loss[-1])}
+        del tr
+    return out
+
+
+def recipe_timed(np, torch, smi):
+    """The graph and the eager arm at dropout 0.1, in turns."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {"graph": recipe_trainer("flat_arena", DROPOUT_P),
+            "eager": recipe_trainer("flat_arena", DROPOUT_P)}
+    for arm, tr in arms.items():
+        tr.call(graph=arm == "graph")
+        tr.call(graph=arm == "graph")[-1].item()
+    times = {"graph": [], "eager": []}
+    for arm in ("graph", "eager", "eager", "graph"):
+        tr = arms[arm]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(RECIPE_TIMED_CALLS):
+            out = tr.call(graph=arm == "graph")
+        out[-1].item()
+        times[arm].append((time.perf_counter() - t1) * 1e3 /
+                          RECIPE_TIMED_CALLS)
+    tokens = RECIPE_BATCH * RECIPE_SEQ
+    res = {f"{arm}_profile": call_profile(
+        torch, lambda tr=arms[arm], g=arm == "graph": tr.call(graph=g))
+        for arm in ("graph", "eager")}
+    for arm in ("graph", "eager"):
+        ms = statistics.median(times[arm])
+        res[f"{arm}_step_ms"] = ms
+        res[f"{arm}_tokens_per_s"] = tokens / ms * 1e3
+        res[f"{arm}_step_ms_runs"] = times[arm]
+    res["last_loss"] = float(out[-1])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -4907,7 +5405,13 @@ def main(argv=None):
     dep = deploy_phase(np, torch, smi, args.seed, gen, reqs, outs32, rec32,
                        rec16)
 
-    # 21. the kernels line, the card, and the verdict
+    # 21. the training loop as users write it: O2, the schedule, the clip
+    # and the loss scaler inside the captured step
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipe, recipe_kernels = recipe_phase(np, torch, FAD, smi, gen)
+
+    # 22. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

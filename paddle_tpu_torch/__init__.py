@@ -60,11 +60,14 @@ exported as a ``torch.export`` program::
 """
 from . import device, random, amp, initializer, nn, ops, models, inference
 from . import io, resilience, serving, convert, regularizer, optimizer, jit
-from . import quantization
+from . import quantization, clip
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .device import get_device, set_device
+from .optimizer import lr
 from .random import seed
 
 __all__ = ["device", "random", "amp", "initializer", "nn", "ops", "models",
            "inference", "io", "resilience", "serving", "convert",
-           "regularizer", "optimizer", "jit", "quantization", "get_device",
-           "set_device", "seed"]
+           "regularizer", "optimizer", "jit", "quantization", "clip", "lr",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "get_device", "set_device", "seed"]

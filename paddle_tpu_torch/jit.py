@@ -6,8 +6,12 @@ Counterpart of ``paddle_tpu/jit.py``, which traces a dygraph step
 executable per input signature. The port's executable is a CUDA graph
 (:class:`paddle_tpu_torch.graphs.GraphEntry`):
 
-* **state** is found as the reference finds it: from ``models=`` and
-  ``optimizers=`` or the step's closure. It is not passed through the
+* **state** is found as the reference finds it: from ``models=``,
+  ``optimizers=`` and ``scalers=`` or the step's closure (an
+  ``amp.GradScaler`` there too, whose scale and counts join the state as
+  ``s{i}.scale``, ``s{i}.good`` and ``s{i}.bad``; a learning-rate
+  scheduler's rate is the optimizer's ``lr`` tensor, which
+  ``scheduler.step()`` fills between calls). It is not passed through the
   graph, as the reference passes its state, but read and written in place
   at addresses the graph captured (the optimizers update in place), so
   the key also holds those addresses: state that moved is captured anew
@@ -43,8 +47,7 @@ inference-model pair, as the reference's do.
 
 ``input_spec`` and ``donate_state`` are taken and change nothing (the
 state is updated in place already). ``plan`` (ROADMAP.md Queue A item
-19), ``remat`` (items 8 and 20) and ``scalers`` (item 6) raise
-``NotImplementedError``; so does the reference's AST pass, which the port
+19) and ``remat`` (items 8 and 20) raise ``NotImplementedError``; so does the reference's AST pass, which the port
 does not have (item 18).
 """
 from __future__ import annotations
@@ -67,23 +70,25 @@ _CANON = {np.dtype("float64"): np.float32, np.dtype("int64"): np.int32,
           np.dtype("uint64"): np.uint32}
 
 
-def _discover_state_objects(fn, models, optimizers):
-    """The models and optimizers a step touches: those given, plus the
-    Layers and Optimizers in ``fn``'s closure and a bound method's
-    object (the reference's discovery; loss scalers are not ported)."""
+def _discover_state_objects(fn, models, optimizers, scalers=None):
+    """The models, optimizers and loss scalers a step touches: those
+    given, plus the Layers, Optimizers and ``amp.GradScaler``s in ``fn``'s
+    closure and a bound method's object (the reference's discovery)."""
+    from .amp import GradScaler
     models = list(models) if models else []
     optimizers = list(optimizers) if optimizers else []
-    seen = {id(o) for o in models + optimizers}
+    scalers = list(scalers) if scalers else []
+    seen = {id(o) for o in models + optimizers + scalers}
 
     def visit(obj):
         if id(obj) in seen:
             return
-        if isinstance(obj, torch.nn.Module):
-            seen.add(id(obj))
-            models.append(obj)
-        elif isinstance(obj, Optimizer):
-            seen.add(id(obj))
-            optimizers.append(obj)
+        for kind, into in ((torch.nn.Module, models),
+                           (Optimizer, optimizers), (GradScaler, scalers)):
+            if isinstance(obj, kind):
+                seen.add(id(obj))
+                into.append(obj)
+                return
 
     target = fn
     while hasattr(target, "__wrapped__"):
@@ -96,14 +101,15 @@ def _discover_state_objects(fn, models, optimizers):
             visit(cell.cell_contents)
         except ValueError:      # an empty cell
             pass
-    return models, optimizers
+    return models, optimizers, scalers
 
 
-def _collect_state(models, optimizers):
+def _collect_state(models, optimizers, scalers=()):
     """Name -> tensor for everything the step may read or write: each
     optimizer's learning rates, slots and arena buffers (every slot
     created first), then each model's parameters (those an arena does not
-    hold) and buffers, under the reference's names."""
+    hold) and buffers, then each loss scaler's scale and counts, under the
+    reference's names."""
     holders = {}
     covered = set()
     for oi, o in enumerate(optimizers):
@@ -128,6 +134,10 @@ def _collect_state(models, optimizers):
                 holders[f"m{mi}.{name}"] = p
         for name, b in m.named_buffers():
             holders[f"m{mi}.buf.{name}"] = b
+    for si, s in enumerate(scalers):
+        holders[f"s{si}.scale"] = s._scale
+        holders[f"s{si}.good"] = s._good
+        holders[f"s{si}.bad"] = s._bad
     return holders
 
 
@@ -152,12 +162,13 @@ class StaticFunction:
     """The compiled callable that :func:`to_static` returns."""
 
     def __init__(self, fn, models=None, optimizers=None, bucket=False,
-                 buckets=None, pad_mode="repeat"):
+                 buckets=None, pad_mode="repeat", scalers=None):
         functools.update_wrapper(self, fn, assigned=("__name__", "__doc__"),
                                  updated=())
         self._fn = fn
         self._models = models
         self._optimizers = optimizers
+        self._scalers = scalers
         self._bucket = bucket
         self._buckets = buckets
         self._pad_mode = pad_mode
@@ -170,9 +181,17 @@ class StaticFunction:
 
     def _resolve_objects(self):
         if self._models is None or self._optimizers is None:
-            self._models, self._optimizers = _discover_state_objects(
-                self._fn, self._models, self._optimizers)
-        return self._models, self._optimizers
+            m, o, s = _discover_state_objects(
+                self._fn, self._models, self._optimizers, self._scalers)
+            self._models, self._optimizers = m, o
+            if self._scalers is None:
+                self._scalers = s
+        elif self._scalers is None:
+            # models and optimizers given: discover only the scalers, so
+            # closure objects the caller left out stay out
+            self._scalers = _discover_state_objects(
+                self._fn, self._models, self._optimizers)[2]
+        return self._models, self._optimizers, self._scalers
 
     @staticmethod
     def _device(models, arrays):
@@ -195,8 +214,8 @@ class StaticFunction:
             return self._call(args, kwargs)
 
     def _call(self, args, kwargs):
-        models, optimizers = self._resolve_objects()
-        holders = _collect_state(models, optimizers)
+        models, optimizers, scalers = self._resolve_objects()
+        holders = _collect_state(models, optimizers, scalers)
         state_names = sorted(holders)
         addresses = tuple(holders[n].data_ptr() for n in state_names)
 
@@ -259,7 +278,7 @@ class StaticFunction:
                     models, label)
             # the addresses the graph captured: a first step may still
             # have replaced a slot (a moment cast to float32)
-            holders = _collect_state(models, optimizers)
+            holders = _collect_state(models, optimizers, scalers)
             entry.addresses = tuple(holders[n].data_ptr() if n in holders
                                     else None for n in state_names)
             self._cache[key] = entry
@@ -338,8 +357,7 @@ def to_static(function=None, input_spec=None, models=None, optimizers=None,
     bucket size back; padded rows take part in reductions, as in the
     reference."""
     for name, value, item in (("plan", plan, "item 19"),
-                              ("remat", remat, "items 8 and 20"),
-                              ("scalers", scalers, "item 6")):
+                              ("remat", remat, "items 8 and 20")):
         if value is not None:
             raise NotImplementedError(
                 f"jit.to_static({name}=...) is not ported yet (ROADMAP.md "
@@ -353,7 +371,7 @@ def to_static(function=None, input_spec=None, models=None, optimizers=None,
             m.train()
         return StaticFunction(fn, models=models, optimizers=optimizers,
                               bucket=bucket, buckets=buckets,
-                              pad_mode=pad_mode)
+                              pad_mode=pad_mode, scalers=scalers)
 
     return wrap if function is None else wrap(function)
 

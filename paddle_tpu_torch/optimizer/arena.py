@@ -2,10 +2,12 @@
 
 Counterpart of ``paddle_tpu/optimizer/arena.py``'s ``ParamArena``,
 reduced to what the update needs. One contiguous 1-D buffer per dtype
-holds every trainable parameter in parameter order, padded to a multiple
-of ``ALIGN``, with the optimizer's per-element slots (Adam's moments) as
-equally flat buffers in the same layout and one shared scalar per group
-for each pow. Each member's ``.data`` becomes a view of its slice of the
+holds every trainable parameter in parameter order, each member starting
+at a multiple of ``MEMBER_ALIGN`` elements and the whole padded to a
+multiple of ``ALIGN``, with the optimizer's per-element slots (Adam's moments) as
+equally flat buffers in the same layout and one shared float32 scalar
+per group for each pow (the reference keeps a group's pows in its dtype;
+a bfloat16 ``beta2_pow`` stays 1.0, see ``optimizer/__init__.py``). Each member's ``.data`` becomes a view of its slice of the
 flat buffer, so an in-place update of the buffer (the ``fused_adam_flat``
 kernel) is the parameters' update; the reference's coherence machinery
 for immutable arrays (``bind_views``, ``sync_leaves``, the tensor read
@@ -13,7 +15,15 @@ hook, the stale and dirty sets) has nothing to do here.
 
 A step packs the gradients with one ordered concatenation per group;
 members without a gradient contribute zeros and a ``False`` mask span, and
-the update keeps their parameters and moments (``adam_step_flat``).
+the update keeps their parameters and moments (``adam_step_flat``). The
+gaps between members are zeros that the update keeps at zero. Members
+start aligned because a member is a weight the step's matmuls read in
+place: packed end to end (the reference's layout), a bf16 group's
+members sit at 4-byte offsets, and cuBLAS then runs BERT-base's
+products in its 2-element-aligned kernels, twice as long (BERT-base's
+recipe at batch 32 by ``tools/bench_bert.py --recipe --profile`` on an
+H100 80GB HBM3 at 700 W: 11.06 ms of cuBLAS a step against 5.60 with
+aligned weights).
 
 Not ported, each raising ``NotImplementedError`` (ROADMAP.md Queue A):
 grad-sync buckets (``bucket_bounds``), checkpoint interop
@@ -29,6 +39,10 @@ import torch
 # each dtype group is padded to a multiple of ALIGN elements, the lengths
 # the fused_adam_flat kernel takes
 from ..ops.kernels.fused_adam import FLAT_ALIGN as ALIGN
+
+#: each member starts at a multiple of this many elements (128 bytes in
+#: bf16), so that a member is as aligned as a tensor of its own
+MEMBER_ALIGN = 64
 
 
 def _not_ported(what):
@@ -55,7 +69,7 @@ class _Group:
 class ParamArena:
     """``params``: the ordered trainable parameters, on one device.
     ``slot_names``: the per-element slot buffers to mirror (zeros).
-    ``pow_names``: the shared per-group scalars, starting at 1."""
+    ``pow_names``: the shared per-group float32 scalars, starting at 1."""
 
     def __init__(self, params, slot_names=(), pow_names=()):
         devices = {p.device for p in params}
@@ -70,6 +84,7 @@ class ParamArena:
             if grp is None:
                 grp = by_dtype[p.dtype] = _Group(p.dtype)
                 self.groups.append(grp)
+            grp.total += (-grp.total) % MEMBER_ALIGN
             grp.entries.append((p, grp.total, p.numel(), tuple(p.shape)))
             grp.total += p.numel()
         self._pids = {id(p) for p in params}
@@ -84,7 +99,7 @@ class ParamArena:
                     p.data = view.view(shape)
                 grp.slots = {s: torch.zeros_like(grp.flat)
                              for s in slot_names}
-                grp.pows = {s: torch.ones((), dtype=grp.dtype,
+                grp.pows = {s: torch.ones((), dtype=torch.float32,
                                           device=self.device)
                             for s in pow_names}
 
@@ -112,17 +127,19 @@ class ParamArena:
             return None
         packed = []
         for grp in self.groups:
-            segs, flags = [], []
+            segs, flags, at = [], [], 0
             for p, off, n, _ in grp.entries:
+                if off > at:
+                    segs.append(grp.flat.new_zeros(off - at))
                 g = by_pid.get(id(p))
                 flags.append(g is not None)
                 segs.append(grp.flat.new_zeros(n) if g is None
                             else g.reshape(-1).to(grp.dtype))
+                at = off + n
             if not any(flags):
                 continue
-            _, off, n, _ = grp.entries[-1]
-            if grp.total > off + n:
-                segs.append(grp.flat.new_zeros(grp.total - off - n))
+            if grp.total > at:
+                segs.append(grp.flat.new_zeros(grp.total - at))
             mask = None if all(flags) else self._mask(grp, tuple(flags))
             packed.append((grp, torch.cat(segs), mask))
         return packed or None
@@ -156,4 +173,4 @@ def static_apply(opt, params_grads, param_vals, slot_vals, lr):
     raise _not_ported("static_apply (the static Executor)")
 
 
-__all__ = ["ParamArena", "ALIGN", "static_apply"]
+__all__ = ["ParamArena", "ALIGN", "MEMBER_ALIGN", "static_apply"]

@@ -3,7 +3,7 @@
 
     python -m paddle_tpu_torch.tools.bench_bert [--batch 64] [--seq 128]
         [--steps 32] [--inner 8] [--kernels NAME,...] [--use-fused]
-        [--use-multi-tensor] [--flat-arena] [--token-types]
+        [--use-multi-tensor] [--flat-arena] [--token-types] [--recipe]
         [--arms graph,eager]
         [--profile [--top 15]] [--out PATH]
 
@@ -28,6 +28,14 @@ clock, ending in a sync; the result is tokens/s (``batch * seq`` a step)
 and the last loss. ``--arms graph,eager`` measures both arms in turns,
 each on its own trainer (graph, eager, eager, graph).
 
+``--recipe`` trains as a user's script does (:data:`RECIPE`): the model
+cast to bfloat16 by ``amp.decorate(level="O2")`` and run under
+``auto_cast(level="O2")``, ``AdamW`` over a ``LinearWarmup`` of a
+``PolynomialDecay`` with ``ClipGradByGlobalNorm(1.0)``, and an
+``amp.GradScaler`` around the backward and the step; one optimizer step a
+call (``inner`` 1), and ``scheduler.step()`` on the host after each call,
+which the next replay reads from the optimizer's rate tensor.
+
 It runs on the CUDA card (``device=None``) and raises where there is
 none; ``device="cpu"`` runs the same steps on the CPU. The command line
 prints one JSON line with each arm's step time, tokens/s and loss and
@@ -47,8 +55,9 @@ import time
 import numpy as np
 import torch
 
-from .. import amp, jit, optimizer, seed
+from .. import amp, clip, jit, optimizer, seed
 from .. import device as _device
+from ..optimizer import lr as lr_sched
 from ..models import BertConfig, BertForPretraining
 from ..ops import kernels
 from .profile_bert import _group
@@ -76,6 +85,20 @@ def make_data(vocab_size, batch, seq, inner, rng_seed=0):
     return ids, mlm, nsp
 
 
+#: ``--recipe``'s schedule, clip and loss scaling
+RECIPE = dict(peak_lr=1e-4, decay_steps=20, warmup_steps=4, clip_norm=1.0,
+              init_loss_scaling=2.0 ** 15, incr_every_n_steps=4)
+
+
+def recipe_scheduler():
+    """``LinearWarmup(PolynomialDecay(1e-4, decay_steps=20),
+    warmup_steps=4, start_lr=0.0, end_lr=1e-4)``."""
+    r = RECIPE
+    return lr_sched.LinearWarmup(
+        lr_sched.PolynomialDecay(r["peak_lr"], decay_steps=r["decay_steps"]),
+        warmup_steps=r["warmup_steps"], start_lr=0.0, end_lr=r["peak_lr"])
+
+
 class Trainer:
     """The model, optimizer, data (on the device) and step of the bench.
     ``one(ids, mlm, nsp)`` is one optimizer step on one batch and returns
@@ -84,39 +107,81 @@ class Trainer:
     ``step`` is the same under ``jit.to_static``. ``opt_kw`` goes to
     ``AdamW`` (``use_fused``, ``use_multi_tensor``, ``flat_arena``). With
     ``token_types`` each batch also carries segment ids
-    (:func:`make_token_types`), the fourth of ``data``."""
+    (:func:`make_token_types`), the fourth of ``data``. With ``recipe``
+    the step is :data:`RECIPE`'s (``inner`` must be 1): ``sched`` is the
+    scheduler and ``scaler`` the loss scaler, and :meth:`call` steps the
+    scheduler after each call."""
 
     def __init__(self, batch=64, seq=128, inner=8, device=None, opt_kw=None,
-                 token_types=False, **cfg_kw):
+                 token_types=False, recipe=False, **cfg_kw):
+        if recipe and inner != 1:
+            raise ValueError("bench_bert: the recipe takes one optimizer "
+                             "step a call (inner=1): its scheduler steps "
+                             "on the host between calls")
         self.device = _device.resolve(device)
         self.inner = inner
+        self.recipe = recipe
         seed(0)
         self.config = BertConfig.base(**cfg_kw)
         self.model = BertForPretraining(self.config).to(self.device)
-        self.opt = optimizer.AdamW(learning_rate=1e-4,
-                                   parameters=self.model.parameters(),
-                                   **(opt_kw or {}))
+        self.sched = self.scaler = None
+        kw = dict(opt_kw or {})
+        if recipe:
+            self.sched = recipe_scheduler()
+            kw.update(learning_rate=self.sched, grad_clip=clip.
+                      ClipGradByGlobalNorm(RECIPE["clip_norm"]))
+        else:
+            kw.update(learning_rate=1e-4)
+        self.opt = optimizer.AdamW(parameters=self.model.parameters(), **kw)
+        if recipe:
+            amp.decorate(self.model, self.opt, level="O2")
+            self.scaler = amp.GradScaler(
+                init_loss_scaling=RECIPE["init_loss_scaling"],
+                incr_every_n_steps=RECIPE["incr_every_n_steps"])
         arrays = make_data(self.config.vocab_size, batch, seq, inner)
         if token_types:
             arrays += (make_token_types(batch, seq, inner),)
         self.data = tuple(torch.from_numpy(a).to(self.device)
                           for a in arrays)
-        self.step = jit.to_static(self.eager_step, models=[self.model],
-                                  optimizers=[self.opt])
+        self.step = jit.to_static(
+            self.eager_step, models=[self.model], optimizers=[self.opt],
+            scalers=[self.scaler] if recipe else [])
 
     def one(self, ids, mlm, nsp, tt=None):
-        with amp.auto_cast(dtype="bfloat16"):
+        level = "O2" if self.recipe else "O1"
+        with amp.auto_cast(level=level, dtype="bfloat16"):
             logits, nsp_logits = self.model(ids, tt)
         loss = self.model.loss(logits.float(), nsp_logits.float(), mlm, nsp)
-        loss.backward()
-        self.opt.step()
+        if self.recipe:
+            self.scaler.scale(loss).backward()
+            self.scaler.step(self.opt)
+        else:
+            loss.backward()
+            self.opt.step()
         self.opt.clear_grad()
         return loss.detach()
+
+    def call(self, graph=True):
+        """One call of the graphed (or the eager) step on ``data``, then
+        the recipe's ``scheduler.step()``; returns the losses."""
+        losses = (self.step if graph else self.eager_step)(*self.data)
+        if self.sched is not None:
+            self.sched.step()
+        return losses
 
     def eager_step(self, ids_k, mlm_k, nsp_k, tt_k=None):
         return torch.stack([self.one(ids_k[i], mlm_k[i], nsp_k[i],
                                      None if tt_k is None else tt_k[i])
                             for i in range(self.inner)])
+
+
+def _call(tr, graph):
+    """One call of trainer ``tr``'s graphed or eager step (through its
+    ``call``, which steps a recipe's scheduler, where it has one: the
+    ResNet bench's trainers share these loops)."""
+    if hasattr(tr, "call"):
+        return tr.call(graph)
+    return (tr.step if graph else tr.eager_step)(*tr.data)
 
 
 def timed(tr, steps, graph=True):
@@ -125,13 +190,12 @@ def timed(tr, steps, graph=True):
     ``steps // inner`` calls of the graph (``tr.step``) or the eager step
     on the host clock, ending in a sync. Returns ``(seconds a step, the
     last loss)``."""
-    fn = tr.step if graph else tr.eager_step
-    fn(*tr.data)                # warm-up: builds the kernels, cuBLAS
-    fn(*tr.data)[-1].item()     # sync
+    _call(tr, graph)            # warm-up: builds the kernels, cuBLAS
+    _call(tr, graph)[-1].item()  # sync
     n_calls = max(1, steps // tr.inner)
     t0 = time.perf_counter()
     for _ in range(n_calls):
-        losses = fn(*tr.data)
+        losses = _call(tr, graph)
     last = losses[-1].item()
     return (time.perf_counter() - t0) / (n_calls * tr.inner), last
 
@@ -153,9 +217,8 @@ def profile_step(tr, group=_group, top=15, graph=False):
     the card is idle, its launches, and the ``top`` kernels that took the
     most device time. With ``graph`` the step is one replay of its CUDA
     graph, else one eager step."""
-    fn = tr.step if graph else tr.eager_step
-    fn(*tr.data)
-    fn(*tr.data)
+    _call(tr, graph)
+    _call(tr, graph)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -164,7 +227,7 @@ def profile_step(tr, group=_group, top=15, graph=False):
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         start.record()
-        fn(*tr.data)
+        _call(tr, graph)
         end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -205,6 +268,10 @@ def main(argv=None):
                     help="AdamW(flat_arena=True)")
     ap.add_argument("--token-types", action="store_true",
                     help="feed segment ids too (make_token_types)")
+    ap.add_argument("--recipe", action="store_true",
+                    help="amp O2, the warm-up and decay schedule, global "
+                         "norm clipping and the loss scaler (RECIPE); "
+                         "forces --inner 1")
     ap.add_argument("--arms", default="graph",
                     help="comma-separated arms to time: graph (the "
                          "step's CUDA graph), eager; two arms run in "
@@ -224,19 +291,23 @@ def main(argv=None):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+    if args.recipe:
+        args.inner = 1
     on = [k for k in args.kernels.split(",") if k]
     kernels.configure(**dict.fromkeys(on, True))
     opt_kw = {k: True for k in ("use_fused", "use_multi_tensor",
                                 "flat_arena") if getattr(args, k)}
     trainers = {a: Trainer(args.batch, args.seq, args.inner, opt_kw=opt_kw,
-                           token_types=args.token_types) for a in arms}
+                           token_types=args.token_types, recipe=args.recipe)
+                for a in arms}
     runs = {a: [] for a in arms}
     for a in arms + arms[::-1] if len(arms) > 1 else arms:
         runs[a].append(timed(trainers[a], args.steps, a == "graph"))
     del trainers
     rec = dict(batch=args.batch, seq=args.seq, steps=args.steps,
                inner=args.inner, kernels_on=on, optimizer=opt_kw,
-               token_types=args.token_types, card=smi, arms={})
+               token_types=args.token_types, recipe=args.recipe, card=smi,
+               arms={})
     for a in arms:
         dt = float(np.median([r[0] for r in runs[a]]))
         rec["arms"][a] = dict(tokens_per_s=args.batch * args.seq / dt,
@@ -245,7 +316,7 @@ def main(argv=None):
         if args.profile:
             rec["arms"][a]["profile"] = profile_step(
                 Trainer(args.batch, args.seq, 1, opt_kw=opt_kw,
-                        token_types=args.token_types),
+                        token_types=args.token_types, recipe=args.recipe),
                 top=args.top, graph=a == "graph")
     print(json.dumps(rec), flush=True)
     if args.out:

@@ -806,6 +806,354 @@ def test_adamw_routes_on_card_match_the_plain_route(cuda_device,
         assert torch.equal(p, q)
 
 
+def _state_as(shape, dtypes, device, seed):
+    """Adam state with p, g, m and v in ``dtypes`` (names)."""
+    p, g, m, v = _adam_state(shape, torch.float32, device, seed)
+    return tuple(t.to(getattr(torch, d)) for t, d in zip((p, g, m, v),
+                                                        dtypes))
+
+
+def _skip_flag(device, skip):
+    return torch.tensor(bool(skip), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtypes", [
+    ("bfloat16", "bfloat16", "float32", "float32"),
+    ("bfloat16", "float32", "float32", "float32"),
+    ("float32", "bfloat16", "float32", "float32"),
+    ("float32", "float32", "float32", "float32")])
+@pytest.mark.parametrize("shape", [(30522, 768), (1000, 77), (5,)])
+def test_fused_adam_takes_bf16_and_the_skip_flag(cuda_device, shape,
+                                                 dtypes, skip):
+    """#8 with bf16 p and g read in place (no float32 copy) and the skip
+    flag on the card: the plain version's bits (p rounded once), and with
+    the flag set every tensor bit-equal to before."""
+    p, g, m, v = _state_as(shape, dtypes, cuda_device, 3)
+    before = [t.clone() for t in (p, m, v)]
+    lr, b1p, b2p = (torch.tensor(x, device=cuda_device)
+                    for x in (1e-3, 0.9 ** 3, 0.999 ** 3))
+    flag = _skip_flag(cuda_device, skip)
+    want = FAD.adam_plain(p, g, m, v, FAD.scalars(cuda_device, lr, b1p, b2p,
+                                                  0.0, flag))
+    n = kernels.launches["fused_adam"]
+    got = FAD.fused_adam_update(p, g, m, v, lr, b1p, b2p, skip=flag)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam"] == n + 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    _close_adam(got, want)
+    if skip:
+        assert all(torch.equal(a, b) for a, b in zip(got, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+def test_fused_adam_multi_takes_mixed_dtypes_and_the_skip_flag(cuda_device,
+                                                               skip):
+    """#9 over tensors whose p and g are each bf16 or float32 (one launch
+    reads every one in its own dtype), against the plain version."""
+    shapes = [(30522, 768), (768,), (2, 768), (768, 3072), (7,), (1,)]
+    combos = [("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+              ("float32", "bfloat16"), ("float32", "float32")]
+    states = [_state_as(s, combos[i % 4] + ("float32", "float32"),
+                        cuda_device, 10 + i) for i, s in enumerate(shapes)]
+    ps, gs, ms, vs = (list(t) for t in zip(*states))
+    before = [t.clone() for t in ps + ms + vs]
+    lr, b1p, b2p = (torch.tensor(x, device=cuda_device)
+                    for x in (1e-3, 0.9 ** 2, 0.999 ** 2))
+    flag = _skip_flag(cuda_device, skip)
+    scal = FAD.scalars(cuda_device, lr, b1p, b2p, 0.01, flag)
+    want = [FAD.adam_plain(*st, scal, decay=True) for st in states]
+    n = kernels.launches["fused_adam_multi"]
+    _, ms2, vs2 = FAD.fused_adam_update_multi(ps, gs, ms, vs, lr, b1p, b2p,
+                                              weight_decay=0.01, skip=flag)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam_multi"] == n + 1
+    assert all(a is b for a, b in zip(ms2 + vs2, ms + vs))
+    for got, w in zip(zip(ps, ms, vs), want):
+        _close_adam(got, w)
+    if skip:
+        assert all(torch.equal(a, b) for a, b in zip(ps + ms + vs, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1024 * 107, 1024 * 37 + 0])
+def test_fused_adam_flat_takes_a_bf16_group_and_the_skip_flag(
+        cuda_device, n, dtype, skip):
+    """#10 over a group whose p, g, m and v are all bf16 (the reference
+    arena's layout) or all float32: float32 arithmetic, one rounding on
+    store, the plain version's bits; a view one element off 16 bytes
+    takes the element path."""
+    dt = getattr(torch, dtype)
+    p, g, m, v = _state_as((n,), (dtype,) * 4, cuda_device, 5)
+    lr, b1p, b2p = (torch.tensor(x, device=cuda_device)
+                    for x in (1e-3, 0.9 ** 4, 0.999 ** 4))
+    flag = _skip_flag(cuda_device, skip)
+    scal = FAD.scalars(cuda_device, lr, b1p, b2p, 0.01, flag)
+    for off in (0, 1):
+        bufs = []
+        for t in (p, g, m, v):
+            b = torch.zeros(n + 1, dtype=dt, device=cuda_device)[off:off + n]
+            b.copy_(t)
+            bufs.append(b)
+        before = [t.clone() for t in bufs]
+        want = FAD.adam_plain(*bufs, scal, decay=True)
+        k = kernels.launches["fused_adam_flat"]
+        FAD.fused_adam_update_flat(*bufs, lr, b1p, b2p, weight_decay=0.01,
+                                   skip=flag)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_adam_flat"] == k + 1
+        got = (bufs[0], bufs[2], bufs[3])
+        for a, w in zip(got, want):
+            assert a.dtype == dt
+            torch.testing.assert_close(a, w.to(dt), rtol=2 ** -23, atol=0.0)
+        if skip:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(bufs, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["plain", "use_fused", "multi", "arena"])
+def test_o2_adamw_routes_skip_an_overflow_bit_equal(cuda_device,
+                                                    kernel_switch, route):
+    """A bf16 (O2) model stepped by AdamW under a GradScaler on each
+    route: the kernel routes launch their kernel each step, and a step
+    forced to overflow leaves every parameter, slot, arena buffer and pow
+    bit-equal, halves the scale and zeroes the good count."""
+    from paddle_tpu_torch import amp, clip
+    torch.manual_seed(0)
+    model = nn.Sequential(nn.Linear(64, 96), nn.Linear(96, 33)).to(
+        cuda_device)
+    kw = {"plain": dict(use_multi_tensor=False, use_fused=False),
+          "use_fused": dict(use_fused=True, use_multi_tensor=False),
+          "multi": dict(use_multi_tensor=True),
+          "arena": dict(flat_arena=True)}[route]
+    kernel_switch(fused_adam_multi=route == "arena")
+    opt = optimizer.AdamW(learning_rate=1e-3, parameters=list(
+        model.parameters()), grad_clip=clip.ClipGradByGlobalNorm(1.0), **kw)
+    amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    x = torch.randn(8, 64, device=cuda_device)
+
+    def step():
+        with amp.auto_cast(level="O2"):
+            y = model(x)
+        scaler.scale((y.float() ** 2).mean() * 100).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+
+    kernels.reset_launches()
+    for _ in range(2):
+        step()
+    want = {"plain": {}, "use_fused": {"fused_adam": 8},
+            "multi": {"fused_adam_multi": 2},
+            "arena": {"fused_adam_flat": 2}}[route]
+    assert {k: n for k, n in kernels.launches.items() if n} == want
+    state = [t.clone() for t in _optimizer_state(opt, model)]
+    scaler.set_state_dict({"scale": 3.4e38, "good": 1, "bad": 0})
+    step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in
+               zip(_optimizer_state(opt, model), state))
+    assert scaler.state_dict() == {"scale": float(torch.tensor(3.4e38) * 0.5),
+                                   "good": 0, "bad": 0}
+
+
+def _optimizer_state(opt, model):
+    """Every tensor a step may write: parameters, slots, arena buffers and
+    pows."""
+    out = list(model.parameters())
+    for slots in opt._accumulators.values():
+        out += list(slots.values())
+    if opt._arena is not None:
+        for grp in opt._arena.groups:
+            out += [grp.flat] + list(grp.slots.values()) + \
+                list(grp.pows.values())
+    return out
+
+
+def _recipe_mlp_arms(device, route):
+    """Two identical bf16 (O2) MLPs, each with the recipe's AdamW (a
+    warm-up and decay schedule, ``ClipGradByGlobalNorm(1.0)``) on
+    ``route`` and a ``GradScaler``: ``(model, opt, sched, scaler, step)``
+    each."""
+    from paddle_tpu_torch import amp, clip
+    from paddle_tpu_torch.optimizer import lr
+    torch.manual_seed(0)
+    first = nn.Sequential(nn.Linear(256, 512), nn.ReLU(),
+                          nn.Linear(512, 64)).to(device)
+    kw = {"plain": dict(use_multi_tensor=False, use_fused=False),
+          "use_fused": dict(use_fused=True, use_multi_tensor=False),
+          "multi": dict(use_multi_tensor=True),
+          "arena": dict(flat_arena=True)}[route]
+    arms = []
+    for model in (first, copy.deepcopy(first)):
+        sched = lr.LinearWarmup(lr.PolynomialDecay(1e-3, decay_steps=20),
+                                warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+        opt = optimizer.AdamW(learning_rate=sched, parameters=list(
+            model.parameters()), grad_clip=clip.ClipGradByGlobalNorm(1.0),
+            **kw)
+        amp.decorate(model, opt, level="O2")
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10,
+                                incr_every_n_steps=2)
+
+        def step(x, y, model=model, opt=opt, scaler=scaler):
+            with amp.auto_cast(level="O2"):
+                d = model(x).float() - y
+            loss = (d * d).mean()
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            opt.clear_grad()
+            return loss.detach()
+
+        arms.append((model, opt, sched, scaler, step))
+    return arms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["plain", "use_fused", "multi", "arena"])
+def test_recipe_graph_replays_a_rate_and_scale_set_from_the_host(
+        cuda_device, kernel_switch, route):
+    """The recipe on a bf16 MLP (no atomic sums, so the graphed and the
+    eager step agree to the bit) on each optimizer route, graphed by
+    ``jit.to_static`` against the same step made eagerly, over 7 calls
+    with the scheduler stepped between them: before the fourth the rate
+    (3e-3) and a scale that is no power of two (1000) are set from the
+    host, and the fifth is forced to overflow (the scale set back after
+    it). After each call the
+    losses, every parameter, slot, arena buffer and pow, and the scaler's
+    state are equal bit for bit; the parameters move on every call but
+    the first (rate 0) and the overflowed one, which leaves all the state
+    as it was; one capture, the kernel route's launches each call."""
+    from paddle_tpu_torch import jit
+    kernel_switch(fused_adam_multi=route == "arena")
+    arms = _recipe_mlp_arms(cuda_device, route)
+    f = jit.to_static(arms[0][4])
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    batches = [(torch.randn(64, 256, device=cuda_device, generator=g),
+                torch.randn(64, 64, device=cuda_device, generator=g))
+               for _ in range(7)]
+    kernels.reset_launches()
+    for i, (x, y) in enumerate(batches):
+        for _, o, _, scaler, _ in arms:
+            if i == 3:
+                o.set_lr(3e-3)
+                scaler.set_state_dict({"scale": 1000.0, "good": 0,
+                                       "bad": 0})
+            if i == 4:
+                scaler.set_state_dict({"scale": 3.4e38, "good": 1,
+                                       "bad": 0})
+            if i == 5:
+                scaler.set_state_dict({"scale": 2.0 ** 10, "good": 0,
+                                       "bad": 0})
+        model, o = arms[1][0], arms[1][1]
+        params = [p.detach().clone() for p in model.parameters()]
+        state = [t.clone() for t in _optimizer_state(o, model)]
+        got, want = f(x, y), arms[1][4](x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert all(torch.equal(a, b) for a, b in zip(
+            *(_optimizer_state(o_, m_) for m_, o_, *_ in arms))), i
+        assert arms[0][3].state_dict() == arms[1][3].state_dict(), i
+        moved = [not torch.equal(a, b) for a, b in
+                 zip(model.parameters(), params)]
+        assert all(moved) == (i not in (0, 4)) and any(moved) == all(
+            moved), i
+        if i == 4:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(_optimizer_state(o, model), state))
+        for _, _, sched, _, _ in arms:
+            sched.step()
+    (entry,) = f._cache.values()
+    assert entry.graph is not None and entry.replays == len(batches) - 1
+    name, per_call = {"plain": (None, 0), "use_fused": ("fused_adam", 4),
+                      "multi": ("fused_adam_multi", 1),
+                      "arena": ("fused_adam_flat", 1)}[route]
+    launched = {k: n for k, n in kernels.launches.items()
+                if n and k.startswith("fused_adam")}
+    assert launched == ({name: per_call * 2 * len(batches)} if name
+                        else {})
+
+
+def _arena_apart(got, want, before):
+    """Elements of p, m and v (one arena group's buffers) not bit-equal
+    between ``got`` and ``want``, apart by more than one bf16 step, and
+    moved from ``before`` in ``want``: counts for each."""
+    out = {}
+    for name, a, b, b0 in zip("pmv", got, want, before):
+        a32, b32 = a.float(), b.float()
+        _, e = torch.frexp(torch.maximum(a32.abs(), b32.abs()))
+        step = torch.ldexp(torch.ones_like(a32), e - 8)
+        out[name] = dict(differ=int((a != b).sum()),
+                         beyond_step=int(((a32 - b32).abs() > step).sum()),
+                         moved=int((b != b0).sum()), n=b.numel())
+    return out
+
+
+@pytest.mark.cuda
+def test_recipe_graph_equals_eager_and_replays_new_rate_and_scale(
+        cuda_device, kernel_switch):
+    """The bench's recipe (O2, schedule, clip, scaler) on a 2-layer BERT,
+    flat arena and fused loss: the graphed step against the eager one
+    over 6 calls with the scheduler stepped between them and, before the
+    third, the rate (9e-5) and the scale (1000) set from the host on
+    both; the graphed trainer is given the eager one's arena before each
+    call, so each call is one update from one state. The same losses, the
+    device rate each call's, the scale 1000 doubled after 4 good steps,
+    no capture after the first; after each call the pows bit-equal
+    and, of p, m and v, at most a fifth as many elements not bit-equal as
+    the eager call moved (PyTorch's embedding backward sums with atomics,
+    so two eager arms part too) and at most 0.5% apart by more than one
+    bf16 step: a graph that updated nothing, or kept an earlier rate or
+    scale, parts wherever the eager call moved."""
+    kernel_switch(softmax_xent=True, fused_adam_multi=True)
+    arms = [bench_bert.Trainer(8, 64, 1, opt_kw=dict(flat_arena=True),
+                               token_types=True, recipe=True, **GRAPH_BERT)
+            for _ in range(2)]
+    for tr in arms:
+        tr.opt._ensure_all_slots()
+    bufs = [[t for grp in tr.opt._arena.groups for t in
+             [grp.flat] + list(grp.slots.values()) + list(grp.pows.values())]
+            for tr in arms]
+    losses = [[], []]
+    for i in range(6):
+        with torch.no_grad():
+            for a, b in zip(*bufs):
+                a.copy_(b)
+        rate = None
+        if i == 2:
+            rate = 9e-5
+            for tr in arms:
+                tr.opt.set_lr(rate)
+                tr.scaler.set_state_dict({"scale": 1000.0, "good": 0,
+                                          "bad": 0})
+        before = [t.clone() for t in bufs[1][:3]]
+        for arm, (tr, out) in enumerate(zip(arms, losses)):
+            want_rate = tr.sched.last_lr if rate is None else rate
+            assert float(next(iter(tr.opt._lr.values()))) == float(
+                torch.tensor(want_rate, dtype=torch.float32))
+            out.append(tr.call(graph=arm == 0))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(bufs[0][3:],
+                                                     bufs[1][3:])), i
+        apart = _arena_apart(bufs[0][:3], bufs[1][:3], before)
+        for name, c in apart.items():
+            assert c["beyond_step"] <= 5e-3 * c["n"], (i, apart)
+            if name == "m" or (name == "p" and i):
+                assert c["moved"] and 5 * c["differ"] <= c["moved"], \
+                    (i, apart)
+    (entry,) = arms[0].step._cache.values()
+    assert entry.replays == 5
+    for tr in arms:
+        assert tr.scaler.state_dict() == {"scale": 2000.0, "good": 0,
+                                          "bad": 0}
+    torch.testing.assert_close(torch.cat(losses[0]), torch.cat(losses[1]),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_bench_bert_fused_route_runs_two_steps(cuda_device, kernel_switch):
     kernel_switch(softmax_xent=True, fused_adam_multi=True)

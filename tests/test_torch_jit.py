@@ -317,7 +317,8 @@ def test_traced_layer_matches_the_references():
 
 @pytest.mark.parametrize("kw,item", [(dict(plan=object()), "item 19"),
                                      (dict(remat="full"), "items 8 and 20"),
-                                     (dict(scalers=[object()]), "item 6")])
+                                     (dict(remat="selective"),
+                                      "items 8 and 20")])
 def test_unported_options_raise_naming_their_items(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         jit.to_static(lambda x: x, **kw)

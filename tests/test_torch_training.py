@@ -219,9 +219,9 @@ def test_adam_l2_regularization_and_lr_match_jax():
 
 # use_fused, use_multi_tensor and flat_arena are held against the JAX
 # package in test_torch_xent_adam.py
-@pytest.mark.parametrize("kw", [dict(grad_clip=object())])
+@pytest.mark.parametrize("kw", [dict(grad_sync="exact")])
 def test_unported_optimizer_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 19"):
         optimizer.AdamW(parameters=[torch.nn.Parameter(torch.zeros(2))],
                         **kw)
 
