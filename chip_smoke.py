@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BERT-base serving and training paths, its
-ResNet-50 training path and its generative serving, plain and speculative,
+ResNet-50 training path (also fed by its input pipeline) and its
+generative serving, plain and speculative,
 with the KV hand-off between engines, the serving monitor,
 multi-replica serving under injected faults and disaggregated serving
 (a prefill pool and a decode pool), and its deployment path (save, load,
@@ -359,7 +360,32 @@ no CUDA card or no port beside it. Phases, each printed as JSON lines:
    trained parameter and #9 once a step. At dropout 0.1 the two arms are
    timed in turns (step ms, tokens/s) and one call of each is profiled
    (busy ms, idle share).
-22. the ``kernels`` line (all 16), the card's name and power limit, and
+22. pipeline: ResNet-50 (batch 128, 224x224, amp bf16, Momentum) trained
+   from ``tools/bench_resnet_pipeline``'s input pipeline, NCHW on the
+   plain batch norm and NHWC through the batch-norm kernels: 1,792 uint8
+   images in a ``TensorDataset`` behind ``DataLoader(shuffle=True,
+   drop_last=True, use_native=True, prefetch_to_device=2)`` (the C++
+   batcher fills page-locked slots; a thread copies each batch to the
+   card on its own stream), the step one CUDA graph replay a batch. An
+   epoch (14 batches; the first two warm up and capture), the step on
+   its one resident batch twice, then an epoch with the launch counts
+   zeroed just before (53 of each batch-norm kernel a step on the kernel
+   route, none on NCHW). Checks: (1) the native epoch assembled every
+   batch; (2) every batch that reached the card equals, bit for bit, the
+   batch a second loader with the same seed yields on the host; (3) a
+   fresh graphed trainer fed those host batches one call at a time gives
+   the same losses bit for bit; (4) in ``torch.profiler``, every copy of
+   the batch's size is ``Pinned -> Device`` on a stream that runs none of
+   the step's kernels; (5) a 2-slot batcher under a consumer that sleeps
+   50 ms a batch still gives the host batcher's batches; (6) an injected
+   transient ``loader`` fault is retried and one past the retry budget is
+   counted in ``prefetch.drops`` (4 firings, 3 retries, 1 drop), every
+   batch arriving in order; (7) afterwards no prefetch or loader thread,
+   no worker process and no batcher worker is left. Reported: the loader
+   alone (images/s), the pipeline against the resident batch (ms a step,
+   images/s), ``prefetch.stall_seconds`` a step, the card's idle share
+   and the host-to-device copies by stream and source.
+23. the ``kernels`` line (all 16), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. ``--out`` also
@@ -5147,6 +5173,231 @@ def recipe_timed(np, torch, smi):
     return res
 
 
+# -- phase 22: ResNet-50 trained from the input pipeline ------------------------
+
+PIPE_STEPS = 12              # timed steps an epoch; an epoch is 14 batches
+PIPE_PROFILE_STEPS = 4
+PIPE_SLOW_S = 0.05           # the slow consumer's sleep a batch (check 5)
+PIPE_FAULT_BATCHES = 6       # the fault check's epoch (check 6)
+PIPE_THREADS = ("paddle_tpu_torch-prefetch", "paddle_tpu_torch-loader")
+
+
+def batches_equal(torch, got, want):
+    """Whether device batches ``got`` equal host batches ``want`` bit for
+    bit, batch by batch."""
+    return len(got) == len(want) and all(
+        g.dtype == torch.from_numpy(w[:0]).dtype and g.shape == w.shape
+        and bool(torch.equal(g, torch.from_numpy(w).to(g.device)))
+        for gb, wb in zip(got, want) for g, w in zip(gb, wb))
+
+
+def pipeline_h2d(prof, batch_bytes):
+    """Check 4 on a ``profile_pipeline`` record: the batch's copies are
+    ``Pinned -> Device`` on a stream that runs no kernel of the step, and
+    no pageable copy of that size appears."""
+    big = [r for r in prof["h2d"] if batch_bytes in r["sizes"]]
+    check(big and all(r["source"] == "Pinned" for r in big),
+          f"pipeline: the batch's host-to-device copies are not all from "
+          f"pinned memory: {prof['h2d']}")
+    check(all(r["stream"] not in prof["kernel_streams"] for r in big),
+          f"pipeline: the batch's copies share a stream with the step's "
+          f"kernels: {big}, kernels on {prof['kernel_streams']}")
+    check(sum(r["count"] for r in big) >= PIPE_PROFILE_STEPS,
+          f"pipeline: {big} copies of the batch in "
+          f"{PIPE_PROFILE_STEPS} profiled steps")
+
+
+def pipeline_slow_consumer(torch, x, y):
+    """Check 5: a 2-slot pinned batcher feeding ``prefetch_to_device`` a
+    consumer that sleeps after every batch gives the host batcher's
+    batches bit for bit."""
+    from paddle_tpu_torch.io import native, prefetch_to_device
+    from paddle_tpu_torch.tools.bench_resnet_pipeline import SEED
+    kw = dict(batch_size=RESNET_BATCH, shuffle=True, drop_last=True,
+              seed=SEED, prefetch_slots=2)
+    pinned = native.NativeBatcher([x, y], pin_memory=True, **kw)
+    got = []
+    for xb, yb in prefetch_to_device(pinned.slots(), size=2):
+        time.sleep(PIPE_SLOW_S)
+        got.append((xb, yb))
+    want = list(native.NativeBatcher([x, y], **kw))
+    check(len(got) == len(x) // RESNET_BATCH
+          and batches_equal(torch, got, want),
+          "pipeline: a 2-slot batcher under a slow consumer gave other "
+          "batches than the host batcher")
+    check(not pinned.running, "pipeline: the batcher's worker outlived its "
+          "epoch")
+    return len(got)
+
+
+def pipeline_faults(torch, x, y):
+    """Check 6: a transient ``loader`` fault is retried, and one past the
+    retry budget is dropped and counted in ``prefetch.drops``; every batch
+    still arrives, in order."""
+    from paddle_tpu_torch import io, monitor
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.tools.bench_resnet_pipeline import SEED
+    n = RESNET_BATCH * PIPE_FAULT_BATCHES
+    names = ("prefetch.drops", "resilience.retry", "resilience.drop",
+             "resilience.fault_injected")
+    was_on = monitor.enabled()
+    monitor.enable()
+    before = {k: monitor.registry().value(k, 0) for k in names}
+    faults.inject("loader", step=1, times=1)
+    faults.inject("loader", step=3, times=3)   # the default budget: 3
+    try:
+        # with faults registered the loader assembles through its sampler
+        # and the fault site (prefetch_factor=1: in the prefetch thread,
+        # one batch at a time, so the two sites meet one batch index)
+        loader = io.DataLoader(io.TensorDataset(x[:n], y[:n]),
+                               batch_size=RESNET_BATCH, shuffle=True,
+                               drop_last=True, prefetch_factor=1,
+                               prefetch_to_device=2, seed=SEED)
+        got = list(loader)
+    finally:
+        faults.clear()
+        counts = {k: monitor.registry().value(k, 0) - before[k]
+                  for k in names}
+        if not was_on:
+            monitor.disable(flush_counters=False)
+    want = list(io.DataLoader(io.TensorDataset(x[:n], y[:n]),
+                              batch_size=RESNET_BATCH, shuffle=True,
+                              drop_last=True, seed=SEED, use_native=False))
+    check(counts == {"prefetch.drops": 1, "resilience.retry": 3,
+                     "resilience.drop": 1,
+                     "resilience.fault_injected": 4},
+          f"pipeline: fault counts {counts}")
+    check(batches_equal(torch, got, want),
+          "pipeline: the batches under injected faults differ from the "
+          "host loader's")
+    return counts
+
+
+def pipeline_route(np, torch, smi, route, data_format):
+    """Checks 1-7 of phase 22 and the route's numbers (module docstring)."""
+    from paddle_tpu_torch import monitor, nn
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.tools import bench_resnet_pipeline as BRP
+    from paddle_tpu_torch.tools.bench_resnet import Trainer
+    import multiprocessing
+    t0 = time.perf_counter()
+    per_step = RESNET_BN_LAYERS if route == "kernels" else 0
+    x, y = BRP.make_dataset(RESNET_BATCH, PIPE_STEPS, data_format,
+                            RESNET_SIZE)
+    batches = len(x) // RESNET_BATCH
+    loader_ips = BRP.loader_rate(x, y, RESNET_BATCH)
+    host_side = BRP.host_rates(x, y, RESNET_BATCH)
+    tr = Trainer(RESNET_BATCH, 1, data_format, size=RESNET_SIZE)
+    check(sum(isinstance(m, nn.BatchNorm) for m in tr.model.modules())
+          == RESNET_BN_LAYERS, "pipeline: the model is not ResNet-50")
+    loader = BRP.make_loader(x, y, RESNET_BATCH, "cuda")
+    nat = loader._native_epoch
+    check(nat is not None and nat.pin_memory,
+          "pipeline: the loader has no pinned native epoch")
+    was_on = monitor.enabled()
+    monitor.enable()
+    try:
+        stall0 = monitor.registry().value("prefetch.stall_seconds", 0.0)
+        # turn 1: epoch 0, the first two batches warm up and capture
+        e0 = BRP.pipeline_epoch(tr, loader, skip=2, keep=True)
+        # check 1: every batch assembled by the native epoch
+        check(nat.batches == batches and len(e0["batches"]) == batches,
+              f"pipeline: {nat.batches} of {batches} batches came from the "
+              f"native epoch")
+        res = [BRP.resident_run(tr, PIPE_STEPS) for _ in range(2)]
+        # turn 4, counted: the path's launches, zeroed just before
+        kernels.reset_launches()
+        e1 = BRP.pipeline_epoch(tr, loader, skip=1)
+        launches = {k: kernels.launches[k] for k in BN_KERNELS}
+        stall = monitor.registry().value("prefetch.stall_seconds",
+                                         0.0) - stall0
+    finally:
+        if not was_on:
+            monitor.disable(flush_counters=False)
+    check(all(n == per_step * batches for n in launches.values()),
+          f"pipeline ({route}): batch-norm launches {launches} in "
+          f"{batches} steps, want {per_step} a step")
+    prof = BRP.profile_pipeline(tr, loader, PIPE_PROFILE_STEPS)
+    batch_bytes = x[:RESNET_BATCH].nbytes
+    pipeline_h2d(prof, batch_bytes)
+    losses = torch.stack(e0["losses"]).tolist()
+    check(all(math.isfinite(v) for v in losses),
+          f"pipeline ({route}): non-finite loss in {losses}")
+    del tr, loader
+    gc.collect()    # the trainer and its graph form a cycle
+    torch.cuda.empty_cache()
+
+    # checks 2 and 3: a second loader with the same seed, on the host,
+    # feeding a fresh graphed trainer one call at a time
+    host = list(BRP.make_loader(x, y, RESNET_BATCH, "cpu", prefetch=0))
+    check(batches_equal(torch, e0["batches"], host),
+          f"pipeline ({route}): a batch on the card differs from the host "
+          f"loader's")
+    ref = Trainer(RESNET_BATCH, 1, data_format, size=RESNET_SIZE)
+    ref_losses = [ref.step(torch.from_numpy(xb).cuda()[None],
+                           torch.from_numpy(yb).cuda()[None])[-1]
+                  for xb, yb in host]
+    ref_losses = torch.stack(ref_losses).tolist()
+    check(ref_losses == losses,
+          f"pipeline ({route}): losses fed by the pipeline {losses} are not "
+          f"bit-equal to those fed the host batches {ref_losses}")
+    del ref
+    e0["batches"].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    slow = pipeline_slow_consumer(torch, x, y)
+    fault_counts = pipeline_faults(torch, x, y)
+    # check 7: nothing of the pipeline left running
+    gc.collect()
+    left = [t.name for t in threading.enumerate() if t.name in PIPE_THREADS]
+    check(not left and not multiprocessing.active_children()
+          and not nat.running,
+          f"pipeline: left running: threads {left}, processes "
+          f"{multiprocessing.active_children()}, batcher {nat.running}")
+    pipe = [e["seconds"] / e["steps"] * 1e3 for e in (e0, e1)]
+    pipe_ms = float(np.median(pipe))
+    res_ms = float(np.median(res)) * 1e3
+    rec = dict(phase="pipeline", route=route, data_format=data_format,
+               card=smi, batch=RESNET_BATCH, size=RESNET_SIZE,
+               batches_an_epoch=batches,
+               loader_images_per_s=loader_ips, **host_side,
+               pipeline_step_ms=pipe_ms,
+               pipeline_images_per_s=RESNET_BATCH / pipe_ms * 1e3,
+               pipeline_step_ms_runs=pipe,
+               resident_step_ms=res_ms,
+               resident_step_ms_runs=[r * 1e3 for r in res],
+               resident_images_per_s=RESNET_BATCH / res_ms * 1e3,
+               pipeline_over_resident=res_ms / pipe_ms,
+               stall_s_per_step=stall / (2 * batches),
+               wait_ms_per_step=(e0["wait_s"] + e1["wait_s"]) /
+               (e0["steps"] + e1["steps"]) * 1e3,
+               launches=launches, idle_share=prof["idle_share"],
+               profile=prof, losses=losses, slow_consumer_batches=slow,
+               fault_counts=fault_counts,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def pipeline_phase(np, torch, smi):
+    """Phase 22: both routes, NCHW on the plain batch norm (the
+    reference's ``bench_resnet_pipeline``) and NHWC through the
+    batch-norm kernels."""
+    from paddle_tpu_torch.ops import kernels
+    recs = {}
+    for route, fmt, on in (("default", "NCHW", None),
+                           ("kernels", "NHWC", True)):
+        kernels.configure(batch_norm=on)
+        try:
+            recs[route] = pipeline_route(np, torch, smi, route, fmt)
+        finally:
+            kernels.configure(batch_norm=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -5411,7 +5662,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     recipe, recipe_kernels = recipe_phase(np, torch, FAD, smi, gen)
 
-    # 22. the kernels line, the card, and the verdict
+    # 22. ResNet-50 trained from the input pipeline: the DataLoader over
+    # the C++ batcher into pinned slots, prefetched on a copy stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_phase(np, torch, smi)
+
+    # 23. the kernels line, the card, and the verdict
     csrc = "paddle_tpu_torch/csrc/"
     pallas = "paddle_tpu/ops/pallas/"
     fb = fab[0]

@@ -60,7 +60,8 @@ exported as a ``torch.export`` program::
 """
 from . import device, random, amp, initializer, nn, ops, models, inference
 from . import io, resilience, serving, convert, regularizer, optimizer, jit
-from . import quantization, clip
+from . import quantization, clip, reader, dataset
+from .reader import batch
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .device import get_device, set_device
 from .optimizer import lr
@@ -69,5 +70,6 @@ from .random import seed
 __all__ = ["device", "random", "amp", "initializer", "nn", "ops", "models",
            "inference", "io", "resilience", "serving", "convert",
            "regularizer", "optimizer", "jit", "quantization", "clip", "lr",
+           "reader", "dataset", "batch",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "get_device", "set_device", "seed"]

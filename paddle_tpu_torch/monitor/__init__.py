@@ -36,10 +36,13 @@ variables carry the port's prefix:
 :mod:`~paddle_tpu_torch.monitor.xla` keeps the cost that
 ``Predictor.compile_report`` measures (its ``aot_capture``, ``hlo_text``,
 ``executable`` and ``measured_mfu`` raise).
+:mod:`~paddle_tpu_torch.monitor.sampler` samples device memory, the host's
+resident set and registered queue depths (``prefetch.queue_depth``) as
+gauges, when started.
 
 Not ported (ROADMAP.md Queue A item 20): the dispatch hook
 (``time_dispatch``), ``serve`` (the ``/metrics`` endpoint), ``step`` /
-``mfu``, ``export``, ``sampler``, ``profile``, ``memory``, ``fleet`` and
+``mfu``, ``export``, ``profile``, ``memory``, ``fleet`` and
 ``alerts``. The arguments and environment variables that
 would start them (``time_dispatch=``, ``telemetry_dir=``,
 ``PADDLE_TPU_TORCH_MONITOR_TIME_DISPATCH``,

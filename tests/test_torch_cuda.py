@@ -14,12 +14,13 @@ one float32 step (rtol 2^-23) in the parameter and the moments, and the
 many-tensor and arena kernels to identical bits.
 """
 import copy
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import nn, optimizer
+from paddle_tpu_torch import io, nn, optimizer
 from paddle_tpu_torch.inference import Predictor
 from paddle_tpu_torch.models import Bert, BertConfig, BertForPretraining
 from paddle_tpu_torch.ops import kernels
@@ -2267,3 +2268,115 @@ def test_quant_aware_step_as_a_cuda_graph_advances_the_observer(
                                rtol=1e-5)
     np.testing.assert_allclose(runs["graph"][1], runs["eager"][1],
                                rtol=1e-5)
+
+
+# -- the input pipeline: pinned slots, the copy stream, the hand-over ----------
+
+def _pipeline_data(n=96, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (n, 3, 16, 16)).astype("u1"),
+            rng.randint(0, 10, (n,)).astype("i8"))
+
+
+@pytest.mark.cuda
+def test_pinned_slots_go_back_only_after_their_copy(cuda_device,
+                                                    monkeypatch):
+    """Each batch leaves for the card from its page-locked slot, on a
+    stream that is not the consumer's, and the slot goes back to the
+    batcher only once every copy on that stream is done; the batches are
+    the host batcher's, bit for bit, with int64 labels as int32."""
+    from paddle_tpu_torch.io import native, prefetch_to_device
+    x, y = _pipeline_data()
+    kw = dict(batch_size=8, shuffle=True, drop_last=True, seed=3,
+              prefetch_slots=2)
+    b = native.NativeBatcher([x, y], pin_memory=True, **kw)
+    seen = []
+    release = native.SlotBatch.release
+
+    def checked(self):
+        if self._release is not None:
+            s = torch.cuda.current_stream()
+            seen.append((s != torch.cuda.default_stream(), s.query(),
+                         all(t.is_pinned() for t in self.pinned)))
+        release(self)
+
+    monkeypatch.setattr(native.SlotBatch, "release", checked)
+    got = []
+    for xb, yb in prefetch_to_device(b.slots(), size=2):
+        time.sleep(0.01)    # a slow consumer: the producer runs ahead
+        got.append((xb.cpu().numpy(), yb.cpu().numpy()))
+    want = list(native.NativeBatcher([x, y], **kw))
+    assert len(got) == len(want) == len(seen) == 12
+    assert all(all(s) for s in seen)
+    for (gx, gy), (wx, wy) in zip(got, want):
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy.astype("i4"))
+        assert gy.dtype == np.int32
+    assert not b.running
+
+
+@pytest.mark.cuda
+def test_handed_over_batches_wait_for_their_copy_and_are_recorded(
+        cuda_device, monkeypatch):
+    """The consumer's stream waits on each batch's copy event, and every
+    tensor is recorded on it, so that its memory is not reused while the
+    step reads it; a busy consumer stream reads the right values."""
+    from paddle_tpu_torch.io import prefetch_to_device
+    recorded = []
+    orig = torch.Tensor.record_stream
+
+    def spy(self, stream):
+        recorded.append(stream)
+        return orig(self, stream)
+
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    rng = np.random.RandomState(1)
+    batches = [(rng.rand(64, 64).astype("f4"), np.arange(4) + i)
+               for i in range(6)]
+    big = torch.randn(4096, 4096, device=cuda_device)
+    sums = []
+    for xb, ib in prefetch_to_device(iter(batches), size=3):
+        big = big @ big / 64.0          # keep the consumer's stream busy
+        sums.append((xb.sum(), ib.clone()))
+    assert len(recorded) == 12 and all(
+        s == torch.cuda.current_stream() for s in recorded)
+    for (s, ib), (xb, want_i) in zip(sums, batches):
+        assert abs(float(s) - float(xb.sum())) <= 1e-3 * abs(float(xb.sum()))
+        assert ib.dtype == torch.int32 and ib.tolist() == want_i.tolist()
+
+
+@pytest.mark.cuda
+def test_dataloader_for_the_card_feeds_a_graphed_step_bit_equal(
+        cuda_device):
+    """``DataLoader(prefetch_to_device=2)`` on the card: the native epoch
+    fills pinned slots, its batches equal the host loader's, and a small
+    ResNet's graphed losses fed from it equal those of the same step fed
+    the host batches one call at a time."""
+    from paddle_tpu_torch.models import resnet
+    x, y = _pipeline_data(64)
+    y = y.astype("i4")
+    kw = dict(batch_size=8, shuffle=True, drop_last=True, seed=7)
+    dl = io.DataLoader(io.TensorDataset(x, y), prefetch_to_device=2, **kw)
+    assert dl._native_epoch.pin_memory
+    host = list(io.DataLoader(io.TensorDataset(x, y), **kw))
+    losses = {}
+    for arm in ("pipeline", "host"):
+        tr = bench_resnet.Trainer(8, 1, "NCHW", cuda_device, 16,
+                                  model_fn=resnet.ResNet,
+                                  block=resnet.BottleneckBlock,
+                                  depths=[1, 1, 1, 1], num_classes=10)
+        feed = dl if arm == "pipeline" else (
+            (torch.from_numpy(a).to(cuda_device),
+             torch.from_numpy(b).to(cuda_device)) for a, b in host)
+        out = []
+        for xb, yb in feed:
+            if arm == "pipeline":
+                k = len(out)
+                assert torch.equal(xb.cpu(), torch.from_numpy(host[k][0]))
+                assert torch.equal(yb.cpu(), torch.from_numpy(host[k][1]))
+            out.append(tr.step(xb[None], yb[None])[-1])
+        losses[arm] = torch.stack(out).tolist()
+        del tr
+    assert len(losses["pipeline"]) == 8
+    assert losses["pipeline"] == losses["host"]
+    assert not dl._native_epoch.running
